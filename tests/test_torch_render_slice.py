@@ -129,4 +129,4 @@ def test_port_imports_neither_jax_nor_tnerf():
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 20
+    assert int(proc.stdout.split()[0]) >= 28  # the training slice's modules included

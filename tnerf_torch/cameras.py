@@ -81,3 +81,23 @@ def camera_rays(pose, width: int, height: int, focal_px, scene_scale: float = 1.
         directions=dirs_world,
         viewdirs_tp=viewdirs_to_thetaphi(dirs_world),
     )
+
+
+def pixel_rays(poses: torch.Tensor, pix_xy: torch.Tensor, width: int, height: int, focal_px,
+               scene_scale: float = 1.0) -> Rays:
+    """Rays of a flat batch of (pose, pixel) pairs, the training-batch path
+    (`tnerf/cameras.py:129`).  poses [B, 4, 4] camera-to-world, already
+    gathered per ray; pix_xy [B, 2] float pixel coordinates (x = column,
+    y = row), centers at +0.5 as in `pixel_directions_cam`."""
+    fx, fy, cx, cy = resolve_intrinsics(width, height, focal_px)
+    x = (pix_xy[..., 0] + 0.5 - cx) / fx
+    y = -(pix_xy[..., 1] + 0.5 - cy) / fy
+    dirs_cam = torch.stack([x, y, -torch.ones_like(x)], dim=-1)
+    # float32 broadcast-and-sum, as in camera_rays
+    dirs_world = torch.sum(poses[..., :3, :3] * dirs_cam[..., None, :], dim=-1)
+    dirs_world = dirs_world / torch.linalg.norm(dirs_world, dim=-1, keepdim=True)
+    return Rays(
+        origins=poses[..., :3, 3] * scene_scale,
+        directions=dirs_world,
+        viewdirs_tp=viewdirs_to_thetaphi(dirs_world),
+    )

@@ -1,11 +1,13 @@
-"""Command line of the port: `python -m tnerf_torch.cli eval|render`.
+"""Command line of the port: `python -m tnerf_torch.cli train|eval|render`.
 
-Serves a checkpoint written by the reference package (`tnerf.cli train`)
-through the fused frequency-MLP path on the card (`--device cuda`, the
-default) or through the plain PyTorch versions on the CPU
-(`--device cpu`).  Configs are the reference's JSON files; options this
-port does not run yet are refused (`train_loop.validate_ported`).
+Trains the fused frequency-MLP model, and serves a checkpoint written by
+this port or by the reference package (`tnerf.cli train`), on the card
+(`--device cuda`, the default) or through the plain PyTorch versions on
+the CPU (`--device cpu`).  Configs are the reference's JSON files; options
+this port does not run yet are refused (`train_loop.validate_ported`).
 
+    python -m tnerf_torch.cli train --config runs/suite_rehearsal/prims/config.json \\
+        --out runs/prims_torch
     python -m tnerf_torch.cli eval --config runs/suite_rehearsal/prims/config.json \\
         --checkpoint runs/suite_rehearsal/prims/checkpoints \\
         --override render.ray_compact=false
@@ -29,6 +31,8 @@ def _load_cfg(args) -> Config:
     cfg = Config.from_json_file(args.config) if args.config else Config()
     if args.override:
         cfg = cfg.apply_overrides(args.override)
+    if args.cmd == "train" and args.out:
+        cfg = cfg.apply_overrides([f"logging.out_dir={args.out}"])
     return cfg
 
 
@@ -43,7 +47,11 @@ def _parser() -> argparse.ArgumentParser:
                         help="config override key.path=value (repeatable)")
         sp.add_argument("--checkpoint", help="checkpoint dir (default: out_dir/checkpoints)")
         sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                        help="where to render (default cuda; cpu runs the plain versions)")
+                        help="where to run (default cuda; cpu runs the plain versions)")
+
+    sp = sub.add_parser("train", help="train a radiance field")
+    common(sp)
+    sp.add_argument("--out", help="output directory (overrides logging.out_dir)")
 
     sp = sub.add_parser("render", help="render one view (or an orbit) from a checkpoint")
     common(sp)
@@ -84,6 +92,12 @@ def _sync(dev: torch.device) -> None:
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     cfg = _load_cfg(args)
+
+    if args.cmd == "train":
+        from tnerf_torch.train_loop import run_training
+
+        print(json.dumps(run_training(cfg, device=args.device), indent=2))
+        return 0
 
     from tnerf_torch.data.dataset import load_data, scene_proc_kwargs, validate_scene_background
     from tnerf_torch.device import resolve_device

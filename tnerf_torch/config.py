@@ -472,6 +472,9 @@ class Config:
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
 
+    def to_json(self, **kw) -> str:
+        return json.dumps(self.to_dict(), indent=2, **kw)
+
     @classmethod
     def from_dict(cls, d: dict) -> "Config":
         """Strict: unknown sections/keys raise — a typoed knob must not

@@ -12,7 +12,10 @@
 //     density on lane 3;
 //   mask = mask_in * coarse_bit(o + t d) (coarse.cuh arithmetic);
 //   tau = sigma dt mask, w = T0 exp(-excl) (1 - exp(-tau));
-//   out = (sum w rgb, sum w, sum w t, T_final).
+//   out = (sum w rgb, sum w, sum w t, T_final);
+//   for training also tchk [B, ceil(S / 64)]: the transmittance at which
+//   each ray enters every 64th sample, from which the backward kernel
+//   (fused_backward.cu) restarts each of its chunks.
 // The TPU kernel's lane packing, chunk-major masks, one-hot bridges and
 // triangular/segment/pack matrices exist only for the TPU's lanes: here
 // each ray's samples are contiguous rows and per-ray sums are plain loops.
@@ -43,17 +46,19 @@
 #include <stdint.h>
 
 #include "coarse.cuh"
+#include "fused.cuh"
 
 namespace {
 
 using tnerf::Coarse;
+using tnerf::kBwdRows;
+using tnerf::kLanes;
+using tnerf::kStride;
 using tnerf::kWords;
 
-constexpr int kLanes = 128;            // feature and hidden width
 constexpr int kRows = 128;             // sample rows per tile
 constexpr int kWarps = 8;              // 16 rows each
 constexpr int kThreads = kWarps * 32;
-constexpr int kStride = kLanes + 8;    // padded smem row, in bf16
 
 struct Smem {
   __nv_bfloat16 act[kRows * kStride];  // activations of the tile's rows
@@ -66,47 +71,14 @@ struct Smem {
   float acc[kRows][5];                 // per ray: r, g, b, acc, depth
 };
 
-__device__ __forceinline__ void mma_bf16(float c[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// One layer for this warp's 16 rows: acc[nt] = act[rows] @ w[8nt..8nt+8]^T.
-template <int NT>
-__device__ __forceinline__ void warp_layer(const Smem& sm, int r0, int g, int tq,
-                                           float acc[][4]) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-#pragma unroll
-  for (int kt = 0; kt < kLanes / 16; ++kt) {
-    const int k0 = kt * 16 + 2 * tq;
-    const __nv_bfloat16* ar = sm.act + (r0 + g) * kStride + k0;
-    const uint32_t a0 = ld32(ar), a2 = ld32(ar + 8);
-    const uint32_t a1 = ld32(ar + 8 * kStride), a3 = ld32(ar + 8 * kStride + 8);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const __nv_bfloat16* br = sm.w + (nt * 8 + g) * kStride + k0;
-      mma_bf16(acc[nt], a0, a1, a2, a3, ld32(br), ld32(br + 8));
-    }
-  }
-}
-
 __global__ void __launch_bounds__(kThreads, 2)
 fused_forward_kernel(const __nv_bfloat16* __restrict__ wt, const float* __restrict__ bias,
                      const float* __restrict__ gamma, const float* __restrict__ beta,
                      const float* __restrict__ te_in, const float* __restrict__ dt_in,
                      const float* __restrict__ o, const float* __restrict__ d,
                      const float* __restrict__ mask, const uint32_t* __restrict__ words_in,
-                     float* __restrict__ out, int B, int S, int n_layers, int use_coarse,
-                     Coarse cg, float term_eps) {
+                     float* __restrict__ out, float* __restrict__ tchk, int B, int S,
+                     int n_layers, int use_coarse, Coarse cg, float term_eps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -115,6 +87,10 @@ fused_forward_kernel(const __nv_bfloat16* __restrict__ wt, const float* __restri
   const int R = kRows / ch;              // rays per tile
   const int ray0 = blockIdx.x * R;
   const int n_chunks = (S + ch - 1) / ch;
+  // tchk [B, n_sub]: the transmittance at which each ray enters every
+  // bch-th sample, for the backward kernel's chunks (null = not wanted).
+  const int bch = S < kBwdRows ? S : kBwdRows;
+  const int n_sub = (S + bch - 1) / bch;
 
   if (use_coarse)
     for (int i = tid; i < kWords; i += kThreads) sm.words[i] = words_in[i];
@@ -126,6 +102,15 @@ fused_forward_kernel(const __nv_bfloat16* __restrict__ wt, const float* __restri
   __syncthreads();
 
   for (int k = 0; k < n_chunks; ++k) {
+    if (tchk != nullptr) {
+      // a skipped chunk leaves T as it is, at all of its boundaries; the
+      // compositing loop below overwrites the inner ones otherwise
+      for (int j = tid; j < R; j += kThreads) {
+        if (ray0 + j >= B) continue;
+        for (int s = k * ch; s < S && s < (k + 1) * ch; s += bch)
+          tchk[(size_t)(ray0 + j) * n_sub + s / bch] = sm.T[j];
+      }
+    }
     // Phase 1: per-row depth and mask.
     bool any = false;
     for (int row = tid; row < kRows; row += kThreads) {
@@ -133,7 +118,7 @@ fused_forward_kernel(const __nv_bfloat16* __restrict__ wt, const float* __restri
       float m = 0.f, t = 0.f;
       if (j < R && ray < B && s < S) {
         const float te = te_in[ray], dt = dt_in[ray];
-        t = __fadd_rn(te, __fmul_rn(__fadd_rn((float)s, 0.5f), dt));
+        t = tnerf::sample_depth(te, dt, s);
         m = mask[(size_t)ray * S + s];
         if (use_coarse && m != 0.f) {
           const float x = __fadd_rn(o[3 * ray], __fmul_rn(t, d[3 * ray]));
@@ -159,8 +144,7 @@ fused_forward_kernel(const __nv_bfloat16* __restrict__ wt, const float* __restri
       float v = 0.f;
       if (j < R && ray < B && s < S) {
         const size_t gi = (size_t)ray * kLanes + f;
-        const float x = __fadd_rn(gamma[gi], __fmul_rn(__fadd_rn((float)s, 0.5f), beta[gi]));
-        v = f < 5 ? x : sinf(x);
+        v = tnerf::encode_feature(gamma[gi], beta[gi], s, f);
       }
       sm.act[row * kStride + f] = __float2bfloat16_rn(v);
     }
@@ -169,16 +153,12 @@ fused_forward_kernel(const __nv_bfloat16* __restrict__ wt, const float* __restri
     const int r0 = warp * 16;
     for (int l = 0; l < n_layers; ++l) {
       __syncthreads();  // activations written; previous layer's weights free
-      const uint4* src = reinterpret_cast<const uint4*>(wt + (size_t)l * kLanes * kLanes);
-      for (int i = tid; i < kLanes * kLanes / 8; i += kThreads) {
-        const int n = i >> 4, c = i & 15;
-        *reinterpret_cast<uint4*>(sm.w + n * kStride + c * 8) = src[i];
-      }
+      tnerf::stage_matrix(sm.w, wt + (size_t)l * kLanes * kLanes, tid, kThreads);
       __syncthreads();
       const float* bl = bias + l * kLanes;
       if (l + 1 < n_layers) {
         float acc[kLanes / 8][4];
-        warp_layer<kLanes / 8>(sm, r0, g, tq, acc);
+        tnerf::warp_gemm<kLanes / 8, kLanes / 16>(sm.act, sm.w, r0, 0, g, tq, acc);
         __syncwarp();  // this warp's rows are read; overwrite them in place
 #pragma unroll
         for (int nt = 0; nt < kLanes / 8; ++nt) {
@@ -191,7 +171,7 @@ fused_forward_kernel(const __nv_bfloat16* __restrict__ wt, const float* __restri
         }
       } else {
         float acc[1][4];
-        warp_layer<1>(sm, r0, g, tq, acc);
+        tnerf::warp_gemm<1, kLanes / 16>(sm.act, sm.w, r0, 0, g, tq, acc);
         if (tq < 2) {
           const int col = 2 * tq;
           sm.head[r0 + g][col] = acc[0][0] + bl[col];
@@ -208,11 +188,10 @@ fused_forward_kernel(const __nv_bfloat16* __restrict__ wt, const float* __restri
       const int j = row / ch, ray = ray0 + j;
       float* h = sm.head[row];
       if (j < R && ray < B) {
-        const float sig_x = h[3] - 1.f;  // softplus as jax.nn.softplus
-        const float sig = fmaxf(sig_x, 0.f) + log1pf(expf(-fabsf(sig_x)));
-        h[0] = 1.f / (1.f + expf(-h[0]));
-        h[1] = 1.f / (1.f + expf(-h[1]));
-        h[2] = 1.f / (1.f + expf(-h[2]));
+        const float sig = tnerf::density_softplus(h[3]);
+        h[0] = tnerf::sigmoidf(h[0]);
+        h[1] = tnerf::sigmoidf(h[1]);
+        h[2] = tnerf::sigmoidf(h[2]);
         h[3] = __fmul_rn(__fmul_rn(sig, dt_in[ray]), sm.m[row]);  // tau
       }
     }
@@ -224,6 +203,8 @@ fused_forward_kernel(const __nv_bfloat16* __restrict__ wt, const float* __restri
       for (int i = 0; i < ch && k * ch + i < S; ++i) {
         const int row = j * ch + i;
         const float tau = sm.head[row][3];
+        if (tchk != nullptr && i > 0 && (k * ch + i) % bch == 0)
+          tchk[(size_t)(ray0 + j) * n_sub + (k * ch + i) / bch] = T0 * expf(-incl);
         incl += tau;
         const float excl = incl - tau;
         const float w = T0 * expf(-excl) * (1.f - expf(-tau));
@@ -258,7 +239,7 @@ fused_forward_kernel(const __nv_bfloat16* __restrict__ wt, const float* __restri
 extern "C" int tnerf_fused_forward(const void* wt, const float* bias, const float* gamma,
                                    const float* beta, const float* te, const float* dt,
                                    const float* o, const float* d, const float* mask,
-                                   const int32_t* words, float* out, int B, int S,
+                                   const int32_t* words, float* out, float* tchk, int B, int S,
                                    int n_layers, int use_coarse, int res_c, float lo_x,
                                    float lo_y, float lo_z, float cell_x, float cell_y,
                                    float cell_z, float term_eps, void* stream) {
@@ -272,6 +253,7 @@ extern "C" int tnerf_fused_forward(const void* wt, const float* bias, const floa
   const int blocks = (B + R - 1) / R;
   fused_forward_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       reinterpret_cast<const __nv_bfloat16*>(wt), bias, gamma, beta, te, dt, o, d, mask,
-      reinterpret_cast<const uint32_t*>(words), out, B, S, n_layers, use_coarse, cg, term_eps);
+      reinterpret_cast<const uint32_t*>(words), out, tchk, B, S, n_layers, use_coarse, cg,
+      term_eps);
   return (int)cudaGetLastError();
 }

@@ -7,6 +7,8 @@ running on the CPU.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -22,3 +24,17 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Hold TF32 off for float32 matrix products on the card while the
+    block runs, and put the process's setting back afterwards: the plain
+    versions emulate bf16 x bf16 -> f32 with f32 products, which TF32's
+    10-bit mantissa would break."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

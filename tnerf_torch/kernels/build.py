@@ -29,9 +29,12 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 PROTOTYPES = {
     # o, d, te, tx, words, t0, t1, n, res_c, lo xyz, cell xyz, probes, pad_diag, stream
     "tnerf_tighten_range": [P] * 7 + [I, I] + [F] * 6 + [I, F, P],
-    # wfrag, bias, gamma, beta, te, dt, o, d, mask, words, out, B, S, n_layers,
-    # use_coarse, res_c, lo xyz, cell xyz, term_eps, stream
-    "tnerf_fused_forward": [P] * 11 + [I, I, I, I, I] + [F] * 7 + [P],
+    # wt, bias, gamma, beta, te, dt, o, d, mask, words, out, tchk (may be null), B, S,
+    # n_layers, use_coarse, res_c, lo xyz, cell xyz, term_eps, stream
+    "tnerf_fused_forward": [P] * 12 + [I, I, I, I, I] + [F] * 7 + [P],
+    # wt, wk, bias, gamma, beta, te, dt, o, d, mask, words, tchk, gout, dW, dB, B, S,
+    # n_layers, use_coarse, res_c, lo xyz, cell xyz, term_eps, stream
+    "tnerf_fused_backward": [P] * 15 + [I, I, I, I, I] + [F] * 7 + [P],
 }
 
 

@@ -1,15 +1,21 @@
-"""Fused frequency-MLP renderer (kernel B1) and its glue.
+"""Fused frequency-MLP renderer (kernels B1 and B2) and its glue.
 
-Replaces the TPU kernel `tnerf/render/pallas_fused2.py:_fwd_kernel`
-(:350, built by `make_fused_trainable` :582) and the uniform-placement,
-uncompacted branch of `make_fused_pipeline_renderer_v2` (:922-1243).
+Replaces the TPU kernels `tnerf/render/pallas_fused2.py:_fwd_kernel`
+(:350) and `_bwd_kernel` (:438), the custom VJP that joins them
+(`make_fused_trainable`, :582) and the uniform-placement, uncompacted
+branch of `make_fused_pipeline_renderer_v2` (:922-1243).
 
-`fused_forward` takes the plain PyTorch version for CPU tensors and
-launches the CUDA kernel (`tnerf_torch/csrc/fused_forward.cu`) for CUDA
-tensors; there is no fallback between the two.  The plain version is the
-torch mirror of `fused_reference_v2` (:803) plus the kernel's in-kernel
-coarse occupancy test (`_coarse_mask`, :256): bf16 operands with f32
-products and sums, f32 activations and compositing.
+`fused_forward` / `fused_backward` take their plain PyTorch versions for
+CPU tensors and launch the CUDA kernels (`tnerf_torch/csrc/
+fused_forward.cu`, `fused_backward.cu`) for CUDA tensors; there is no
+fallback between the two.  `fused_render` is the differentiable call: a
+`torch.autograd.Function` whose forward is `fused_forward` (saving the
+per-chunk entry transmittance) and whose backward is `fused_backward`,
+with gradients onto the packed (W, Bias) only, as on the TPU.  The plain
+forward is the torch mirror of `fused_reference_v2` (:803) plus the
+kernel's in-kernel coarse occupancy test (`_coarse_mask`, :256): bf16
+operands with f32 products and sums, f32 activations and compositing;
+the plain backward writes the backward kernel out step by step.
 
 The TPU kernel's `rpc` packs rays into 128-lane rows; each ray's samples
 are contiguous here, so `render.fused_rpc` changes nothing and is not
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 
 from tnerf_torch.cameras import Rays
+from tnerf_torch.device import full_f32_matmul
 from tnerf_torch.grid.tighten import WORDS, coarse_constants, occ_bit, pack_words_rows, tighten_range
 from tnerf_torch.grid.traversal import make_coarse_occupancy, ray_aabb
 from tnerf_torch.kernels import build
@@ -106,65 +113,121 @@ def pack_occupancy_words(occupancy, res: int, res_c: int):
     return pack_words_rows(make_coarse_occupancy(occupancy.reshape(res, res, res), res // res_c))
 
 
-def fused_forward_plain(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse):
-    """The plain PyTorch version of `fused_forward` (any device).
+# Rows of the backward kernel's tile (`kBwdRows` in csrc/fused.cuh): the
+# forward saves each ray's transmittance at every BWD_CHUNK-th sample.
+BWD_CHUNK = 64
+# Layers the backward kernel can hold: 227 KB of shared memory less 59 KB of
+# fixed buffers, over 17 KB per layer input of a tile.
+MAX_BWD_LAYERS = 9
 
-    bf16 operands are rounded, then upcast and multiplied in f32: a bf16
-    matmul would round its sums to bf16, and the reference accumulates in
-    f32 (preferred_element_type=f32).  On the card this needs full-f32
-    matrix products, so TF32 is switched off for them (it is off by
-    default in PyTorch)."""
-    if W.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-    B, S = mask.shape
-    NL = W.shape[0]
+
+def n_bwd_chunks(S: int) -> int:
+    return -(-S // min(S, BWD_CHUNK))
+
+
+def _chunk_forward(Wb, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, s0: int, s1: int):
+    """Samples s0..s1-1 of every ray through the encoding, the MLP and the
+    head activations: (acts, rgb, sig, t, m, tau), acts[l] being layer
+    l's bf16 input [B * n, 128].  Wb: the bf16-rounded weights as f32."""
+    B = gamma.shape[0]
+    NL = Wb.shape[0]
     dev = gamma.device
-    s = torch.arange(S, dtype=torch.float32, device=dev) + 0.5
+    s = torch.arange(s0, s1, dtype=torch.float32, device=dev) + 0.5
     I = gamma[:, None, :] + s[None, :, None] * beta[:, None, :]
     lane = torch.arange(LANES, device=dev)
     E = torch.where(lane < 5, I, torch.sin(I))
-    h = E.reshape(B * S, LANES).to(torch.bfloat16)
-    Wb = W.to(torch.bfloat16).float()
+    acts = [E.reshape(B * (s1 - s0), LANES).to(torch.bfloat16)]
     for l in range(NL - 1):
-        h = torch.relu(h.float() @ Wb[l] + Bias[l][None, :]).to(torch.bfloat16)
-    hL = (h.float() @ Wb[NL - 1] + Bias[NL - 1][None, :]).reshape(B, S, LANES)
+        acts.append(torch.relu(acts[l].float() @ Wb[l] + Bias[l][None, :]).to(torch.bfloat16))
+    hL = (acts[NL - 1].float() @ Wb[NL - 1] + Bias[NL - 1][None, :]).reshape(B, s1 - s0, LANES)
     rgb = torch.sigmoid(hL[..., 0:3])
     x = hL[..., 3] - 1.0
     sig = torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))  # jax.nn.softplus
     t = te[:, None] + s[None, :] * dt[:, None]
-    m = mask.float()
+    m = mask[:, s0:s1].float()
     if coarse is not None:
         res_c, lo, cell_c = coarse
         bit = occ_bit(o[:, None, 0] + t * d[:, None, 0], o[:, None, 1] + t * d[:, None, 1],
                       o[:, None, 2] + t * d[:, None, 2], words, res_c, lo, cell_c)
         m = m * bit.float()
     tau = sig * dt[:, None] * m
+    return acts, rgb, sig, t, m, tau
+
+
+def fused_forward_plain(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse,
+                        return_tchk: bool = False):
+    """The plain PyTorch version of `fused_forward` (any device;
+    differentiable in W and Bias).
+
+    bf16 operands are rounded, then upcast and multiplied in f32: a bf16
+    matmul would round its sums to bf16, and the reference accumulates in
+    f32 (preferred_element_type=f32).  On the card this needs full-f32
+    matrix products, so TF32 is held off while it runs."""
+    S = mask.shape[1]
+    with full_f32_matmul():
+        _, rgb, _, t, _, tau = _chunk_forward(W.to(torch.bfloat16).float(), Bias, gamma, beta, te,
+                                              dt, o, d, mask, words, coarse, 0, S)
     excl = torch.cumsum(tau, dim=1) - tau
     w = torch.exp(-excl) * (1.0 - torch.exp(-tau))
-    return torch.cat([
+    out = torch.cat([
         torch.sum(w[..., None] * rgb, dim=1),
         torch.sum(w, dim=1, keepdim=True),
         torch.sum(w * t, dim=1, keepdim=True),
         torch.exp(-torch.sum(tau, dim=1, keepdim=True)),
     ], dim=1)
+    if return_tchk:
+        return out, torch.exp(-excl[:, ::min(S, BWD_CHUNK)]).detach().contiguous()
+    return out
 
 
-def fused_forward(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, term_eps: float = 0.0):
-    """Encode + MLP + composite every ray's S uniform samples.
+@torch.no_grad()
+def fused_backward_plain(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, tchk, gout):
+    """The plain PyTorch version of `fused_backward` (any device), written
+    out step by step as the kernel does it (`_bwd_kernel`, :438-570):
+    chunks of BWD_CHUNK samples, last first, each recomputed from its
+    saved entry transmittance tchk[:, c]; the exact compositing VJP with
+    the running dL/dT carry; the MLP backward with the gradient rounded to
+    bf16 at every layer and f32 sums.  No chunk is skipped.  Returns
+    (dW [NL, 128, 128], dBias [NL, 128]) f32."""
+    B, S = mask.shape
+    NL = W.shape[0]
+    Wb = W.to(torch.bfloat16).float()
+    dW = torch.zeros_like(Wb)
+    dB = torch.zeros((NL, LANES), dtype=torch.float32, device=W.device)
+    ch = min(S, BWD_CHUNK)
+    gT = gout[:, 5].clone()
+    with full_f32_matmul():
+        for c in reversed(range(n_bwd_chunks(S))):
+            s0, s1 = c * ch, min(S, (c + 1) * ch)
+            acts, rgb, sig, t, m, tau = _chunk_forward(Wb, Bias, gamma, beta, te, dt, o, d, mask,
+                                                       words, coarse, s0, s1)
+            T0 = tchk[:, c:c + 1]
+            E = torch.exp(-(torch.cumsum(tau, dim=1) - tau))
+            emt = torch.exp(-tau)
+            F = 1.0 - emt
+            w = T0 * E * F
+            Texp = torch.exp(-torch.sum(tau, dim=1, keepdim=True))
+            dw = torch.sum(gout[:, None, 0:3] * rgb, dim=-1) + gout[:, 3:4] + gout[:, 4:5] * t
+            G = dw * w
+            suffix = torch.flip(torch.cumsum(torch.flip(G, [1]), dim=1), [1]) - G
+            dtau = -suffix + dw * (T0 * E * emt) - gT[:, None] * (T0 * Texp)
+            dsig = dtau * dt[:, None] * m
+            g = torch.zeros((B, s1 - s0, LANES), dtype=torch.float32, device=W.device)
+            g[..., 0:3] = (w[..., None] * gout[:, None, 0:3]) * rgb * (1.0 - rgb)
+            g[..., 3] = dsig * (1.0 - torch.exp(-sig))  # softplus' = 1 - exp(-softplus)
+            gT = torch.sum(dw * E * F, dim=1) + gT * Texp[:, 0]
+            g = g.reshape(B * (s1 - s0), LANES)
+            for l in range(NL - 1, -1, -1):
+                gb = g.to(torch.bfloat16).float()
+                a_in = acts[l].float()
+                dW[l] += a_in.T @ gb
+                dB[l] += gb.sum(dim=0)
+                if l > 0:
+                    g = (gb @ Wb[l].T) * (a_in > 0)
+    return dW, dB
 
-    W [NL, 128, 128] f32 (cast to bf16 here), Bias [NL, 128] f32, gamma /
-    beta [B, 128] f32, te / dt [B] f32, o / d [B, 3] f32, mask [B, S] f32,
-    words int32 [1024], coarse = (res_c, lo, cell_c) from
-    `coarse_constants` or None (no occupancy test).  Returns [B, 6] f32:
-    rgb (no background), acc, depth = sum w t, T_final.
 
-    CPU tensors take the plain version (term_eps does not apply there);
-    CUDA tensors launch the B1 kernel, which stops shading a tile of rays
-    once all of them are below term_eps."""
-    if gamma.device.type == "cpu":
-        return fused_forward_plain(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse)
-    if gamma.device.type != "cuda":
-        raise ValueError(f"fused_forward: unsupported device {gamma.device}")
+def _check_fused_inputs(what, W, Bias, gamma, beta, te, dt, o, d, mask, words):
     dev = gamma.device
     B, S = mask.shape
     NL = W.shape[0]
@@ -180,55 +243,168 @@ def fused_forward(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, term_
     build.check_tensor("mask", mask, (B, S), f32, dev)
     build.check_tensor("words", words, (WORDS,), torch.int32, dev)
     if S < 1 or NL < 1:
-        raise ValueError(f"fused_forward: need S >= 1 and at least one layer, got S={S}, NL={NL}")
-    out = torch.empty((B, 6), dtype=f32, device=dev)
-    if B == 0:
-        return out
-    Wt = W.to(torch.bfloat16).transpose(1, 2).contiguous()  # out-major [NL, n, k]
+        raise ValueError(f"{what}: need S >= 1 and at least one layer, got S={S}, NL={NL}")
+
+
+def _coarse_args(coarse):
+    """(use_coarse, res_c, lo xyz, cell xyz) as the launch functions take them."""
     res_c, lo, cell_c = coarse if coarse is not None else (1, np.zeros(3, np.float32),
                                                             np.ones(3, np.float32))
-    lib = build.library()
     fl = lambda v: float(np.float32(v))
-    with torch.cuda.device(dev):
-        err = lib.tnerf_fused_forward(
-            Wt.data_ptr(), Bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(), te.data_ptr(),
-            dt.data_ptr(), o.data_ptr(), d.data_ptr(), mask.data_ptr(), words.data_ptr(),
-            out.data_ptr(), B, S, NL, int(coarse is not None), res_c,
-            fl(lo[0]), fl(lo[1]), fl(lo[2]), fl(cell_c[0]), fl(cell_c[1]), fl(cell_c[2]),
-            fl(term_eps), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    build.check(err, "tnerf_fused_forward")
-    fused_forward.launches += 1
-    return out
+    return (int(coarse is not None), res_c, fl(lo[0]), fl(lo[1]), fl(lo[2]),
+            fl(cell_c[0]), fl(cell_c[1]), fl(cell_c[2]))
+
+
+def fused_forward(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, term_eps: float = 0.0,
+                  return_tchk: bool = False):
+    """Encode + MLP + composite every ray's S uniform samples.
+
+    W [NL, 128, 128] f32 (cast to bf16 here), Bias [NL, 128] f32, gamma /
+    beta [B, 128] f32, te / dt [B] f32, o / d [B, 3] f32, mask [B, S] f32,
+    words int32 [1024], coarse = (res_c, lo, cell_c) from
+    `coarse_constants` or None (no occupancy test).  Returns [B, 6] f32:
+    rgb (no background), acc, depth = sum w t, T_final; with return_tchk
+    also tchk [B, n_bwd_chunks(S)] f32, the transmittance at which each
+    ray enters every BWD_CHUNK-th sample (what `fused_backward` restarts
+    its chunks from).
+
+    CPU tensors take the plain version (term_eps does not apply there);
+    CUDA tensors launch the B1 kernel, which stops shading a tile of rays
+    once all of them are below term_eps."""
+    if gamma.device.type == "cpu":
+        return fused_forward_plain(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse,
+                                   return_tchk=return_tchk)
+    if gamma.device.type != "cuda":
+        raise ValueError(f"fused_forward: unsupported device {gamma.device}")
+    _check_fused_inputs("fused_forward", W, Bias, gamma, beta, te, dt, o, d, mask, words)
+    dev = gamma.device
+    B, S = mask.shape
+    out = torch.empty((B, 6), dtype=torch.float32, device=dev)
+    tchk = torch.empty((B, n_bwd_chunks(S)), dtype=torch.float32, device=dev) \
+        if return_tchk else None
+    if B > 0:
+        Wt = W.to(torch.bfloat16).transpose(1, 2).contiguous()  # out-major [NL, n, k]
+        lib = build.library()
+        with torch.cuda.device(dev):
+            err = lib.tnerf_fused_forward(
+                Wt.data_ptr(), Bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(), te.data_ptr(),
+                dt.data_ptr(), o.data_ptr(), d.data_ptr(), mask.data_ptr(), words.data_ptr(),
+                out.data_ptr(), tchk.data_ptr() if return_tchk else None, B, S, W.shape[0],
+                *_coarse_args(coarse), float(np.float32(term_eps)),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        build.check(err, "tnerf_fused_forward")
+        fused_forward.launches += 1
+    return (out, tchk) if return_tchk else out
 
 
 fused_forward.launches = 0
 
 
-def refuse_unported(sampler_cfg, render_cfg) -> None:
-    """Raise on the fused-path options this port does not run yet."""
+def fused_backward(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, tchk, gout,
+                   term_eps: float = 0.0):
+    """(dL/dW [NL, 128, 128], dL/dBias [NL, 128]) f32 of `fused_forward`'s
+    output under the cotangent gout [B, 6], from the forward's own inputs
+    and its tchk.  CPU tensors take the plain version; CUDA tensors launch
+    the B2 kernel, which skips what the forward kernel skipped under the
+    same term_eps.  The kernel sums across blocks with atomic adds, so its
+    result is not bit-reproducible from run to run."""
+    if gamma.device.type == "cpu":
+        return fused_backward_plain(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse,
+                                    tchk, gout)
+    if gamma.device.type != "cuda":
+        raise ValueError(f"fused_backward: unsupported device {gamma.device}")
+    _check_fused_inputs("fused_backward", W, Bias, gamma, beta, te, dt, o, d, mask, words)
+    dev = gamma.device
+    B, S = mask.shape
+    NL = W.shape[0]
+    build.check_tensor("tchk", tchk, (B, n_bwd_chunks(S)), torch.float32, dev)
+    build.check_tensor("gout", gout, (B, 6), torch.float32, dev)
+    if NL > MAX_BWD_LAYERS:
+        raise ValueError(
+            f"fused_backward: {NL} layers; the kernel keeps every layer's input of a tile in "
+            f"shared memory, which holds at most {MAX_BWD_LAYERS}")
+    dW = torch.zeros((NL, LANES, LANES), dtype=torch.float32, device=dev)
+    dB = torch.zeros((NL, LANES), dtype=torch.float32, device=dev)
+    if B == 0:
+        return dW, dB
+    Wk = W.to(torch.bfloat16).contiguous()           # in-major [NL, k, n]: gb @ W^T
+    Wt = Wk.transpose(1, 2).contiguous()             # out-major [NL, n, k]: a @ W
+    lib = build.library()
+    with torch.cuda.device(dev):
+        err = lib.tnerf_fused_backward(
+            Wt.data_ptr(), Wk.data_ptr(), Bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            te.data_ptr(), dt.data_ptr(), o.data_ptr(), d.data_ptr(), mask.data_ptr(),
+            words.data_ptr(), tchk.data_ptr(), gout.data_ptr(), dW.data_ptr(), dB.data_ptr(),
+            B, S, NL, *_coarse_args(coarse), float(np.float32(term_eps)),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    build.check(err, "tnerf_fused_backward")
+    fused_backward.launches += 1
+    return dW, dB
+
+
+fused_backward.launches = 0
+
+
+class _FusedRender(torch.autograd.Function):
+    """`fused_forward` with `fused_backward` as its derivative onto (W,
+    Bias); every other input gets no gradient (`:785-793`)."""
+
+    @staticmethod
+    def forward(ctx, W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, term_eps):
+        out, tchk = fused_forward(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse,
+                                  term_eps=term_eps, return_tchk=True)
+        ctx.save_for_backward(W, Bias, gamma, beta, te, dt, o, d, mask, words, tchk)
+        ctx.coarse, ctx.term_eps = coarse, term_eps
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gout):
+        *inputs, tchk = ctx.saved_tensors
+        dW, dBias = fused_backward(*inputs, ctx.coarse, tchk, gout.float().contiguous(),
+                                   term_eps=ctx.term_eps)
+        return (dW, dBias) + (None,) * 10
+
+
+def fused_render(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, term_eps: float = 0.0):
+    """`fused_forward`, differentiable in W and Bias (the counterpart of
+    the function `make_fused_trainable` returns)."""
+    return _FusedRender.apply(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, term_eps)
+
+
+def refuse_unported(sampler_cfg, render_cfg, for_eval: bool = True) -> None:
+    """Raise on the fused-path options this port does not run yet.  Ray
+    compaction is an eval-only option (the reference's training build
+    leaves it out too), so a training renderer does not look at it."""
     if sampler_cfg.placement != "uniform":
         raise NotImplementedError(
             f"sampler.placement={sampler_cfg.placement!r} is not yet ported to "
             "tnerf_torch (uniform placement only), see ROADMAP.md"
         )
-    if render_cfg.ray_compact:
+    if render_cfg.ray_compact and for_eval:
         raise NotImplementedError(
             "render.ray_compact=true is not yet ported to tnerf_torch (it needs "
             "kernel B4), see ROADMAP.md; pass --override render.ray_compact=false"
         )
 
 
-def make_fused_renderer(field_cfg, grid_cfg, sampler_cfg, render_cfg, tighten: bool = True):
+def make_fused_renderer(field_cfg, grid_cfg, sampler_cfg, render_cfg, tighten: bool = True,
+                        for_eval: bool = True):
     """render(params, rays, occupancy=None) -> RenderResult through the B1
     kernel: the counterpart of `make_fused_pipeline_renderer_v2` with
-    uniform placement and no ray compaction (:1126-1243).
+    uniform placement and no ray compaction (:1126-1243).  for_eval=False
+    builds the training renderer: where gradients are being recorded it
+    goes through `fused_render`, so `backward()` reaches the field's
+    parameters through kernel B2 and the differentiable `pack_params_f32`;
+    the ray, its span and the occupancy get no gradient.
 
     rays: flat Rays ([B, 3], [B, 3], [B, 2]) on the params' device;
     occupancy: the [res]^3 bool bitfield or None (every coarse bit set,
     no tightening).  With tighten, each ray's span shrinks to its
     occupied range (kernel B3, 256 probes) before sampling."""
-    refuse_unported(sampler_cfg, render_cfg)
+    refuse_unported(sampler_cfg, render_cfg, for_eval)
     s_aff, b_aff = _norm_affine(grid_cfg)
     A, C, _ = _encoding_matrices(field_cfg, s_aff, b_aff)
     S = sampler_cfg.samples_per_ray
@@ -260,8 +436,9 @@ def make_fused_renderer(field_cfg, grid_cfg, sampler_cfg, render_cfg, tighten: b
                 coarse)
 
     def render(params, rays: Rays, occupancy=None) -> RenderResult:
-        out = fused_forward(*kernel_inputs(params, rays, occupancy),
-                            term_eps=render_cfg.transmittance_threshold)
+        call = fused_forward if for_eval or not torch.is_grad_enabled() else fused_render
+        out = call(*kernel_inputs(params, rays, occupancy),
+                   term_eps=render_cfg.transmittance_threshold)
         rgb, acc, depth = out[:, 0:3], out[:, 3], out[:, 4]
         if render_cfg.white_background:
             rgb = rgb + (1.0 - acc)[:, None]

@@ -1,25 +1,50 @@
-"""Renderer construction and sampler-range resolution (the parts of
-`tnerf/train_loop.py` the serving path uses; the training loop belongs to
-the training slice, see ROADMAP.md)."""
+"""High-level training orchestration and renderer construction
+(counterpart of `tnerf/train_loop.py`, the single-device fused path:
+`_run_training_single`, :514-1034, and `build_renderer`, :70)."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
+from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from tnerf_torch.config import Config
-from tnerf_torch.data.dataset import ImageDataset
+from tnerf_torch.data.dataset import (
+    ImageDataset,
+    load_data,
+    scene_proc_kwargs,
+    validate_scene_background,
+)
+from tnerf_torch.device import resolve_device
+from tnerf_torch.eval import evaluate
+from tnerf_torch.fields.nerf_field import NeRFField
+from tnerf_torch.grid.occupancy import (
+    init_occupancy,
+    occupancy_fraction,
+    renderer_payload,
+    update_occupancy,
+)
 from tnerf_torch.render.fused import make_fused_renderer, refuse_unported
+from tnerf_torch.train import PixelSampler, init_train_state, make_train_step
+from tnerf_torch.utils.checkpoint import (
+    latest_checkpoint,
+    load_train_checkpoint,
+    save_checkpoint,
+)
+from tnerf_torch.utils.metrics import MetricsWriter, get_logger
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not yet ported to tnerf_torch, see ROADMAP.md")
 
 
-def validate_ported(cfg: Config) -> None:
-    """Refuse every option this slice does not run, rather than running
-    another path in its place."""
+def validate_ported(cfg: Config, for_eval: bool = True) -> None:
+    """Refuse every option this port does not run, rather than running
+    another path in its place.  for_eval=False checks a training run."""
     if cfg.render.pipeline != "fused":
         raise _not_ported(f"render.pipeline={cfg.render.pipeline!r} (fused only)")
     if cfg.field_.encoding != "frequency":
@@ -30,23 +55,48 @@ def validate_ported(cfg: Config) -> None:
         raise _not_ported(f"scene.kind={cfg.scene.kind!r} (procedural scenes only)")
     if cfg.scene.ndc:
         raise _not_ported("scene.ndc=true")
-    refuse_unported(cfg.sampler, cfg.render)
+    refuse_unported(cfg.sampler, cfg.render, for_eval)
+    if for_eval:
+        return
+    t, par = cfg.train, cfg.parallel
+    refused = {
+        "train.grad_accum_steps > 1": t.grad_accum_steps > 1,
+        "train.param_ema > 0": t.param_ema > 0,
+        "train.random_background=true": t.random_background,
+        "train.optimize_poses=true": t.optimize_poses,
+        "train.keep_best=true": t.keep_best,
+        "train.table_lr_mult / pose_lr_mult != 1": t.table_lr_mult != 1.0 or t.pose_lr_mult != 1.0,
+        "train.table_l1_weight / table_tv_weight / distortion_weight > 0":
+            t.table_l1_weight > 0 or t.table_tv_weight > 0 or t.distortion_weight > 0,
+        "train.freq_anneal_steps > 0": t.freq_anneal_steps > 0,
+        "train.remat=true": t.remat,
+        "grid.mesh_path": bool(cfg.grid.mesh_path),
+        "parallel.data_parallel > 1": par.data_parallel > 1,
+        "parallel.sample_parallel > 1": par.sample_parallel > 1,
+        "parallel.table_parallel > 1": par.table_parallel > 1,
+        "logging.profile=true": cfg.logging.profile,
+        "logging.debug_nans=true": cfg.logging.debug_nans,
+    }
+    for what, hit in refused.items():
+        if hit:
+            raise _not_ported(what)
+    if t.shuffle not in ("random", "epoch"):
+        raise ValueError(f"train.shuffle must be random or epoch, got {t.shuffle!r}")
 
 
 def build_renderer(cfg: Config, for_eval: bool = True):
     """The fused renderer of `cfg` (`tnerf/train_loop.py:70`, fused
-    branch).  Only eval/render renderers exist until the training slice."""
-    if not for_eval:
-        raise _not_ported("training (for_eval=False)")
+    branch); for_eval=False builds the training renderer, whose backward
+    runs kernel B2."""
     if cfg.scene.white_background != cfg.render.white_background:
         raise ValueError(
             "scene.white_background and render.white_background disagree "
             f"({cfg.scene.white_background} vs {cfg.render.white_background}): "
             "set both to the same value"
         )
-    validate_ported(cfg)
+    validate_ported(cfg, for_eval)
     return make_fused_renderer(cfg.field_, cfg.grid, cfg.sampler, cfg.render,
-                               tighten=cfg.render.fused_tighten)
+                               tighten=cfg.render.fused_tighten, for_eval=for_eval)
 
 
 def resolve_near_far(cfg: Config, dataset: ImageDataset) -> Config:
@@ -65,3 +115,172 @@ def resolve_near_far(cfg: Config, dataset: ImageDataset) -> Config:
     near = 0.9 * lo if cfg.sampler.near < 0 else cfg.sampler.near
     far = 1.1 * hi if cfg.sampler.far < 0 else cfg.sampler.far
     return dataclasses.replace(cfg, sampler=dataclasses.replace(cfg.sampler, near=near, far=far))
+
+
+def _eval(cfg, renderer, state, occ, datasets, step, log, metrics, device,
+          save_images: bool = False) -> Dict[str, float]:
+    out: Dict[str, float] = {}
+    bits = renderer_payload(occ, cfg.sampler, cfg.grid)
+    for split in ("val", "test"):
+        if split not in datasets or len(datasets[split]) == 0:
+            continue
+        save_dir = os.path.join(cfg.logging.out_dir, f"renders_{step}") if save_images else None
+        m = evaluate(
+            renderer, state.params, datasets[split], cfg.scene.scene_scale,
+            white_background=cfg.scene.white_background,
+            max_views=None if save_images else 2, save_dir=save_dir,
+            chunk_size=cfg.render.chunk_size, occupancy=bits, device=device,
+        )
+        out.update(m)
+        log.info("eval step %d: %s", step, m)
+        metrics.write(step, **m)
+    return out
+
+
+def run_training(cfg: Config, datasets: Optional[Dict[str, ImageDataset]] = None,
+                 device="cuda") -> Dict[str, float]:
+    """Train a field per `cfg` on `device`; returns the final metrics.
+
+    procedural scene -> PixelSampler -> fused renderer (B3 tighten, B1
+    forward, B2 backward) -> L2 loss -> Adam; every grid.update_every
+    steps after grid.warmup_steps the occupancy grid is refreshed from the
+    field's density; checkpoints are in the reference's layout
+    (train.resume continues one, the reference's included); the run ends
+    with an eval of every val and test view, images written, and the
+    train.assert_test_psnr_min gate on the worst test view."""
+    dev = resolve_device(device)
+    validate_ported(cfg, for_eval=False)
+    log = get_logger(level=cfg.logging.level)
+    out_dir = cfg.logging.out_dir
+    os.makedirs(out_dir, exist_ok=True)
+    # Provenance: the resolved config rides with the run; resume is run
+    # state, not part of the experiment, and a resumed run keeps the file.
+    prov = os.path.join(out_dir, "config.json")
+    if not (cfg.train.resume and os.path.exists(prov)):
+        with open(prov, "w") as fh:
+            fh.write(cfg.apply_overrides(["train.resume=false"]).to_json())
+    metrics = MetricsWriter(os.path.join(out_dir, cfg.logging.metrics_file))
+
+    if datasets is None:
+        validate_scene_background(cfg.scene.kind, cfg.scene.name, cfg.scene.white_background)
+        datasets = load_data(cfg.scene.kind, cfg.scene.name,
+                             proc=scene_proc_kwargs(cfg.scene), device=dev)
+    train_ds = datasets["train"]
+    log.info("scene=%s/%s: %d train views %dx%d focal=%.2f", cfg.scene.kind, cfg.scene.name,
+             len(train_ds), train_ds.width, train_ds.height, train_ds.focal)
+    cfg = resolve_near_far(cfg, train_ds)
+
+    init_gen = torch.Generator()  # parameters are drawn on the host, then moved
+    init_gen.manual_seed(cfg.train.seed)
+    field = NeRFField(cfg.field_, cfg.grid, init_gen).to(dev)
+    renderer = build_renderer(cfg, for_eval=False)
+    state = init_train_state(field, cfg.train)
+    n_params = sum(p.numel() for p in field.parameters())
+    log.info("field=%s params=%.2fM pipeline=%s device=%s", cfg.field_.encoding,
+             n_params / 1e6, cfg.render.pipeline, dev)
+    occ = init_occupancy(cfg.grid, dev)
+
+    ckpt_dir = os.path.join(out_dir, "checkpoints")
+    start_step = 0
+    if cfg.train.resume:
+        try:
+            latest_checkpoint(ckpt_dir)
+        except FileNotFoundError:
+            log.info("train.resume: no checkpoint in %s, starting from step 0", ckpt_dir)
+        else:
+            start_step, params, opt_state, occ = load_train_checkpoint(ckpt_dir, dev)
+            field.load_state_dict(params)
+            state.optimizer.load_state(opt_state)
+            state.step = start_step
+            log.info("resumed from step %d", start_step)
+
+    def save(step: int) -> None:
+        save_checkpoint(ckpt_dir, step, state.params, state.optimizer.state, occ, cfg.train)
+
+    sampler = PixelSampler(train_ds, cfg.scene.scene_scale, cfg.scene.white_background, dev)
+    train_step = make_train_step(renderer, loss=cfg.train.loss, huber_delta=cfg.train.huber_delta)
+    gen = torch.Generator(device=dev)  # batches and occupancy probes
+    gen.manual_seed(cfg.train.seed + 1)
+    rays_per_step = cfg.train.batch_size
+    steps_per_epoch = max(1, len(train_ds) * train_ds.height * train_ds.width // rays_per_step)
+    final_metrics: Dict[str, float] = {}
+    occ_payload = renderer_payload(occ, cfg.sampler, cfg.grid)
+
+    def sync() -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    # Steps are enqueued without waiting for the device; the host reads a
+    # value only at log points, evals and checkpoints, so rays/s is
+    # measured per window of steps between two such points.
+    sync()
+    window_t0 = time.perf_counter()
+    window_steps = 0
+    try:
+        for step in range(start_step, cfg.train.steps):
+            if cfg.train.shuffle == "epoch":
+                batch = sampler.sample_epoch(cfg.train.seed + step // steps_per_epoch,
+                                             step % steps_per_epoch, rays_per_step)
+            else:
+                batch = sampler.sample(gen, rays_per_step)
+            aux = train_step(state, batch, occ_payload)
+            window_steps += 1
+            if step >= cfg.grid.warmup_steps and step % cfg.grid.update_every == 0:
+                occ = update_occupancy(occ, field.density, cfg.grid, generator=gen)
+                occ_payload = renderer_payload(occ, cfg.sampler, cfg.grid)
+
+            if step % cfg.train.log_every == 0 or step == cfg.train.steps - 1:
+                loss_host = float(aux["loss"])  # waits for the device
+                sec = (time.perf_counter() - window_t0) / max(window_steps, 1)
+                m = {
+                    "loss": loss_host,
+                    "train_psnr": float(aux["psnr"]),
+                    "acc_mean": float(aux["acc_mean"]),
+                    "rays_per_sec": rays_per_step / max(sec, 1e-9),
+                    "step_seconds": sec,
+                    "occupancy_frac": float(occupancy_fraction(occ)),
+                    "skipped_steps": float(state.optimizer.total_notfinite)
+                    if cfg.train.skip_nonfinite else 0.0,
+                }
+                metrics.write(step, **m)
+                log.info("step %d loss=%.5f psnr=%.2f rays/s=%.0f occ=%.2f", step, m["loss"],
+                         m["train_psnr"], m["rays_per_sec"], m["occupancy_frac"])
+                if not np.isfinite(loss_host):
+                    log.warning("non-finite loss at step %d (update was skipped)", step)
+                window_t0 = time.perf_counter()
+                window_steps = 0
+
+            did_barrier = False
+            if cfg.train.eval_every and (step + 1) % cfg.train.eval_every == 0:
+                final_metrics.update(_eval(cfg, renderer, state, occ, datasets, step, log,
+                                           metrics, dev))
+                did_barrier = True
+            if cfg.train.checkpoint_every and (step + 1) % cfg.train.checkpoint_every == 0:
+                save(step + 1)
+                did_barrier = True
+            if did_barrier:  # eval / checkpoint time must not count as training time
+                sync()
+                window_t0 = time.perf_counter()
+                window_steps = 0
+    except KeyboardInterrupt:
+        # the state holds the last completed step: persist it, so that
+        # train.resume continues from the interrupted step
+        save(state.step)
+        log.warning("interrupted at step %d: checkpoint saved to %s (continue with "
+                    "train.resume=true)", state.step, ckpt_dir)
+        metrics.close()
+        raise
+    save(cfg.train.steps)
+    final_metrics.update(_eval(cfg, renderer, state, occ, datasets, cfg.train.steps, log, metrics,
+                               dev, save_images=True))
+    metrics.close()
+    floor = cfg.train.assert_test_psnr_min
+    if floor > 0 and "psnr_test_min" in final_metrics:
+        got = final_metrics["psnr_test_min"]
+        if got < floor:
+            raise RuntimeError(
+                f"acceptance gate failed: psnr_test_min={got:.2f} dB < "
+                f"train.assert_test_psnr_min={floor} (mean "
+                f"{final_metrics.get('psnr_test', float('nan')):.2f})"
+            )
+    return final_metrics
