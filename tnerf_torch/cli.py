@@ -9,8 +9,7 @@ this port does not run yet are refused (`train_loop.validate_ported`).
     python -m tnerf_torch.cli train --config runs/suite_rehearsal/prims/config.json \\
         --out runs/prims_torch
     python -m tnerf_torch.cli eval --config runs/suite_rehearsal/prims/config.json \\
-        --checkpoint runs/suite_rehearsal/prims/checkpoints \\
-        --override render.ray_compact=false
+        --checkpoint runs/suite_rehearsal/prims/checkpoints
 """
 
 from __future__ import annotations
@@ -34,6 +33,41 @@ def _load_cfg(args) -> Config:
     if args.cmd == "train" and args.out:
         cfg = cfg.apply_overrides([f"logging.out_dir={args.out}"])
     return cfg
+
+
+def _ray_compact_guard(cfg: Config):
+    """(eligible, pool_res, n_mid) of the ray-compaction capacity guard
+    (`tnerf/cli.py:35`, fused branch): whether the configured renderer
+    compacts rays at all, and the pooling resolution and midpoint count
+    of its keep rule.  Uniform placement keeps a ray with an occupied
+    midpoint sample on the kernel's coarse bitfield; CDF placement keeps
+    a ray with an occupied bin on the bin-probe pooling."""
+    from tnerf_torch.render.fused import select_bin_pool_res, select_coarse_res
+
+    if not (cfg.render.ray_compact and cfg.render.fused_tighten):
+        return False, None, None
+    res = cfg.grid.resolution
+    if cfg.sampler.placement == "occupancy_cdf":
+        return True, select_bin_pool_res(res), cfg.sampler.cdf_bins
+    return True, select_coarse_res(cfg.render, res), cfg.sampler.samples_per_ray
+
+
+def ray_keep_fraction(rays, occupancy, cfg: Config, pool_res: int, n_mid: int) -> float:
+    """The share of `rays` ([H, W] or flat) that the compacting renderer
+    keeps, by the rule it runs: `tighten_sample_mask` on the occupancy
+    pooled to pool_res, any of the n_mid midpoints occupied."""
+    from tnerf_torch.grid.tighten import tighten_sample_mask
+    from tnerf_torch.grid.traversal import make_coarse_occupancy, ray_aabb
+
+    res = cfg.grid.resolution
+    o = rays.origins.reshape(-1, 3).float().contiguous()
+    d = rays.directions.reshape(-1, 3).float().contiguous()
+    te, tx = ray_aabb(o, d, cfg.grid.aabb_min, cfg.grid.aabb_max)
+    te = torch.clamp_min(te, float(cfg.sampler.near))
+    tx = torch.maximum(tx, te)
+    occ_c = make_coarse_occupancy(occupancy.reshape(res, res, res), res // pool_res)
+    _, _, mask = tighten_sample_mask(o, d, te, tx, occ_c, n_mid, cfg.grid)
+    return float(mask.any(dim=1).float().mean())
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -128,6 +162,26 @@ def main(argv=None) -> int:
     print(f"restored step {step} from {ckpt_dir}", file=sys.stderr)
     payload = renderer_payload(occ, cfg.sampler, cfg.grid)
     renderer = build_renderer(cfg, for_eval=True)
+    # Capacity guard: the keep fraction depends on the restored occupancy
+    # (a trained grid is fatter than an analytic one), and kept rays beyond
+    # render.ray_compact_fraction render as background without a word.
+    guard_on, guard_pool, guard_mid = _ray_compact_guard(cfg)
+    if guard_on and payload is not None and step > 0:
+        from tnerf_torch.cameras import camera_rays
+
+        ds0 = next(iter(datasets.values()))
+        probe_rays = camera_rays(ds0.poses[0], ds0.width, ds0.height, ds0.camera,
+                                 cfg.scene.scene_scale, device=dev)
+        kf = ray_keep_fraction(probe_rays, payload, cfg, guard_pool, guard_mid)
+        if kf > cfg.render.ray_compact_fraction:
+            print(
+                f"WARNING: ray-compaction keep fraction {kf:.3f} on the "
+                f"probe view exceeds render.ray_compact_fraction="
+                f"{cfg.render.ray_compact_fraction} — over-capacity rays "
+                f"will render as background. Raise the fraction (or set "
+                f"render.ray_compact=false).",
+                file=sys.stderr,
+            )
 
     if args.cmd == "eval":
         from tnerf_torch.eval import evaluate

@@ -23,6 +23,10 @@
 //   4. the MLP backward, last layer first: gb = bf16(g); dW[l] += a_in^T gb
 //      and dBias[l] += colsum(gb) in f32; g = (gb @ W[l]^T) * (a_in > 0).
 // No gradient reaches gamma, beta, the ray or the mask (as on the TPU).
+// Per-sample placement (the TPU kernel's tmode=True) is the kernel's second
+// instantiation: depth ts[ray, s] and step dts[ray, s] take the place of
+// te + (s + 0.5) dt and dt (fused.cuh:Placement), so dsig = dtau dts mask;
+// ts and dts get no gradient either.
 //
 // What bounds it on an H100: the tensor cores (three 128-wide products per
 // layer and sample against ~1 KB of per-ray inputs), then the reduction.
@@ -72,7 +76,7 @@ struct Fixed {
   __nv_bfloat16 g[kTile];             // gradient at a layer's output, bf16
   uint32_t words[kWords];             // coarse bitfield
   float head[kRows][4];               // last layer's lanes 0..3, raw
-  float tau[kRows], t[kRows], m[kRows];
+  float tau[kRows], t[kRows], m[kRows], step[kRows];
   float ex[kRows], G[kRows], dEF[kRows], suf[kRows];  // per row: excl. sum, dw w, dw E F, suffix
   float T0[kRows], Texp[kRows], gT[kRows], gTn[kRows];  // per ray of the tile
 };
@@ -140,11 +144,12 @@ __device__ __forceinline__ void warp_wgrad(const __nv_bfloat16* a, const __nv_bf
   }
 }
 
+template <bool kTmode>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_backward_kernel(const __nv_bfloat16* __restrict__ wt, const __nv_bfloat16* __restrict__ wk,
                       const float* __restrict__ bias, const float* __restrict__ gamma,
-                      const float* __restrict__ beta, const float* __restrict__ te_in,
-                      const float* __restrict__ dt_in, const float* __restrict__ o,
+                      const float* __restrict__ beta,
+                      const tnerf::Placement<kTmode> place, const float* __restrict__ o,
                       const float* __restrict__ d, const float* __restrict__ mask,
                       const uint32_t* __restrict__ words_in, const float* __restrict__ tchk,
                       const float* __restrict__ gout, float* __restrict__ dW,
@@ -174,9 +179,9 @@ fused_backward_kernel(const __nv_bfloat16* __restrict__ wt, const __nv_bfloat16*
     bool any = false;
     for (int row = tid; row < kRows; row += kThreads) {
       const int j = row / ch, s = c * ch + row % ch, ray = ray0 + j;
-      float m = 0.f, t = 0.f;
+      float m = 0.f, t = 0.f, step = 0.f;
       if (j < R && ray < B && s < S) {
-        t = tnerf::sample_depth(te_in[ray], dt_in[ray], s);
+        place.sample(ray, s, S, t, step);
         m = mask[(size_t)ray * S + s];
         if (use_coarse && m != 0.f) {
           const float x = __fadd_rn(o[3 * ray], __fmul_rn(t, d[3 * ray]));
@@ -187,6 +192,7 @@ fused_backward_kernel(const __nv_bfloat16* __restrict__ wt, const __nv_bfloat16*
       }
       sm.t[row] = t;
       sm.m[row] = m;
+      sm.step[row] = step;
       any |= m != 0.f;
     }
     bool live = false;
@@ -212,7 +218,7 @@ fused_backward_kernel(const __nv_bfloat16* __restrict__ wt, const __nv_bfloat16*
       float v = 0.f;
       if (j < R && ray < B && s < S) {
         const size_t gi = (size_t)ray * kLanes + f;
-        v = tnerf::encode_feature(gamma[gi], beta[gi], s, f);
+        v = tnerf::encode_feature(gamma[gi], beta[gi], place.abscissa(s, sm.t[row]), f);
       }
       acts[row * kStride + f] = __float2bfloat16_rn(v);
     }
@@ -267,7 +273,7 @@ fused_backward_kernel(const __nv_bfloat16* __restrict__ wt, const __nv_bfloat16*
         cg_ = tnerf::sigmoidf(h[1]);
         cb = tnerf::sigmoidf(h[2]);
         sig = tnerf::density_softplus(h[3]);
-        dt = dt_in[ray];
+        dt = sm.step[row];
         tau = __fmul_rn(__fmul_rn(sig, dt), sm.m[row]);
       }
       sm.tau[row] = tau;
@@ -382,6 +388,27 @@ fused_backward_kernel(const __nv_bfloat16* __restrict__ wt, const __nv_bfloat16*
   }
 }
 
+template <bool kTmode>
+int launch_backward(const void* wt, const void* wk, const float* bias, const float* gamma,
+                    const float* beta, const tnerf::Placement<kTmode>& place, const float* o,
+                    const float* d, const float* mask, const int32_t* words, const float* tchk,
+                    const float* gout, float* dW, float* dB, int B, int S, int n_layers,
+                    int use_coarse, const Coarse& cg, float term_eps, void* stream) {
+  const size_t smem = sizeof(Fixed) + (size_t)n_layers * kTile * sizeof(__nv_bfloat16);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;  // more layers than fit a block
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_backward_kernel<kTmode>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int ch = S < kRows ? S : kRows;
+  const int R = kRows / ch;
+  const int blocks = (B + R - 1) / R;
+  fused_backward_kernel<kTmode><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      reinterpret_cast<const __nv_bfloat16*>(wt), reinterpret_cast<const __nv_bfloat16*>(wk),
+      bias, gamma, beta, place, o, d, mask, reinterpret_cast<const uint32_t*>(words), tchk,
+      gout, dW, dB, B, S, n_layers, use_coarse, cg, term_eps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int tnerf_fused_backward(const void* wt, const void* wk, const float* bias,
@@ -392,18 +419,24 @@ extern "C" int tnerf_fused_backward(const void* wt, const void* wk, const float*
                                     int n_layers, int use_coarse, int res_c, float lo_x,
                                     float lo_y, float lo_z, float cell_x, float cell_y,
                                     float cell_z, float term_eps, void* stream) {
-  const size_t smem = sizeof(Fixed) + (size_t)n_layers * kTile * sizeof(__nv_bfloat16);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;  // more layers than fit a block
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  Coarse cg{res_c, lo_x, lo_y, lo_z, cell_x, cell_y, cell_z};
-  const int ch = S < kRows ? S : kRows;
-  const int R = kRows / ch;
-  const int blocks = (B + R - 1) / R;
-  fused_backward_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(wt), reinterpret_cast<const __nv_bfloat16*>(wk),
-      bias, gamma, beta, te, dt, o, d, mask, reinterpret_cast<const uint32_t*>(words), tchk,
-      gout, dW, dB, B, S, n_layers, use_coarse, cg, term_eps);
-  return (int)cudaGetLastError();
+  return launch_backward<false>(wt, wk, bias, gamma, beta, {te, dt, nullptr, nullptr}, o, d,
+                                mask, words, tchk, gout, dW, dB, B, S, n_layers, use_coarse,
+                                Coarse{res_c, lo_x, lo_y, lo_z, cell_x, cell_y, cell_z},
+                                term_eps, stream);
+}
+
+// Per-sample placement: ts, dts [B, S] in the place of te, dt [B].
+extern "C" int tnerf_fused_backward_tmode(const void* wt, const void* wk, const float* bias,
+                                          const float* gamma, const float* beta,
+                                          const float* ts, const float* dts, const float* o,
+                                          const float* d, const float* mask,
+                                          const int32_t* words, const float* tchk,
+                                          const float* gout, float* dW, float* dB, int B, int S,
+                                          int n_layers, int use_coarse, int res_c, float lo_x,
+                                          float lo_y, float lo_z, float cell_x, float cell_y,
+                                          float cell_z, float term_eps, void* stream) {
+  return launch_backward<true>(wt, wk, bias, gamma, beta, {nullptr, nullptr, ts, dts}, o, d,
+                               mask, words, tchk, gout, dW, dB, B, S, n_layers, use_coarse,
+                               Coarse{res_c, lo_x, lo_y, lo_z, cell_x, cell_y, cell_z},
+                               term_eps, stream);
 }

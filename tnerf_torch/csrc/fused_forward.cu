@@ -7,6 +7,10 @@
 // computes, per ray and sample s (t = te + (s + 0.5) dt):
 //   feature f = act_f(gamma_f + (s + 0.5) beta_f), act = identity for
 //     f < 5 and sin otherwise, rounded to bf16;
+//   (per-sample placement, the TPU kernel's tmode=True, is the kernel's
+//   second instantiation: t = ts[ray, s], feature f = act_f(gamma_f + t
+//   beta_f) with (gamma, beta) folded at (0, 1), and dts[ray, s] in dt's
+//   place below; fused.cuh:Placement holds the difference)
 //   8 hidden layers bf16 x bf16 -> f32 + bias, ReLU, rounded to bf16, and
 //     a last layer in f32: sigmoid RGB on lanes 0..2, softplus(x - 1)
 //     density on lane 3;
@@ -66,15 +70,17 @@ struct Smem {
   float head[kRows][4];                // last-layer lanes 0..3
   float t[kRows];                      // sample depth per row
   float m[kRows];                      // sample mask per row
+  float step[kRows];                   // quadrature step per row (per-sample placement only)
   uint32_t words[kWords];              // coarse bitfield
   float T[kRows];                      // running transmittance per ray
   float acc[kRows][5];                 // per ray: r, g, b, acc, depth
 };
 
+template <bool kTmode>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_forward_kernel(const __nv_bfloat16* __restrict__ wt, const float* __restrict__ bias,
                      const float* __restrict__ gamma, const float* __restrict__ beta,
-                     const float* __restrict__ te_in, const float* __restrict__ dt_in,
+                     const tnerf::Placement<kTmode> place,
                      const float* __restrict__ o, const float* __restrict__ d,
                      const float* __restrict__ mask, const uint32_t* __restrict__ words_in,
                      float* __restrict__ out, float* __restrict__ tchk, int B, int S,
@@ -115,10 +121,9 @@ fused_forward_kernel(const __nv_bfloat16* __restrict__ wt, const float* __restri
     bool any = false;
     for (int row = tid; row < kRows; row += kThreads) {
       const int j = row / ch, s = k * ch + row % ch, ray = ray0 + j;
-      float m = 0.f, t = 0.f;
+      float m = 0.f, t = 0.f, step = 0.f;
       if (j < R && ray < B && s < S) {
-        const float te = te_in[ray], dt = dt_in[ray];
-        t = tnerf::sample_depth(te, dt, s);
+        place.sample(ray, s, S, t, step);
         m = mask[(size_t)ray * S + s];
         if (use_coarse && m != 0.f) {
           const float x = __fadd_rn(o[3 * ray], __fmul_rn(t, d[3 * ray]));
@@ -129,6 +134,7 @@ fused_forward_kernel(const __nv_bfloat16* __restrict__ wt, const float* __restri
       }
       sm.t[row] = t;
       sm.m[row] = m;
+      if constexpr (kTmode) sm.step[row] = step;
       any |= m != 0.f;
     }
     bool live = false;
@@ -144,7 +150,7 @@ fused_forward_kernel(const __nv_bfloat16* __restrict__ wt, const float* __restri
       float v = 0.f;
       if (j < R && ray < B && s < S) {
         const size_t gi = (size_t)ray * kLanes + f;
-        v = tnerf::encode_feature(gamma[gi], beta[gi], s, f);
+        v = tnerf::encode_feature(gamma[gi], beta[gi], place.abscissa(s, sm.t[row]), f);
       }
       sm.act[row * kStride + f] = __float2bfloat16_rn(v);
     }
@@ -192,7 +198,8 @@ fused_forward_kernel(const __nv_bfloat16* __restrict__ wt, const float* __restri
         h[0] = tnerf::sigmoidf(h[0]);
         h[1] = tnerf::sigmoidf(h[1]);
         h[2] = tnerf::sigmoidf(h[2]);
-        h[3] = __fmul_rn(__fmul_rn(sig, dt_in[ray]), sm.m[row]);  // tau
+        const float step = kTmode ? sm.step[row] : place.dt[ray];
+        h[3] = __fmul_rn(__fmul_rn(sig, step), sm.m[row]);  // tau
       }
     }
     __syncthreads();
@@ -234,6 +241,25 @@ fused_forward_kernel(const __nv_bfloat16* __restrict__ wt, const float* __restri
   }
 }
 
+template <bool kTmode>
+int launch_forward(const void* wt, const float* bias, const float* gamma, const float* beta,
+                   const tnerf::Placement<kTmode>& place, const float* o, const float* d,
+                   const float* mask, const int32_t* words, float* out, float* tchk, int B, int S,
+                   int n_layers, int use_coarse, const Coarse& cg, float term_eps, void* stream) {
+  const int smem = (int)sizeof(Smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_forward_kernel<kTmode>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int ch = S < kRows ? S : kRows;
+  const int R = kRows / ch;
+  const int blocks = (B + R - 1) / R;
+  fused_forward_kernel<kTmode><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      reinterpret_cast<const __nv_bfloat16*>(wt), bias, gamma, beta, place, o, d, mask,
+      reinterpret_cast<const uint32_t*>(words), out, tchk, B, S, n_layers, use_coarse, cg,
+      term_eps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int tnerf_fused_forward(const void* wt, const float* bias, const float* gamma,
@@ -243,17 +269,23 @@ extern "C" int tnerf_fused_forward(const void* wt, const float* bias, const floa
                                    int n_layers, int use_coarse, int res_c, float lo_x,
                                    float lo_y, float lo_z, float cell_x, float cell_y,
                                    float cell_z, float term_eps, void* stream) {
-  const int smem = (int)sizeof(Smem);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  Coarse cg{res_c, lo_x, lo_y, lo_z, cell_x, cell_y, cell_z};
-  const int ch = S < kRows ? S : kRows;
-  const int R = kRows / ch;
-  const int blocks = (B + R - 1) / R;
-  fused_forward_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(wt), bias, gamma, beta, te, dt, o, d, mask,
-      reinterpret_cast<const uint32_t*>(words), out, tchk, B, S, n_layers, use_coarse, cg,
-      term_eps);
-  return (int)cudaGetLastError();
+  return launch_forward<false>(wt, bias, gamma, beta, {te, dt, nullptr, nullptr}, o, d, mask,
+                               words, out, tchk, B, S, n_layers, use_coarse,
+                               Coarse{res_c, lo_x, lo_y, lo_z, cell_x, cell_y, cell_z}, term_eps,
+                               stream);
+}
+
+// Per-sample placement: ts, dts [B, S] in the place of te, dt [B].
+extern "C" int tnerf_fused_forward_tmode(const void* wt, const float* bias, const float* gamma,
+                                         const float* beta, const float* ts, const float* dts,
+                                         const float* o, const float* d, const float* mask,
+                                         const int32_t* words, float* out, float* tchk, int B,
+                                         int S, int n_layers, int use_coarse, int res_c,
+                                         float lo_x, float lo_y, float lo_z, float cell_x,
+                                         float cell_y, float cell_z, float term_eps,
+                                         void* stream) {
+  return launch_forward<true>(wt, bias, gamma, beta, {nullptr, nullptr, ts, dts}, o, d, mask,
+                              words, out, tchk, B, S, n_layers, use_coarse,
+                              Coarse{res_c, lo_x, lo_y, lo_z, cell_x, cell_y, cell_z}, term_eps,
+                              stream);
 }

@@ -78,10 +78,9 @@ def renderer_payload(state, sampler_cfg, grid_cfg):
     density-EMA payload of `density_cdf` placement is not ported yet."""
     if state is None:
         return None
-    if sampler_cfg.placement != "uniform":
+    if sampler_cfg.placement == "density_cdf":
         raise NotImplementedError(
-            f"sampler.placement={sampler_cfg.placement!r} is not yet ported "
-            "to tnerf_torch, see ROADMAP.md"
+            "sampler.placement='density_cdf' is not yet ported to tnerf_torch, see ROADMAP.md"
         )
     res = grid_cfg.resolution
     if tuple(state.bitfield.shape) != (res, res, res):

@@ -29,6 +29,9 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 PROTOTYPES = {
     # o, d, te, tx, words, t0, t1, n, res_c, lo xyz, cell xyz, probes, pad_diag, stream
     "tnerf_tighten_range": [P] * 7 + [I, I] + [F] * 6 + [I, F, P],
+    # o, d, te, tx, words, t0, t1, mask, n, n_samples, res_c, lo xyz, cell xyz, probes,
+    # pad_diag, stream
+    "tnerf_tighten_sample_mask": [P] * 8 + [I, I, I] + [F] * 6 + [I, F, P],
     # wt, bias, gamma, beta, te, dt, o, d, mask, words, out, tchk (may be null), B, S,
     # n_layers, use_coarse, res_c, lo xyz, cell xyz, term_eps, stream
     "tnerf_fused_forward": [P] * 12 + [I, I, I, I, I] + [F] * 7 + [P],
@@ -36,6 +39,9 @@ PROTOTYPES = {
     # n_layers, use_coarse, res_c, lo xyz, cell xyz, term_eps, stream
     "tnerf_fused_backward": [P] * 15 + [I, I, I, I, I] + [F] * 7 + [P],
 }
+# per-sample placement: ts, dts [B, S] in the place of te, dt [B]
+PROTOTYPES["tnerf_fused_forward_tmode"] = PROTOTYPES["tnerf_fused_forward"]
+PROTOTYPES["tnerf_fused_backward_tmode"] = PROTOTYPES["tnerf_fused_backward"]
 
 
 def sources():

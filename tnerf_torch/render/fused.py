@@ -1,9 +1,11 @@
 """Fused frequency-MLP renderer (kernels B1 and B2) and its glue.
 
 Replaces the TPU kernels `tnerf/render/pallas_fused2.py:_fwd_kernel`
-(:350) and `_bwd_kernel` (:438), the custom VJP that joins them
-(`make_fused_trainable`, :582) and the uniform-placement, uncompacted
-branch of `make_fused_pipeline_renderer_v2` (:922-1243).
+(:350) and `_bwd_kernel` (:438), both with uniform and with per-sample
+placement (their `tmode`), the custom VJP that joins them
+(`make_fused_trainable`, :582) and `make_fused_pipeline_renderer_v2`
+(:922-1243): uniform and occupancy-CDF placement, each with and without
+ray compaction.
 
 `fused_forward` / `fused_backward` take their plain PyTorch versions for
 CPU tensors and launch the CUDA kernels (`tnerf_torch/csrc/
@@ -29,7 +31,14 @@ import torch
 
 from tnerf_torch.cameras import Rays
 from tnerf_torch.device import full_f32_matmul
-from tnerf_torch.grid.tighten import WORDS, coarse_constants, occ_bit, pack_words_rows, tighten_range
+from tnerf_torch.grid.tighten import (
+    WORDS,
+    coarse_constants,
+    occ_bit,
+    pack_words_rows,
+    tighten_range,
+    tighten_sample_mask,
+)
 from tnerf_torch.grid.traversal import make_coarse_occupancy, ray_aabb
 from tnerf_torch.kernels import build
 from tnerf_torch.render.composite import RenderResult
@@ -38,7 +47,10 @@ from tnerf_torch.render.fused_common import (
     _encoding_matrices,
     _feature_permutation,
     _norm_affine,
+    compact_rows,
+    scatter_back,
 )
+from tnerf_torch.sampling import cdf_ray_samples
 from tnerf_torch.utils.checkpoint import n_layers
 
 
@@ -90,6 +102,13 @@ def encode_gamma_beta(origins, directions, viewdirs_tp, t_enter, dt, A, C):
     return gamma.contiguous(), beta.contiguous()
 
 
+def select_bin_pool_res(res: int) -> int:
+    """The pooling resolution of the CDF path's tighten and bin probes: the
+    largest divisor of res not above 32, whatever render.fused_coarse_res
+    is (`:880`)."""
+    return next(c for c in range(min(32, res), 0, -1) if res % c == 0)
+
+
 def select_coarse_res(render_cfg, res: int) -> int:
     """The in-kernel coarse bitfield resolution: the largest divisor of
     res not above min(render.fused_coarse_res, res, 32) (`:888`)."""
@@ -125,15 +144,23 @@ def n_bwd_chunks(S: int) -> int:
     return -(-S // min(S, BWD_CHUNK))
 
 
-def _chunk_forward(Wb, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, s0: int, s1: int):
+def _chunk_forward(Wb, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, s0: int, s1: int,
+                   ts=None, dts=None):
     """Samples s0..s1-1 of every ray through the encoding, the MLP and the
-    head activations: (acts, rgb, sig, t, m, tau), acts[l] being layer
-    l's bf16 input [B * n, 128].  Wb: the bf16-rounded weights as f32."""
+    head activations: (acts, rgb, sig, t, m, tau, step), acts[l] being
+    layer l's bf16 input [B * n, 128] and step the quadrature step [B, n]
+    or [B, 1].  Wb: the bf16-rounded weights as f32."""
     B = gamma.shape[0]
     NL = Wb.shape[0]
     dev = gamma.device
-    s = torch.arange(s0, s1, dtype=torch.float32, device=dev) + 0.5
-    I = gamma[:, None, :] + s[None, :, None] * beta[:, None, :]
+    if ts is None:
+        s = torch.arange(s0, s1, dtype=torch.float32, device=dev) + 0.5
+        I = gamma[:, None, :] + s[None, :, None] * beta[:, None, :]
+        t = te[:, None] + s[None, :] * dt[:, None]
+        step = dt[:, None]
+    else:
+        t, step = ts[:, s0:s1], dts[:, s0:s1]
+        I = gamma[:, None, :] + t[:, :, None] * beta[:, None, :]
     lane = torch.arange(LANES, device=dev)
     E = torch.where(lane < 5, I, torch.sin(I))
     acts = [E.reshape(B * (s1 - s0), LANES).to(torch.bfloat16)]
@@ -143,21 +170,21 @@ def _chunk_forward(Wb, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, s0:
     rgb = torch.sigmoid(hL[..., 0:3])
     x = hL[..., 3] - 1.0
     sig = torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))  # jax.nn.softplus
-    t = te[:, None] + s[None, :] * dt[:, None]
     m = mask[:, s0:s1].float()
     if coarse is not None:
         res_c, lo, cell_c = coarse
         bit = occ_bit(o[:, None, 0] + t * d[:, None, 0], o[:, None, 1] + t * d[:, None, 1],
                       o[:, None, 2] + t * d[:, None, 2], words, res_c, lo, cell_c)
         m = m * bit.float()
-    tau = sig * dt[:, None] * m
-    return acts, rgb, sig, t, m, tau
+    tau = sig * step * m
+    return acts, rgb, sig, t, m, tau, step
 
 
 def fused_forward_plain(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse,
-                        return_tchk: bool = False):
+                        return_tchk: bool = False, ts=None, dts=None):
     """The plain PyTorch version of `fused_forward` (any device;
-    differentiable in W and Bias).
+    differentiable in W and Bias): the torch mirror of `fused_reference_v2`
+    (:803) and, with ts / dts, of `fused_reference_v2_t` (:841).
 
     bf16 operands are rounded, then upcast and multiplied in f32: a bf16
     matmul would round its sums to bf16, and the reference accumulates in
@@ -165,8 +192,8 @@ def fused_forward_plain(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse,
     matrix products, so TF32 is held off while it runs."""
     S = mask.shape[1]
     with full_f32_matmul():
-        _, rgb, _, t, _, tau = _chunk_forward(W.to(torch.bfloat16).float(), Bias, gamma, beta, te,
-                                              dt, o, d, mask, words, coarse, 0, S)
+        _, rgb, _, t, _, tau, _ = _chunk_forward(W.to(torch.bfloat16).float(), Bias, gamma, beta,
+                                                 te, dt, o, d, mask, words, coarse, 0, S, ts, dts)
     excl = torch.cumsum(tau, dim=1) - tau
     w = torch.exp(-excl) * (1.0 - torch.exp(-tau))
     out = torch.cat([
@@ -181,7 +208,8 @@ def fused_forward_plain(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse,
 
 
 @torch.no_grad()
-def fused_backward_plain(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, tchk, gout):
+def fused_backward_plain(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, tchk, gout,
+                         ts=None, dts=None):
     """The plain PyTorch version of `fused_backward` (any device), written
     out step by step as the kernel does it (`_bwd_kernel`, :438-570):
     chunks of BWD_CHUNK samples, last first, each recomputed from its
@@ -199,8 +227,8 @@ def fused_backward_plain(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse
     with full_f32_matmul():
         for c in reversed(range(n_bwd_chunks(S))):
             s0, s1 = c * ch, min(S, (c + 1) * ch)
-            acts, rgb, sig, t, m, tau = _chunk_forward(Wb, Bias, gamma, beta, te, dt, o, d, mask,
-                                                       words, coarse, s0, s1)
+            acts, rgb, sig, t, m, tau, step = _chunk_forward(
+                Wb, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, s0, s1, ts, dts)
             T0 = tchk[:, c:c + 1]
             E = torch.exp(-(torch.cumsum(tau, dim=1) - tau))
             emt = torch.exp(-tau)
@@ -211,7 +239,7 @@ def fused_backward_plain(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse
             G = dw * w
             suffix = torch.flip(torch.cumsum(torch.flip(G, [1]), dim=1), [1]) - G
             dtau = -suffix + dw * (T0 * E * emt) - gT[:, None] * (T0 * Texp)
-            dsig = dtau * dt[:, None] * m
+            dsig = dtau * step * m
             g = torch.zeros((B, s1 - s0, LANES), dtype=torch.float32, device=W.device)
             g[..., 0:3] = (w[..., None] * gout[:, None, 0:3]) * rgb * (1.0 - rgb)
             g[..., 3] = dsig * (1.0 - torch.exp(-sig))  # softplus' = 1 - exp(-softplus)
@@ -227,7 +255,7 @@ def fused_backward_plain(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse
     return dW, dB
 
 
-def _check_fused_inputs(what, W, Bias, gamma, beta, te, dt, o, d, mask, words):
+def _check_fused_inputs(what, W, Bias, gamma, beta, te, dt, o, d, mask, words, ts, dts):
     dev = gamma.device
     B, S = mask.shape
     NL = W.shape[0]
@@ -241,6 +269,11 @@ def _check_fused_inputs(what, W, Bias, gamma, beta, te, dt, o, d, mask, words):
     for name, t in (("o", o), ("d", d)):
         build.check_tensor(name, t, (B, 3), f32, dev)
     build.check_tensor("mask", mask, (B, S), f32, dev)
+    if (ts is None) != (dts is None):
+        raise ValueError(f"{what}: ts and dts go together")
+    if ts is not None:
+        build.check_tensor("ts", ts, (B, S), f32, dev)
+        build.check_tensor("dts", dts, (B, S), f32, dev)
     build.check_tensor("words", words, (WORDS,), torch.int32, dev)
     if S < 1 or NL < 1:
         raise ValueError(f"{what}: need S >= 1 and at least one layer, got S={S}, NL={NL}")
@@ -255,28 +288,39 @@ def _coarse_args(coarse):
             fl(cell_c[0]), fl(cell_c[1]), fl(cell_c[2]))
 
 
+def _placement_ptrs(te, dt, ts, dts):
+    """The two placement pointers of a launch: (te, dt) per ray, or (ts,
+    dts) per sample, which the per-sample instantiation reads instead."""
+    return (te.data_ptr(), dt.data_ptr()) if ts is None else (ts.data_ptr(), dts.data_ptr())
+
+
 def fused_forward(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, term_eps: float = 0.0,
-                  return_tchk: bool = False):
-    """Encode + MLP + composite every ray's S uniform samples.
+                  return_tchk: bool = False, ts=None, dts=None):
+    """Encode + MLP + composite every ray's S samples.
 
     W [NL, 128, 128] f32 (cast to bf16 here), Bias [NL, 128] f32, gamma /
     beta [B, 128] f32, te / dt [B] f32, o / d [B, 3] f32, mask [B, S] f32,
     words int32 [1024], coarse = (res_c, lo, cell_c) from
-    `coarse_constants` or None (no occupancy test).  Returns [B, 6] f32:
-    rgb (no background), acc, depth = sum w t, T_final; with return_tchk
-    also tchk [B, n_bwd_chunks(S)] f32, the transmittance at which each
-    ray enters every BWD_CHUNK-th sample (what `fused_backward` restarts
-    its chunks from).
+    `coarse_constants` or None (no occupancy test).  Uniform placement:
+    sample s sits at te + (s + 0.5) dt with step dt, (gamma, beta) folded
+    at (te, dt).  Per-sample placement (ts, dts [B, S] f32 given): depth
+    ts and step dts, feature = act(gamma + ts beta) with (gamma, beta)
+    folded at (0, 1); te and dt are not read.  Returns [B, 6] f32: rgb (no
+    background), acc, depth = sum w t, T_final; with return_tchk also tchk
+    [B, n_bwd_chunks(S)] f32, the transmittance at which each ray enters
+    every BWD_CHUNK-th sample (what `fused_backward` restarts its chunks
+    from).
 
     CPU tensors take the plain version (term_eps does not apply there);
-    CUDA tensors launch the B1 kernel, which stops shading a tile of rays
-    once all of them are below term_eps."""
+    CUDA tensors launch the B1 kernel (its per-sample instantiation with
+    ts / dts), which stops shading a tile of rays once all of them are
+    below term_eps."""
     if gamma.device.type == "cpu":
         return fused_forward_plain(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse,
-                                   return_tchk=return_tchk)
+                                   return_tchk=return_tchk, ts=ts, dts=dts)
     if gamma.device.type != "cuda":
         raise ValueError(f"fused_forward: unsupported device {gamma.device}")
-    _check_fused_inputs("fused_forward", W, Bias, gamma, beta, te, dt, o, d, mask, words)
+    _check_fused_inputs("fused_forward", W, Bias, gamma, beta, te, dt, o, d, mask, words, ts, dts)
     dev = gamma.device
     B, S = mask.shape
     out = torch.empty((B, 6), dtype=torch.float32, device=dev)
@@ -285,36 +329,42 @@ def fused_forward(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, term_
     if B > 0:
         Wt = W.to(torch.bfloat16).transpose(1, 2).contiguous()  # out-major [NL, n, k]
         lib = build.library()
+        launch = lib.tnerf_fused_forward if ts is None else lib.tnerf_fused_forward_tmode
         with torch.cuda.device(dev):
-            err = lib.tnerf_fused_forward(
-                Wt.data_ptr(), Bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(), te.data_ptr(),
-                dt.data_ptr(), o.data_ptr(), d.data_ptr(), mask.data_ptr(), words.data_ptr(),
-                out.data_ptr(), tchk.data_ptr() if return_tchk else None, B, S, W.shape[0],
-                *_coarse_args(coarse), float(np.float32(term_eps)),
+            err = launch(
+                Wt.data_ptr(), Bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                *_placement_ptrs(te, dt, ts, dts), o.data_ptr(), d.data_ptr(), mask.data_ptr(),
+                words.data_ptr(), out.data_ptr(), tchk.data_ptr() if return_tchk else None,
+                B, S, W.shape[0], *_coarse_args(coarse), float(np.float32(term_eps)),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
-        build.check(err, "tnerf_fused_forward")
-        fused_forward.launches += 1
+        build.check(err, "tnerf_fused_forward" if ts is None else "tnerf_fused_forward_tmode")
+        if ts is None:
+            fused_forward.launches += 1
+        else:
+            fused_forward.launches_tmode += 1
     return (out, tchk) if return_tchk else out
 
 
-fused_forward.launches = 0
+fused_forward.launches = 0        # of the uniform-placement instantiation
+fused_forward.launches_tmode = 0  # of the per-sample instantiation
 
 
 def fused_backward(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, tchk, gout,
-                   term_eps: float = 0.0):
+                   term_eps: float = 0.0, ts=None, dts=None):
     """(dL/dW [NL, 128, 128], dL/dBias [NL, 128]) f32 of `fused_forward`'s
     output under the cotangent gout [B, 6], from the forward's own inputs
-    and its tchk.  CPU tensors take the plain version; CUDA tensors launch
-    the B2 kernel, which skips what the forward kernel skipped under the
-    same term_eps.  The kernel sums across blocks with atomic adds, so its
-    result is not bit-reproducible from run to run."""
+    (ts / dts included) and its tchk.  CPU tensors take the plain version;
+    CUDA tensors launch the B2 kernel, which skips what the forward kernel
+    skipped under the same term_eps.  The kernel sums across blocks with
+    atomic adds, so its result is not bit-reproducible from run to run."""
     if gamma.device.type == "cpu":
         return fused_backward_plain(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse,
-                                    tchk, gout)
+                                    tchk, gout, ts=ts, dts=dts)
     if gamma.device.type != "cuda":
         raise ValueError(f"fused_backward: unsupported device {gamma.device}")
-    _check_fused_inputs("fused_backward", W, Bias, gamma, beta, te, dt, o, d, mask, words)
+    _check_fused_inputs("fused_backward", W, Bias, gamma, beta, te, dt, o, d, mask, words, ts,
+                        dts)
     dev = gamma.device
     B, S = mask.shape
     NL = W.shape[0]
@@ -331,114 +381,194 @@ def fused_backward(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, tchk
     Wk = W.to(torch.bfloat16).contiguous()           # in-major [NL, k, n]: gb @ W^T
     Wt = Wk.transpose(1, 2).contiguous()             # out-major [NL, n, k]: a @ W
     lib = build.library()
+    launch = lib.tnerf_fused_backward if ts is None else lib.tnerf_fused_backward_tmode
     with torch.cuda.device(dev):
-        err = lib.tnerf_fused_backward(
+        err = launch(
             Wt.data_ptr(), Wk.data_ptr(), Bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            te.data_ptr(), dt.data_ptr(), o.data_ptr(), d.data_ptr(), mask.data_ptr(),
+            *_placement_ptrs(te, dt, ts, dts), o.data_ptr(), d.data_ptr(), mask.data_ptr(),
             words.data_ptr(), tchk.data_ptr(), gout.data_ptr(), dW.data_ptr(), dB.data_ptr(),
             B, S, NL, *_coarse_args(coarse), float(np.float32(term_eps)),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    build.check(err, "tnerf_fused_backward")
-    fused_backward.launches += 1
+    build.check(err, "tnerf_fused_backward" if ts is None else "tnerf_fused_backward_tmode")
+    if ts is None:
+        fused_backward.launches += 1
+    else:
+        fused_backward.launches_tmode += 1
     return dW, dB
 
 
 fused_backward.launches = 0
+fused_backward.launches_tmode = 0
 
 
 class _FusedRender(torch.autograd.Function):
     """`fused_forward` with `fused_backward` as its derivative onto (W,
-    Bias); every other input gets no gradient (`:785-793`)."""
+    Bias); every other input, ts and dts included, gets no gradient
+    (`:750-760`, `:785-793`)."""
 
     @staticmethod
-    def forward(ctx, W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, term_eps):
+    def forward(ctx, W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, term_eps, ts, dts):
         out, tchk = fused_forward(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse,
-                                  term_eps=term_eps, return_tchk=True)
-        ctx.save_for_backward(W, Bias, gamma, beta, te, dt, o, d, mask, words, tchk)
+                                  term_eps=term_eps, return_tchk=True, ts=ts, dts=dts)
+        ctx.save_for_backward(W, Bias, gamma, beta, te, dt, o, d, mask, words, tchk, ts, dts)
         ctx.coarse, ctx.term_eps = coarse, term_eps
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, gout):
-        *inputs, tchk = ctx.saved_tensors
+        *inputs, tchk, ts, dts = ctx.saved_tensors
         dW, dBias = fused_backward(*inputs, ctx.coarse, tchk, gout.float().contiguous(),
-                                   term_eps=ctx.term_eps)
-        return (dW, dBias) + (None,) * 10
+                                   term_eps=ctx.term_eps, ts=ts, dts=dts)
+        return (dW, dBias) + (None,) * 12
 
 
-def fused_render(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, term_eps: float = 0.0):
+def fused_render(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, term_eps: float = 0.0,
+                 ts=None, dts=None):
     """`fused_forward`, differentiable in W and Bias (the counterpart of
     the function `make_fused_trainable` returns)."""
-    return _FusedRender.apply(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, term_eps)
-
-
-def refuse_unported(sampler_cfg, render_cfg, for_eval: bool = True) -> None:
-    """Raise on the fused-path options this port does not run yet.  Ray
-    compaction is an eval-only option (the reference's training build
-    leaves it out too), so a training renderer does not look at it."""
-    if sampler_cfg.placement != "uniform":
-        raise NotImplementedError(
-            f"sampler.placement={sampler_cfg.placement!r} is not yet ported to "
-            "tnerf_torch (uniform placement only), see ROADMAP.md"
-        )
-    if render_cfg.ray_compact and for_eval:
-        raise NotImplementedError(
-            "render.ray_compact=true is not yet ported to tnerf_torch (it needs "
-            "kernel B4), see ROADMAP.md; pass --override render.ray_compact=false"
-        )
+    return _FusedRender.apply(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, term_eps,
+                              ts, dts)
 
 
 def make_fused_renderer(field_cfg, grid_cfg, sampler_cfg, render_cfg, tighten: bool = True,
                         for_eval: bool = True):
-    """render(params, rays, occupancy=None) -> RenderResult through the B1
-    kernel: the counterpart of `make_fused_pipeline_renderer_v2` with
-    uniform placement and no ray compaction (:1126-1243).  for_eval=False
-    builds the training renderer: where gradients are being recorded it
-    goes through `fused_render`, so `backward()` reaches the field's
-    parameters through kernel B2 and the differentiable `pack_params_f32`;
-    the ray, its span and the occupancy get no gradient.
+    """render(params, rays, occupancy=None, generator=None) -> RenderResult
+    through the B1 kernel: the counterpart of
+    `make_fused_pipeline_renderer_v2` (:922-1243).  for_eval=False builds
+    the training renderer: where gradients are being recorded it goes
+    through `fused_render`, so `backward()` reaches the field's parameters
+    through kernel B2 and the differentiable `pack_params_f32`; the ray,
+    its span, its samples and the occupancy get no gradient.
 
     rays: flat Rays ([B, 3], [B, 3], [B, 2]) on the params' device;
     occupancy: the [res]^3 bool bitfield or None (every coarse bit set,
-    no tightening).  With tighten, each ray's span shrinks to its
-    occupied range (kernel B3, 256 probes) before sampling."""
-    refuse_unported(sampler_cfg, render_cfg, for_eval)
+    no tightening).  Three ways to place and pick the samples:
+
+    - uniform placement: with tighten, each ray's span shrinks to its
+      occupied range (kernel B3, 256 probes), and S midpoint samples cover
+      it;
+    - sampler.placement="occupancy_cdf" (`:1145-1193`): kernel B4 tightens
+      the span and tests its sampler.cdf_bins bin midpoints against the
+      occupancy pooled to `select_bin_pool_res`; the S samples go through
+      the inverse CDF of those bits (`cdf_ray_samples`): stratum midpoints,
+      or jittered within their strata where `generator` (a torch.Generator
+      on the rays' device, the counterpart of the reference's key) is
+      given, as training gives it; the kernels run in per-sample placement;
+    - render.ray_compact (eval only, as in the reference; `:1154-1180`,
+      `:1195-1230`): rays with no occupied bin (CDF), or no occupied
+      midpoint sample of the tightened span (uniform; kernel B4 at n = S on
+      the occupancy pooled as the kernel's coarse bitfield), are dropped
+      before the fused kernel, which runs on a buffer of cap = max(1,
+      int(B * render.ray_compact_fraction)) rays; dropped rays, and kept
+      rays beyond cap, come back as background (acc = 0).  The reference
+      rounds cap up to its kernel's row tile and pads the rays to it: TPU
+      tiling, which has no counterpart here."""
+    if sampler_cfg.placement == "density_cdf":
+        raise ValueError(
+            "render.pipeline='fused' supports sampler.placement="
+            "'occupancy_cdf' (binary bin weights from the fold kernel); "
+            "density_cdf needs density-EMA bin probes — use "
+            "render.pipeline='grid_march' for density-weighted placement"
+        )
+    use_cdf = sampler_cfg.placement == "occupancy_cdf"
+    if use_cdf and not tighten:
+        raise ValueError(
+            "fused CDF placement needs tighten=True (bin weights come "
+            "from the tighten+sample-mask kernel); set "
+            "render.fused_tighten=true"
+        )
+    ray_compact = render_cfg.ray_compact and for_eval
     s_aff, b_aff = _norm_affine(grid_cfg)
     A, C, _ = _encoding_matrices(field_cfg, s_aff, b_aff)
     S = sampler_cfg.samples_per_ray
+    P = sampler_cfg.cdf_bins
     res = grid_cfg.resolution
     res_c = select_coarse_res(render_cfg, res)
+    res_t = select_bin_pool_res(res)
     lo, cell_c, _ = coarse_constants(grid_cfg, res_c)
     coarse = (res_c, lo, cell_c)
     near = float(sampler_cfg.near)
 
-    def kernel_inputs(params, rays: Rays, occupancy=None) -> tuple:
-        """The positional arguments of this renderer's fused_forward call."""
+    def tighten_mask(o, d, te, tx, occupancy, words, to_res: int, n: int):
+        """Kernel B4 on the occupancy pooled to to_res; `words` is that
+        bitfield where to_res is the kernel's own pooling."""
+        occ_c = make_coarse_occupancy(occupancy.reshape(res, res, res), res // to_res)
+        return tighten_sample_mask(o, d, te, tx, occ_c, n, grid_cfg,
+                                   words=words if to_res == res_c else None)
+
+    def compact(keep, *cols):
+        """The kept rays' columns, each cut from one compacted buffer."""
+        cap = max(1, int(keep.shape[0] * render_cfg.ray_compact_fraction))
+        wide = [c if c.dim() == 2 else c[:, None] for c in cols]
+        buf, widx = compact_rows(keep, torch.cat(wide, dim=1), cap)
+        parts = torch.split(buf, [c.shape[1] for c in wide], dim=1)
+        return [p.contiguous() if c.dim() == 2 else p[:, 0].contiguous()
+                for p, c in zip(parts, cols)], widx
+
+    def prepare(params, rays: Rays, occupancy, generator):
+        """(positional arguments, keyword arguments, widx) of this
+        renderer's fused_forward call; widx [B] maps the rays to the
+        call's rows where they were compacted, else None."""
         o, d, tp = (a.float().contiguous() for a in rays)
         dev = o.device
         te, tx = ray_aabb(o, d, grid_cfg.aabb_min, grid_cfg.aabb_max)
         te = torch.clamp_min(te, near)
         tx = torch.maximum(tx, te)
+        widx, placed = None, {}
         if occupancy is None:
+            if use_cdf:
+                raise ValueError(
+                    "fused CDF placement (sampler.placement='occupancy_cdf') needs an "
+                    "occupancy grid at render time — pass occupancy=..."
+                )
             words = torch.full((WORDS,), -1, dtype=torch.int32, device=dev)
         else:
             words = pack_occupancy_words(occupancy, res, res_c)
-            if tighten:
-                te, tx = tighten_range(o, d, te, tx, words, res_c, grid_cfg)
-        # dt divides by the requested S, as the reference does (:1032-1039)
-        dt = (tx - te) / torch.tensor(float(S), dtype=torch.float32, device=dev)
-        mask = (tx > te)[:, None].expand(-1, S).float().contiguous()
-        gamma, beta = encode_gamma_beta(o, d, tp, te, dt, A, C)
+        if use_cdf:
+            te, tx, bins = tighten_mask(o, d, te, tx, occupancy, words, res_t, P)
+            if ray_compact:
+                (o, d, tp, te, tx, binsf), widx = compact(bins.any(dim=1), o, d, tp, te, tx,
+                                                          bins.float())
+                bins = binsf > 0.5
+            jitter = None if generator is None else torch.rand(
+                (*te.shape, S), generator=generator, dtype=torch.float32, device=dev)
+            rs = cdf_ray_samples(te, tx, S, bins.float(), floor=sampler_cfg.cdf_floor,
+                                 jitter=jitter, bin_support=bins)
+            placed = {"ts": rs.t.contiguous(), "dts": rs.deltas.contiguous()}
+            mask = rs.mask.float().contiguous()
+            # (gamma, beta) folded at (t = 0, dt = 1): feature = act(gamma + t beta)
+            te = dt = torch.zeros_like(te)
+            gamma, beta = encode_gamma_beta(o, d, tp, te, torch.ones_like(te), A, C)
+        else:
+            if occupancy is not None and tighten:
+                if ray_compact:
+                    te, tx, kmask = tighten_mask(o, d, te, tx, occupancy, words, res_c, S)
+                    (o, d, tp, te, tx), widx = compact(kmask.any(dim=1), o, d, tp, te, tx)
+                else:
+                    te, tx = tighten_range(o, d, te, tx, words, res_c, grid_cfg)
+            # dt divides by the requested S, as the reference does (:1032-1039)
+            dt = ((tx - te) / torch.tensor(float(S), dtype=torch.float32, device=dev)).contiguous()
+            mask = (tx > te)[:, None].expand(-1, S).float().contiguous()
+            gamma, beta = encode_gamma_beta(o, d, tp, te, dt, A, C)
         W, Bias = pack_params_f32(params, field_cfg, s_aff, b_aff)
-        return (W, Bias, gamma, beta, te.contiguous(), dt.contiguous(), o, d, mask, words,
-                coarse)
+        return (W, Bias, gamma, beta, te.contiguous(), dt, o, d, mask, words, coarse), placed, widx
 
-    def render(params, rays: Rays, occupancy=None) -> RenderResult:
+    def kernel_inputs(params, rays: Rays, occupancy=None, generator=None) -> tuple:
+        """The positional arguments of this renderer's fused_forward call;
+        under CDF placement, followed by the dict of its ts / dts keywords."""
+        args, placed, _ = prepare(params, rays, occupancy, generator)
+        return (*args, placed) if use_cdf else args
+
+    def render(params, rays: Rays, occupancy=None, generator=None) -> RenderResult:
         call = fused_forward if for_eval or not torch.is_grad_enabled() else fused_render
-        out = call(*kernel_inputs(params, rays, occupancy),
-                   term_eps=render_cfg.transmittance_threshold)
+        args, placed, widx = prepare(params, rays, occupancy, generator)
+        out = call(*args, term_eps=render_cfg.transmittance_threshold, **placed)[:, 0:5]
+        if widx is not None:
+            # the background row is all zeros (acc = 0); a white background
+            # is added after the rays are back in place
+            out = scatter_back(out, widx, torch.zeros((1, 5), dtype=out.dtype, device=out.device))
         rgb, acc, depth = out[:, 0:3], out[:, 3], out[:, 4]
         if render_cfg.white_background:
             rgb = rgb + (1.0 - acc)[:, None]

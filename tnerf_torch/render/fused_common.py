@@ -1,5 +1,6 @@
 """Static algebra of the fused renderer (the port's own copy of
-`tnerf/render/fused_common.py:21-93`, numpy float32 exactly as there).
+`tnerf/render/fused_common.py:21-93`, numpy float32 exactly as there) and
+its ray compaction (`compact_rows` / `scatter_back`, :97-127).
 
 The frequency encoding and the raw-coordinate normalization fold into
 static matrices, so the kernel feeds raw (x, y, z, theta, phi):
@@ -12,6 +13,7 @@ import math
 from typing import Tuple
 
 import numpy as np
+import torch
 
 LANES = 128  # encoded feature width and MLP width of the fused kernel
 
@@ -73,3 +75,30 @@ def _feature_permutation(cfg) -> np.ndarray:
         for k in range(L2):
             perm += [base + k, base + L2 + k]
     return np.asarray(perm, np.int64)
+
+
+def compact_rows(keep, rows, cap: int):
+    """Pack the kept rows of `rows` [B, K] into a static [cap, K] buffer,
+    in their order (`tnerf/render/fused_common.py:97`).
+
+    widx[i] is ray i's rank among the kept rays, or `cap` for a dropped
+    ray.  Rows are written into a [cap + 1, K] buffer whose last row is
+    sacrificial: dropped rays and kept rays beyond `cap` land there and
+    are cut off, so over-capacity rays read back as background at
+    `scatter_back`.  The capacity is static, so nothing here waits for the
+    device to learn how many rays were kept.
+
+    Returns (buf [cap, K], widx [B] int64)."""
+    widx = torch.where(keep, torch.cumsum(keep, dim=0) - 1, cap)
+    buf = torch.zeros((cap + 1, rows.shape[1]), dtype=rows.dtype, device=rows.device)
+    buf[torch.clamp_max(widx, cap)] = rows
+    return buf[:cap], widx
+
+
+def scatter_back(out_rows, widx, bg_row):
+    """Inverse of `compact_rows` for per-ray outputs: out_rows [cap, K]
+    rendered from the compacted buffer, bg_row [1, K] -> [B, K].  Dropped
+    (widx == cap) and over-capacity (widx > cap) rays both read the
+    background row."""
+    cap = out_rows.shape[0]
+    return torch.cat([out_rows, bg_row], dim=0)[torch.clamp_max(widx, cap)]

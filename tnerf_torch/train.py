@@ -241,17 +241,20 @@ def init_train_state(field, train_cfg) -> TrainState:
     return TrainState(field, create_optimizer(train_cfg, field.params()), 0)
 
 
-def make_train_step(renderer: Callable, loss: str = "l2", huber_delta: float = 0.1
-                    ) -> Callable[[TrainState, RayBatch, Optional[torch.Tensor]], dict]:
-    """train_step(state, batch, occupancy) -> aux: photometric loss through
-    the renderer, gradients onto the field's parameters, one optimizer
-    update, `state.step` advanced; aux = {"loss", "psnr" (always from the
-    MSE), "acc_mean"} as device scalars nobody has waited for."""
+def make_train_step(renderer: Callable, loss: str = "l2", huber_delta: float = 0.1) -> Callable:
+    """train_step(state, batch, occupancy, generator=None) -> aux:
+    photometric loss through the renderer, gradients onto the field's
+    parameters, one optimizer update, `state.step` advanced; aux = {"loss",
+    "psnr" (always from the MSE), "acc_mean"} as device scalars nobody has
+    waited for.  `generator` (on the batch's device) is the renderer's
+    source of sample jitter, the counterpart of the reference step's key;
+    a renderer with uniform placement draws nothing from it."""
     photometric_loss(torch.zeros((1, 3)), loss, huber_delta)  # validate early
 
-    def train_step(state: TrainState, batch: RayBatch, occupancy=None) -> dict:
+    def train_step(state: TrainState, batch: RayBatch, occupancy=None,
+                   generator: Optional[torch.Generator] = None) -> dict:
         params = state.params
-        res = renderer(params, batch.rays, occupancy)
+        res = renderer(params, batch.rays, occupancy, generator)
         err = res.rgb - batch.gt_rgb
         mse = torch.mean(torch.square(err))
         obj = mse if loss == "l2" else photometric_loss(err, loss, huber_delta)

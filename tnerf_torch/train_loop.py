@@ -28,7 +28,7 @@ from tnerf_torch.grid.occupancy import (
     renderer_payload,
     update_occupancy,
 )
-from tnerf_torch.render.fused import make_fused_renderer, refuse_unported
+from tnerf_torch.render.fused import make_fused_renderer
 from tnerf_torch.train import PixelSampler, init_train_state, make_train_step
 from tnerf_torch.utils.checkpoint import (
     latest_checkpoint,
@@ -55,7 +55,21 @@ def validate_ported(cfg: Config, for_eval: bool = True) -> None:
         raise _not_ported(f"scene.kind={cfg.scene.kind!r} (procedural scenes only)")
     if cfg.scene.ndc:
         raise _not_ported("scene.ndc=true")
-    refuse_unported(cfg.sampler, cfg.render, for_eval)
+    if cfg.sampler.placement not in ("uniform", "occupancy_cdf", "density_cdf"):
+        raise ValueError(f"sampler.placement={cfg.sampler.placement!r} must be uniform, "
+                         "occupancy_cdf or density_cdf")
+    if cfg.sampler.placement == "density_cdf":
+        raise ValueError(
+            "sampler.placement='density_cdf' is a grid_march quadrature: "
+            "the fused kernel's CDF fold probes binary occupancy bins "
+            "(occupancy_cdf); density-weighted placement needs the "
+            "density-EMA probes of the march path"
+        )
+    if cfg.sampler.placement == "occupancy_cdf" and not cfg.render.fused_tighten:
+        raise ValueError(
+            "fused occupancy_cdf placement needs render.fused_tighten="
+            "true (bin weights come from the tighten+sample-mask kernel)"
+        )
     if for_eval:
         return
     t, par = cfg.train, cfg.parallel
@@ -87,7 +101,8 @@ def validate_ported(cfg: Config, for_eval: bool = True) -> None:
 def build_renderer(cfg: Config, for_eval: bool = True):
     """The fused renderer of `cfg` (`tnerf/train_loop.py:70`, fused
     branch); for_eval=False builds the training renderer, whose backward
-    runs kernel B2."""
+    runs kernel B2 and which never compacts rays (render.ray_compact is an
+    eval-only option, `:146`)."""
     if cfg.scene.white_background != cfg.render.white_background:
         raise ValueError(
             "scene.white_background and render.white_background disagree "
@@ -141,7 +156,8 @@ def run_training(cfg: Config, datasets: Optional[Dict[str, ImageDataset]] = None
                  device="cuda") -> Dict[str, float]:
     """Train a field per `cfg` on `device`; returns the final metrics.
 
-    procedural scene -> PixelSampler -> fused renderer (B3 tighten, B1
+    procedural scene -> PixelSampler -> fused renderer (B3 tighten, or
+    under occupancy-CDF placement B4 and jittered inverse-CDF samples; B1
     forward, B2 backward) -> L2 loss -> Adam; every grid.update_every
     steps after grid.warmup_steps the occupancy grid is refreshed from the
     field's density; checkpoints are in the reference's layout
@@ -199,7 +215,7 @@ def run_training(cfg: Config, datasets: Optional[Dict[str, ImageDataset]] = None
 
     sampler = PixelSampler(train_ds, cfg.scene.scene_scale, cfg.scene.white_background, dev)
     train_step = make_train_step(renderer, loss=cfg.train.loss, huber_delta=cfg.train.huber_delta)
-    gen = torch.Generator(device=dev)  # batches and occupancy probes
+    gen = torch.Generator(device=dev)  # batches, sample jitter and occupancy probes
     gen.manual_seed(cfg.train.seed + 1)
     rays_per_step = cfg.train.batch_size
     steps_per_epoch = max(1, len(train_ds) * train_ds.height * train_ds.width // rays_per_step)
@@ -223,7 +239,7 @@ def run_training(cfg: Config, datasets: Optional[Dict[str, ImageDataset]] = None
                                              step % steps_per_epoch, rays_per_step)
             else:
                 batch = sampler.sample(gen, rays_per_step)
-            aux = train_step(state, batch, occ_payload)
+            aux = train_step(state, batch, occ_payload, gen)
             window_steps += 1
             if step >= cfg.grid.warmup_steps and step % cfg.grid.update_every == 0:
                 occ = update_occupancy(occ, field.density, cfg.grid, generator=gen)
