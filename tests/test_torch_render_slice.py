@@ -87,7 +87,7 @@ def test_cli_render_orbit_on_cpu(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    "render.pipeline=grid_march", "render.pipeline=grid_intervals",
+    "field_.encoding=triplane", "scene.kind=llff",
     "field_.view_encoding=sh", "field_.encoding=hashgrid", "scene.kind=nerf_synthetic",
     "scene.ndc=true",
 ])

@@ -133,3 +133,95 @@ def test_compact_rows_and_scatter_back_match_reference(cap):
     np.testing.assert_array_equal(back[inside], rows[inside] * 2.0)
     assert np.all(back[~inside] == -1.0)
     assert inside.sum() == min(cap, keep.sum())
+
+
+# --- fixed-count, per-interval and march sampling (the unfused pipelines) ---
+# Fed the same uniforms, the two packages do the same float32 arithmetic:
+# t and deltas within 1e-6 (jnp.linspace and torch.linspace may differ in
+# the last bit of an edge), masks equal.
+
+SAMPLE_ATOL = 1e-6
+
+
+@pytest.mark.parametrize("mode", ["regular", "stratified", "uniform"])
+def test_uniform_ray_samples_match_reference(mode):
+    from tnerf.sampling import uniform_ray_samples as j_uniform
+    from tnerf_torch.sampling import uniform_ray_samples
+
+    import jax
+
+    batch, S = (5, 7), 24
+    key = jax.random.PRNGKey(3)
+    want = j_uniform(2.0, 5.5, S, batch, mode=mode, key=None if mode == "regular" else key)
+    u = None if mode == "regular" else torch.from_numpy(
+        np.array(jax.random.uniform(key, (*batch, S), jnp.float32)))
+    got = uniform_ray_samples(2.0, 5.5, S, batch, mode=mode, u=u)
+    assert got.t.shape == (*batch, S) and got.mask.dtype == torch.bool
+    np.testing.assert_allclose(got.t.numpy(), np.asarray(want.t), atol=SAMPLE_ATOL, rtol=0)
+    np.testing.assert_allclose(got.deltas.numpy(), np.asarray(want.deltas), atol=SAMPLE_ATOL,
+                               rtol=0)
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+    assert bool((got.t[..., 1:] >= got.t[..., :-1]).all())
+
+
+@pytest.mark.parametrize("mode", ["regular", "stratified", "uniform"])
+def test_interval_samples_match_reference(mode):
+    from tnerf.sampling import interval_samples as j_interval
+    from tnerf_torch.sampling import interval_samples
+
+    import jax
+
+    rng = np.random.default_rng(5)
+    B, H, S = 33, 6, 4
+    edges = np.sort(rng.uniform(2.0, 5.0, (B, 2 * H)), axis=1).astype(np.float32)
+    t0, t1 = edges[:, 0::2], edges[:, 1::2]
+    hit = rng.uniform(size=(B, H)) < 0.6
+    key = jax.random.PRNGKey(9)
+    want = j_interval(jnp.asarray(t0), jnp.asarray(t1), jnp.asarray(hit), S, mode=mode,
+                      key=None if mode == "regular" else key)
+    u = None if mode == "regular" else torch.from_numpy(
+        np.array(jax.random.uniform(key, (B, H, S), jnp.float32)))
+    got = interval_samples(torch.from_numpy(t0), torch.from_numpy(t1), torch.from_numpy(hit), S,
+                           mode=mode, u=u)
+    assert got.t.shape == (B, H * S)
+    np.testing.assert_allclose(got.t.numpy(), np.asarray(want.t), atol=SAMPLE_ATOL, rtol=0)
+    np.testing.assert_allclose(got.deltas.numpy(), np.asarray(want.deltas), atol=SAMPLE_ATOL,
+                               rtol=0)
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+
+
+def test_sampling_draws_come_from_the_generator_and_modes_are_checked():
+    from tnerf_torch.sampling import interval_samples, uniform_ray_samples
+
+    gen = lambda s: torch.Generator().manual_seed(s)
+    a = uniform_ray_samples(0.0, 1.0, 8, (4,), mode="stratified", generator=gen(1))
+    b = uniform_ray_samples(0.0, 1.0, 8, (4,), mode="stratified", generator=gen(1))
+    c = uniform_ray_samples(0.0, 1.0, 8, (4,), mode="stratified", generator=gen(2))
+    assert torch.equal(a.t, b.t) and not torch.equal(a.t, c.t)
+    edges = torch.linspace(0.0, 1.0, 9)
+    assert bool(((a.t >= edges[:-1]) & (a.t <= edges[1:])).all())
+    with pytest.raises(ValueError, match="requires a generator"):
+        uniform_ray_samples(0.0, 1.0, 8, (4,), mode="uniform")
+    t0, t1 = torch.zeros(3, 2), torch.ones(3, 2)
+    with pytest.raises(ValueError, match="requires a generator"):
+        interval_samples(t0, t1, torch.ones(3, 2, dtype=torch.bool), 4, mode="stratified")
+    with pytest.raises(ValueError, match="sampling mode"):
+        interval_samples(t0, t1, torch.ones(3, 2, dtype=torch.bool), 4, mode="jittered")
+
+
+@pytest.mark.parametrize("jittered", [False, True])
+def test_march_samples_t_matches_reference(jittered):
+    from tnerf.grid.traversal import march_samples_t as j_march
+    from tnerf_torch.grid.traversal import march_samples_t
+
+    rng = np.random.default_rng(11)
+    te = rng.uniform(2.0, 3.0, 50).astype(np.float32)
+    tx = (te + rng.uniform(-0.2, 2.0, 50)).astype(np.float32)  # some spans are empty
+    jit = rng.uniform(size=(50, 12)).astype(np.float32) if jittered else None
+    wt, wd = j_march(jnp.asarray(te), jnp.asarray(tx), 12,
+                     jitter=None if jit is None else jnp.asarray(jit))
+    gt, gd = march_samples_t(torch.from_numpy(te), torch.from_numpy(tx), 12,
+                             jitter=None if jit is None else torch.from_numpy(jit))
+    np.testing.assert_allclose(gt.numpy(), np.asarray(wt), atol=SAMPLE_ATOL, rtol=0)
+    np.testing.assert_allclose(gd.numpy(), np.asarray(wd), atol=SAMPLE_ATOL, rtol=0)
+    assert float(gd[torch.from_numpy(tx <= te)].abs().max()) == 0.0

@@ -1,9 +1,10 @@
 """Command line of the port: `python -m tnerf_torch.cli train|eval|render`.
 
-Trains the fused frequency-MLP model, and serves a checkpoint written by
-this port or by the reference package (`tnerf.cli train`), on the card
-(`--device cuda`, the default) or through the plain PyTorch versions on
-the CPU (`--device cpu`).  Configs are the reference's JSON files; options
+Trains the frequency-MLP model through the pipeline its config names
+(`render.pipeline`: fused, grid_march, grid_intervals or uniform), and
+serves a checkpoint written by this port or by the reference package
+(`tnerf.cli train`), on the card (`--device cuda`, the default) or through
+the plain PyTorch versions on the CPU (`--device cpu`).  Configs are the reference's JSON files; options
 this port does not run yet are refused (`train_loop.validate_ported`).
 
     python -m tnerf_torch.cli train --config runs/suite_rehearsal/prims/config.json \\
@@ -37,25 +38,39 @@ def _load_cfg(args) -> Config:
 
 def _ray_compact_guard(cfg: Config):
     """(eligible, pool_res, n_mid) of the ray-compaction capacity guard
-    (`tnerf/cli.py:35`, fused branch): whether the configured renderer
-    compacts rays at all, and the pooling resolution and midpoint count
-    of its keep rule.  Uniform placement keeps a ray with an occupied
-    midpoint sample on the kernel's coarse bitfield; CDF placement keeps
-    a ray with an occupied bin on the bin-probe pooling."""
+    (`tnerf/cli.py:35`): whether the configured renderer compacts rays at
+    all, and the pooling resolution and midpoint count of its keep rule.
+    Fused, uniform placement: a ray is kept for an occupied midpoint sample
+    on the kernel's coarse bitfield; fused, CDF placement: for an occupied
+    bin on the bin-probe pooling.  grid_march compacts only where its eval
+    runs kernel B4 (tighten on, sampler.tighten_res < the grid's and <= 32,
+    a mask resolution no coarser): it pools at sampler.tighten_res and
+    probes cdf_bins midpoints under either CDF placement, else
+    samples_per_ray (`tnerf/render/grid_renderer.py:158-219`)."""
     from tnerf_torch.render.fused import select_bin_pool_res, select_coarse_res
 
-    if not (cfg.render.ray_compact and cfg.render.fused_tighten):
+    if not cfg.render.ray_compact:
         return False, None, None
     res = cfg.grid.resolution
-    if cfg.sampler.placement == "occupancy_cdf":
-        return True, select_bin_pool_res(res), cfg.sampler.cdf_bins
-    return True, select_coarse_res(cfg.render, res), cfg.sampler.samples_per_ray
+    if cfg.render.pipeline == "fused" and cfg.render.fused_tighten:
+        if cfg.sampler.placement == "occupancy_cdf":
+            return True, select_bin_pool_res(res), cfg.sampler.cdf_bins
+        return True, select_coarse_res(cfg.render, res), cfg.sampler.samples_per_ray
+    t_res = min(cfg.sampler.tighten_res or res, res)
+    m_res = min(cfg.sampler.occupancy_mask_res or res, res)
+    if cfg.render.pipeline == "grid_march" and cfg.sampler.tighten and m_res >= t_res \
+            and t_res < res and t_res <= 32:
+        cdf = cfg.sampler.placement in ("occupancy_cdf", "density_cdf")
+        return True, t_res, cfg.sampler.cdf_bins if cdf else cfg.sampler.samples_per_ray
+    return False, None, None
 
 
 def ray_keep_fraction(rays, occupancy, cfg: Config, pool_res: int, n_mid: int) -> float:
     """The share of `rays` ([H, W] or flat) that the compacting renderer
     keeps, by the rule it runs: `tighten_sample_mask` on the occupancy
-    pooled to pool_res, any of the n_mid midpoints occupied."""
+    bitfield pooled to pool_res (256 tighten probes on the fused pipeline,
+    sampler.tighten_probes on grid_march), any of the n_mid midpoints
+    occupied."""
     from tnerf_torch.grid.tighten import tighten_sample_mask
     from tnerf_torch.grid.traversal import make_coarse_occupancy, ray_aabb
 
@@ -66,7 +81,8 @@ def ray_keep_fraction(rays, occupancy, cfg: Config, pool_res: int, n_mid: int) -
     te = torch.clamp_min(te, float(cfg.sampler.near))
     tx = torch.maximum(tx, te)
     occ_c = make_coarse_occupancy(occupancy.reshape(res, res, res), res // pool_res)
-    _, _, mask = tighten_sample_mask(o, d, te, tx, occ_c, n_mid, cfg.grid)
+    probes = cfg.sampler.tighten_probes if cfg.render.pipeline == "grid_march" else 256
+    _, _, mask = tighten_sample_mask(o, d, te, tx, occ_c, n_mid, cfg.grid, probes=probes)
     return float(mask.any(dim=1).float().mean())
 
 
@@ -162,17 +178,24 @@ def main(argv=None) -> int:
     print(f"restored step {step} from {ckpt_dir}", file=sys.stderr)
     payload = renderer_payload(occ, cfg.sampler, cfg.grid)
     renderer = build_renderer(cfg, for_eval=True)
-    # Capacity guard: the keep fraction depends on the restored occupancy
-    # (a trained grid is fatter than an analytic one), and kept rays beyond
-    # render.ray_compact_fraction render as background without a word.
-    guard_on, guard_pool, guard_mid = _ray_compact_guard(cfg)
-    if guard_on and payload is not None and step > 0:
+    # Capacity guards: the keep fraction depends on the restored occupancy
+    # (a trained grid is fatter than an analytic one); kept rays beyond
+    # render.ray_compact_fraction render as background, and kept samples
+    # beyond render.compact_fraction are dropped, without a word.
+    trained_grid = occ is not None and step > 0
+    guard_on, guard_pool, guard_mid = _ray_compact_guard(cfg) if trained_grid \
+        else (False, None, None)
+    cdf_guard = (trained_grid and cfg.sampler.placement in ("occupancy_cdf", "density_cdf")
+                 and cfg.render.compact and cfg.render.pipeline == "grid_march")
+    if guard_on or cdf_guard:
         from tnerf_torch.cameras import camera_rays
 
         ds0 = next(iter(datasets.values()))
         probe_rays = camera_rays(ds0.poses[0], ds0.width, ds0.height, ds0.camera,
                                  cfg.scene.scene_scale, device=dev)
-        kf = ray_keep_fraction(probe_rays, payload, cfg, guard_pool, guard_mid)
+    kf = 1.0
+    if guard_on:
+        kf = ray_keep_fraction(probe_rays, occ.bitfield, cfg, guard_pool, guard_mid)
         if kf > cfg.render.ray_compact_fraction:
             print(
                 f"WARNING: ray-compaction keep fraction {kf:.3f} on the "
@@ -180,6 +203,20 @@ def main(argv=None) -> int:
                 f"{cfg.render.ray_compact_fraction} — over-capacity rays "
                 f"will render as background. Raise the fraction (or set "
                 f"render.ray_compact=false).",
+                file=sys.stderr,
+            )
+    if cdf_guard:
+        from tnerf_torch.render.grid_renderer import cdf_occupied_sample_fraction
+
+        sf = float(cdf_occupied_sample_fraction(probe_rays, payload, cfg.grid, cfg.sampler))
+        needed = sf / max(kf, 1e-6) if guard_on else sf
+        if needed > cfg.render.compact_fraction:
+            print(
+                f"WARNING: occupancy-CDF occupied-sample fraction "
+                f"{needed:.3f} (probe view, per kept ray) exceeds "
+                f"render.compact_fraction={cfg.render.compact_fraction}"
+                f" — over-capacity samples will be dropped. Raise the "
+                f"fraction (or set render.compact=false).",
                 file=sys.stderr,
             )
 

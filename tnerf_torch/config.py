@@ -102,6 +102,10 @@ class GridConfig:
     # Conservative dilation of the voxelized mask, in cells.
     mesh_dilate: int = 1
 
+    @property
+    def effective_max_hits(self) -> int:
+        return self.max_hits if self.max_hits > 0 else 3 * self.resolution
+
 
 @dataclass(frozen=True)
 class SamplerConfig:

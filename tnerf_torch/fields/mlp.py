@@ -3,7 +3,8 @@
 
 Parameters are float32; every layer multiplies bf16-rounded inputs by
 bf16-rounded weights and sums in float32, adds the float32 bias, applies
-ReLU and rounds to bf16 for the next layer.  The rounding is written out
+ReLU and rounds to bf16 for the next layer (here: rounds, then applies
+ReLU, which gives the same values).  The rounding is written out
 and the product runs in float32 (exact for bf16 operands): a bf16 matmul
 would round its sums to bf16.  These products lie outside any kernel in
 the reference too, so `torch.matmul` is their place.
@@ -36,11 +37,24 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype = torch.bfloat16):
         """[..., in_dim] -> [..., out_dim] float32 (raw last-layer output)."""
-        h = x.to(compute_dtype)
-        n = len(self.w)
-        with full_f32_matmul():
-            for i, (w, b) in enumerate(zip(self.w, self.b)):
-                h = h.float() @ w.to(compute_dtype).float() + b
-                if i < n - 1:
-                    h = torch.relu(h).to(compute_dtype)
-        return h
+        return mlp_forward(list(self.w), list(self.b), x, compute_dtype)
+
+
+def mlp_forward(ws, bs, x: torch.Tensor, compute_dtype: torch.dtype = torch.bfloat16):
+    """The MLP of weights ws ([in, out] each) and biases bs on x [..., in]
+    -> [..., out] float32 (raw last-layer output).
+
+    Written for the fewest passes over the activations, which is what an
+    unfused layer costs on the card: the bias is added in the product's own
+    epilogue (`addmm`), and a hidden layer's output is rounded before the
+    ReLU (the two commute: rounding keeps signs and zero) and rectified in
+    place in the narrow type."""
+    lead = x.shape[:-1]
+    h = x.reshape(-1, x.shape[-1]).to(compute_dtype)
+    n = len(ws)
+    with full_f32_matmul():
+        for i, (w, b) in enumerate(zip(ws, bs)):
+            h = torch.addmm(b, h.float(), w.to(compute_dtype).float())
+            if i < n - 1:
+                h = torch.relu_(h.to(compute_dtype))
+    return h.reshape(*lead, h.shape[-1])

@@ -73,19 +73,28 @@ def occupancy_fraction(state: OccupancyGridState) -> torch.Tensor:
 
 
 def renderer_payload(state, sampler_cfg, grid_cfg):
-    """The `occupancy=` argument for a renderer of this config: the bool
-    bitfield, after checking that it has the grid's resolution.  The
-    density-EMA payload of `density_cdf` placement is not ported yet."""
+    """The `occupancy=` argument for a renderer of this config
+    (`tnerf/grid/occupancy.py:115`): the bool bitfield, or under
+    sampler.placement="density_cdf" the f32 density EMA, from which the
+    renderer derives the bitfield (ema > grid.density_threshold) and its
+    per-bin placement weights.
+
+    Dense start: before the first occupancy update (state.step == 0) the
+    bitfield is all ones but the EMA all zero, which would mask every
+    sample for the whole warmup.  Until then the f32 payload holds a
+    constant above the threshold in every bitfield cell: the bits derive
+    back to the initial bitfield and constant weights place near-uniformly.
+    The switch is a `torch.where` on the device, not a host read."""
     if state is None:
         return None
-    if sampler_cfg.placement == "density_cdf":
-        raise NotImplementedError(
-            "sampler.placement='density_cdf' is not yet ported to tnerf_torch, see ROADMAP.md"
-        )
     res = grid_cfg.resolution
     if tuple(state.bitfield.shape) != (res, res, res):
         raise ValueError(
             f"occupancy bitfield {tuple(state.bitfield.shape)} does not match "
             f"grid.resolution={res}"
         )
+    if sampler_cfg.placement == "density_cdf":
+        fill = 2.0 * grid_cfg.density_threshold + 1.0
+        dense_start = torch.where(state.bitfield, fill, 0.0)
+        return torch.where(state.step > 0, state.density_ema, dense_start)
     return state.bitfield

@@ -38,6 +38,9 @@ PROTOTYPES = {
     # wt, wk, bias, gamma, beta, te, dt, o, d, mask, words, tchk, gout, dW, dB, B, S,
     # n_layers, use_coarse, res_c, lo xyz, cell xyz, term_eps, stream
     "tnerf_fused_backward": [P] * 15 + [I, I, I, I, I] + [F] * 7 + [P],
+    # o, d_safe, inv_d, te, tx, words (may be null), t0, cell, n, steps, res, cfactor, use_occ,
+    # lo xyz, cell xyz, coarse cell xyz, stream
+    "tnerf_dda_march": [P] * 8 + [I, I, I, I, I] + [F] * 9 + [P],
 }
 # per-sample placement: ts, dts [B, S] in the place of te, dt [B]
 PROTOTYPES["tnerf_fused_forward_tmode"] = PROTOTYPES["tnerf_fused_forward"]

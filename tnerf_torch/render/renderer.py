@@ -1,12 +1,39 @@
-"""Whole-image rendering in chunks (counterpart of
-`tnerf/render/renderer.py:render_image`)."""
+"""The grid-free renderer and whole-image rendering in chunks (counterpart
+of `tnerf/render/renderer.py`: `make_uniform_renderer`, `render_image`)."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from tnerf_torch.cameras import Rays
-from tnerf_torch.render.composite import RenderResult
+from tnerf_torch.fields.nerf_field import apply_field
+from tnerf_torch.render.composite import RenderResult, composite
+from tnerf_torch.sampling import sample_positions, uniform_ray_samples
+
+
+def make_uniform_renderer(field_cfg, grid_cfg, sampler_cfg, render_cfg,
+                          mode: Optional[str] = None):
+    """render(params, rays, occupancy=None, generator=None) -> RenderResult
+    with a fixed count of samples over [sampler.near, sampler.far] and no
+    occupancy grid (`tnerf/render/renderer.py:32`; `occupancy` is taken and
+    ignored).  With a generator the samples follow `mode` (default
+    sampler.mode), without one they sit at the strata's midpoints."""
+    mode = mode or sampler_cfg.mode
+
+    def render(params, rays: Rays, occupancy=None, generator=None) -> RenderResult:
+        o, d, tp = (a.float() for a in rays)
+        samples = uniform_ray_samples(
+            sampler_cfg.near, sampler_cfg.far, sampler_cfg.samples_per_ray, o.shape[:-1],
+            mode=mode if generator is not None else "regular", generator=generator,
+            device=o.device)
+        rgb, sigma = apply_field(params, field_cfg, grid_cfg,
+                                 sample_positions(o, d, samples.t), tp[..., None, :])
+        return composite(rgb, sigma, samples.deltas, t_mid=samples.t, mask=samples.mask,
+                         white_background=render_cfg.white_background)
+
+    return render
 
 
 @torch.no_grad()

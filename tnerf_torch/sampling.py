@@ -1,9 +1,12 @@
-"""Sample placement along rays (counterpart of the parts of
-`tnerf/sampling.py` that the fused renderer uses: `RaySamples`,
-`sample_positions`, `cdf_ray_samples`, :129-243).
+"""Sample placement along rays (counterpart of `tnerf/sampling.py`):
+fixed-count sampling over [near, far] (`uniform_ray_samples`), per
+traversal interval (`interval_samples`) and through the inverse CDF of
+per-bin weights (`cdf_ray_samples`).
 
 Outputs are (t, deltas, mask); positions are formed by the caller as
-o + t d."""
+o + t d.  Randomness comes from an explicit `torch.Generator` on the
+tensors' device; each function also takes the uniforms as a tensor `u`, so
+that a test can feed the numbers another generator drew."""
 
 from __future__ import annotations
 
@@ -16,6 +19,82 @@ class RaySamples(NamedTuple):
     t: torch.Tensor       # [..., S] sample depths along the ray
     deltas: torch.Tensor  # [..., S] quadrature step per sample
     mask: torch.Tensor    # [..., S] bool validity
+
+
+MODES = ("regular", "stratified", "uniform")
+
+
+def draw_uniform(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """[0, 1) float32 draws from `generator` (on `device`): the one source
+    of randomness of the samplers and the renderers."""
+    return torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+
+
+def _uniforms(mode: str, shape, device, generator, u):
+    """The [0, 1) draws of a non-regular mode: `u` if given, else drawn
+    from `generator`."""
+    if mode not in MODES:
+        raise ValueError(f"sampling mode must be one of {MODES}, got {mode!r}")
+    if mode == "regular":
+        return None
+    if u is not None:
+        return u
+    if generator is None:
+        raise ValueError(f"{mode} sampling requires a generator")
+    return draw_uniform(generator, shape, device)
+
+
+def uniform_ray_samples(near: float, far: float, n_samples: int, batch_shape: tuple,
+                        mode: str = "regular", generator: Optional[torch.Generator] = None,
+                        u: Optional[torch.Tensor] = None, device="cpu") -> RaySamples:
+    """Fixed-count samples over the global [near, far] range.
+
+    regular:    midpoints of a uniform partition.
+    stratified: one uniform draw per stratum.
+    uniform:    iid uniform over [near, far], sorted along the ray; the
+                steps run between consecutive samples, the last one to far."""
+    shape = (*batch_shape, n_samples)
+    u = _uniforms(mode, shape, device, generator, u)
+    edges = torch.linspace(near, far, n_samples + 1, dtype=torch.float32, device=device)
+    width = (far - near) / n_samples
+    if mode == "regular":
+        t = (0.5 * (edges[:-1] + edges[1:])).expand(shape)
+    elif mode == "stratified":
+        t = edges[:-1] + u * width
+    else:
+        t = torch.sort(near + u * (far - near), dim=-1).values
+    if mode == "uniform":
+        last = torch.full((*batch_shape, 1), far, dtype=torch.float32, device=device)
+        deltas = torch.diff(t, dim=-1, append=last)
+    else:
+        deltas = torch.full(shape, width, dtype=torch.float32, device=device)
+    return RaySamples(t=t, deltas=deltas, mask=torch.ones(shape, dtype=torch.bool, device=device))
+
+
+def interval_samples(t_starts, t_ends, hit_mask, samples_per_interval: int,
+                     mode: str = "regular", generator: Optional[torch.Generator] = None,
+                     u: Optional[torch.Tensor] = None) -> RaySamples:
+    """S samples inside every traversal interval [t0, t1) ([..., H] each,
+    hit_mask [..., H] bool marking the real ones), flattened to a sample
+    axis of H * S: regular (interval midpoint rule), stratified (u [..., H,
+    S] within the strata) or uniform (sorted draws).  Every sample of an
+    interval steps by (t1 - t0) / S: intervals integrate independently, and
+    the gaps between them are empty space that contributes nothing."""
+    S = samples_per_interval
+    *batch, H = t_starts.shape
+    dev = t_starts.device
+    u = _uniforms(mode, (*batch, H, S), dev, generator, u)
+    length = (t_ends - t_starts) / S
+    steps = torch.arange(S, dtype=torch.float32, device=dev)
+    if mode == "regular":
+        frac = ((steps + 0.5) / S).expand(*batch, H, S)
+    elif mode == "stratified":
+        frac = (steps + u) / S
+    else:
+        frac = torch.sort(u, dim=-1).values
+    t = t_starts[..., None] + frac * (t_ends - t_starts)[..., None]
+    flat = lambda a: a.expand(t.shape).reshape(*batch, H * S)
+    return RaySamples(t=flat(t), deltas=flat(length[..., None]), mask=flat(hit_mask[..., None]))
 
 
 def sample_positions(origins, directions, t):

@@ -241,12 +241,15 @@ def init_train_state(field, train_cfg) -> TrainState:
     return TrainState(field, create_optimizer(train_cfg, field.params()), 0)
 
 
-def make_train_step(renderer: Callable, loss: str = "l2", huber_delta: float = 0.1) -> Callable:
+def make_train_step(renderer: Callable, loss: str = "l2", huber_delta: float = 0.1,
+                    distortion: float = 0.0) -> Callable:
     """train_step(state, batch, occupancy, generator=None) -> aux:
-    photometric loss through the renderer, gradients onto the field's
-    parameters, one optimizer update, `state.step` advanced; aux = {"loss",
-    "psnr" (always from the MSE), "acc_mean"} as device scalars nobody has
-    waited for.  `generator` (on the batch's device) is the renderer's
+    photometric loss through the renderer (plus `distortion` times the
+    rays' mean distortion term, where > 0: the caller has divided the
+    weight by the sampled range), gradients onto the field's parameters,
+    one optimizer update, `state.step` advanced; aux = {"loss", "psnr"
+    (always from the MSE), "acc_mean"} and, with the regularizer on,
+    "distortion", as device scalars nobody has waited for.  `generator` (on the batch's device) is the renderer's
     source of sample jitter, the counterpart of the reference step's key;
     a renderer with uniform placement draws nothing from it."""
     photometric_loss(torch.zeros((1, 3)), loss, huber_delta)  # validate early
@@ -258,13 +261,19 @@ def make_train_step(renderer: Callable, loss: str = "l2", huber_delta: float = 0
         err = res.rgb - batch.gt_rgb
         mse = torch.mean(torch.square(err))
         obj = mse if loss == "l2" else photometric_loss(err, loss, huber_delta)
+        if distortion > 0.0:
+            dist = torch.mean(res.distortion)
+            obj = obj + distortion * dist
         grads = torch.autograd.grad(obj, [params[k] for k in state.optimizer.names])
         state.optimizer.step(list(grads))
         state.step += 1
-        return {
+        aux = {
             "loss": obj.detach(),
             "psnr": -10.0 * torch.log10(torch.clamp_min(mse.detach(), 1e-10)),
             "acc_mean": res.acc.detach().mean(),
         }
+        if distortion > 0.0:
+            aux["distortion"] = dist.detach()
+        return aux
 
     return train_step

@@ -1,6 +1,6 @@
 """High-level training orchestration and renderer construction
-(counterpart of `tnerf/train_loop.py`, the single-device fused path:
-`_run_training_single`, :514-1034, and `build_renderer`, :70)."""
+(counterpart of `tnerf/train_loop.py`, single device: `_run_training_single`,
+:514-1034, and `build_renderer`, :70)."""
 
 from __future__ import annotations
 
@@ -29,6 +29,8 @@ from tnerf_torch.grid.occupancy import (
     update_occupancy,
 )
 from tnerf_torch.render.fused import make_fused_renderer
+from tnerf_torch.render.grid_renderer import cdf_occupied_sample_fraction, make_grid_renderer
+from tnerf_torch.render.renderer import make_uniform_renderer
 from tnerf_torch.train import PixelSampler, init_train_state, make_train_step
 from tnerf_torch.utils.checkpoint import (
     latest_checkpoint,
@@ -42,11 +44,15 @@ def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not yet ported to tnerf_torch, see ROADMAP.md")
 
 
+PIPELINES = ("fused", "grid_march", "grid_intervals", "uniform")
+
+
 def validate_ported(cfg: Config, for_eval: bool = True) -> None:
     """Refuse every option this port does not run, rather than running
     another path in its place.  for_eval=False checks a training run."""
-    if cfg.render.pipeline != "fused":
-        raise _not_ported(f"render.pipeline={cfg.render.pipeline!r} (fused only)")
+    p = cfg.render.pipeline
+    if p not in PIPELINES:
+        raise ValueError(f"unknown render pipeline {p!r}")
     if cfg.field_.encoding != "frequency":
         raise _not_ported(f"field_.encoding={cfg.field_.encoding!r} (frequency only)")
     if cfg.field_.view_encoding != "frequency":
@@ -58,14 +64,21 @@ def validate_ported(cfg: Config, for_eval: bool = True) -> None:
     if cfg.sampler.placement not in ("uniform", "occupancy_cdf", "density_cdf"):
         raise ValueError(f"sampler.placement={cfg.sampler.placement!r} must be uniform, "
                          "occupancy_cdf or density_cdf")
-    if cfg.sampler.placement == "density_cdf":
+    if cfg.sampler.placement != "uniform" and p not in ("grid_march", "fused"):
+        raise ValueError(
+            f"sampler.placement={cfg.sampler.placement!r} needs "
+            f"render.pipeline='grid_march' or 'fused' (got {p!r}): "
+            "grid_intervals places samples per traversal interval"
+        )
+    if cfg.sampler.placement == "density_cdf" and p == "fused":
         raise ValueError(
             "sampler.placement='density_cdf' is a grid_march quadrature: "
             "the fused kernel's CDF fold probes binary occupancy bins "
             "(occupancy_cdf); density-weighted placement needs the "
             "density-EMA probes of the march path"
         )
-    if cfg.sampler.placement == "occupancy_cdf" and not cfg.render.fused_tighten:
+    if cfg.sampler.placement == "occupancy_cdf" and p == "fused" \
+            and not cfg.render.fused_tighten:
         raise ValueError(
             "fused occupancy_cdf placement needs render.fused_tighten="
             "true (bin weights come from the tighten+sample-mask kernel)"
@@ -80,8 +93,8 @@ def validate_ported(cfg: Config, for_eval: bool = True) -> None:
         "train.optimize_poses=true": t.optimize_poses,
         "train.keep_best=true": t.keep_best,
         "train.table_lr_mult / pose_lr_mult != 1": t.table_lr_mult != 1.0 or t.pose_lr_mult != 1.0,
-        "train.table_l1_weight / table_tv_weight / distortion_weight > 0":
-            t.table_l1_weight > 0 or t.table_tv_weight > 0 or t.distortion_weight > 0,
+        "train.table_l1_weight / table_tv_weight > 0":
+            t.table_l1_weight > 0 or t.table_tv_weight > 0,
         "train.freq_anneal_steps > 0": t.freq_anneal_steps > 0,
         "train.remat=true": t.remat,
         "grid.mesh_path": bool(cfg.grid.mesh_path),
@@ -96,13 +109,34 @@ def validate_ported(cfg: Config, for_eval: bool = True) -> None:
             raise _not_ported(what)
     if t.shuffle not in ("random", "epoch"):
         raise ValueError(f"train.shuffle must be random or epoch, got {t.shuffle!r}")
+    if t.distortion_weight > 0.0:
+        if p == "fused":
+            raise ValueError(
+                "train.distortion_weight needs per-sample compositing "
+                "weights; the fused kernel composites on-chip and never "
+                "materializes them — use grid_march, grid_intervals or "
+                "uniform"
+            )
+        if p == "grid_march" and cfg.render.compact:
+            raise ValueError(
+                "train.distortion_weight does not compose with "
+                "render.compact on grid_march (the packed-compaction "
+                "compositor returns no per-sample weights) — set "
+                "render.compact=false"
+            )
 
 
-def build_renderer(cfg: Config, for_eval: bool = True):
-    """The fused renderer of `cfg` (`tnerf/train_loop.py:70`, fused
-    branch); for_eval=False builds the training renderer, whose backward
-    runs kernel B2 and which never compacts rays (render.ray_compact is an
-    eval-only option, `:146`)."""
+def build_renderer(cfg: Config, for_eval: bool = True, compact: Optional[bool] = None):
+    """The renderer of `cfg.render.pipeline` (`tnerf/train_loop.py:70`):
+    render(params, rays, occupancy=None, generator=None) -> RenderResult.
+
+    fused: for_eval=False builds the training renderer, whose backward runs
+    kernel B2 and which never compacts rays (render.ray_compact is an
+    eval-only option there, `:146`).  grid_march: `compact` overrides
+    render.compact (training marches densely while the occupancy grid is
+    still dense and switches to the compacted variant once it has pruned,
+    see `run_training`).  The unfused renderers are the same for training
+    and eval: what differs is whether they are given a generator."""
     if cfg.scene.white_background != cfg.render.white_background:
         raise ValueError(
             "scene.white_background and render.white_background disagree "
@@ -110,6 +144,17 @@ def build_renderer(cfg: Config, for_eval: bool = True):
             "set both to the same value"
         )
     validate_ported(cfg, for_eval)
+    p = cfg.render.pipeline
+    if p == "uniform":
+        return make_uniform_renderer(cfg.field_, cfg.grid, cfg.sampler, cfg.render)
+    if p == "grid_march":
+        return make_grid_renderer(
+            cfg.field_, cfg.grid, cfg.sampler, cfg.render, strategy="march",
+            compact=cfg.render.compact if compact is None else compact,
+            compact_fraction=cfg.render.compact_fraction)
+    if p == "grid_intervals":
+        return make_grid_renderer(cfg.field_, cfg.grid, cfg.sampler, cfg.render,
+                                  strategy="intervals")
     return make_fused_renderer(cfg.field_, cfg.grid, cfg.sampler, cfg.render,
                                tighten=cfg.render.fused_tighten, for_eval=for_eval)
 
@@ -156,11 +201,18 @@ def run_training(cfg: Config, datasets: Optional[Dict[str, ImageDataset]] = None
                  device="cuda") -> Dict[str, float]:
     """Train a field per `cfg` on `device`; returns the final metrics.
 
-    procedural scene -> PixelSampler -> fused renderer (B3 tighten, or
-    under occupancy-CDF placement B4 and jittered inverse-CDF samples; B1
-    forward, B2 backward) -> L2 loss -> Adam; every grid.update_every
-    steps after grid.warmup_steps the occupancy grid is refreshed from the
-    field's density; checkpoints are in the reference's layout
+    procedural scene -> PixelSampler -> the renderer of render.pipeline
+    (fused: B3 tighten, or under occupancy-CDF placement B4 and jittered
+    inverse-CDF samples, B1 forward, B2 backward; grid_intervals: the B5
+    walk, per-interval samples, field, composite; grid_march and uniform:
+    jittered samples, field, composite) -> photometric loss (+
+    train.distortion_weight / (far - near) times the mean distortion) ->
+    Adam; every grid.update_every steps after grid.warmup_steps the
+    occupancy grid is refreshed from the field's density (the uniform
+    pipeline keeps none).  grid_march with render.compact trains and evals
+    densely until the grid has pruned and then on the occupied samples
+    only: the switch reads the occupied share on the host at each
+    occupancy update.  Checkpoints are in the reference's layout
     (train.resume continues one, the reference's included); the run ends
     with an eval of every val and test view, images written, and the
     train.assert_test_psnr_min gate on the worst test view."""
@@ -189,12 +241,21 @@ def run_training(cfg: Config, datasets: Optional[Dict[str, ImageDataset]] = None
     init_gen = torch.Generator()  # parameters are drawn on the host, then moved
     init_gen.manual_seed(cfg.train.seed)
     field = NeRFField(cfg.field_, cfg.grid, init_gen).to(dev)
-    renderer = build_renderer(cfg, for_eval=False)
+    # Dense variant while the occupancy grid is still mostly occupied (the
+    # compaction capacity would overflow and drop samples); compacted
+    # variant once the grid has pruned below the capacity with headroom.
+    # Training and eval switch together.  Only grid_march compacts samples.
+    switching = cfg.render.pipeline == "grid_march" and cfg.render.compact
+    renderer_dense = build_renderer(cfg, for_eval=False, compact=False)
+    renderer_compact = build_renderer(cfg, for_eval=False, compact=True) if switching \
+        else renderer_dense
+    renderer = renderer_dense
     state = init_train_state(field, cfg.train)
     n_params = sum(p.numel() for p in field.parameters())
     log.info("field=%s params=%.2fM pipeline=%s device=%s", cfg.field_.encoding,
              n_params / 1e6, cfg.render.pipeline, dev)
-    occ = init_occupancy(cfg.grid, dev)
+    use_grid = cfg.render.pipeline != "uniform"
+    occ = init_occupancy(cfg.grid, dev) if use_grid else None
 
     ckpt_dir = os.path.join(out_dir, "checkpoints")
     start_step = 0
@@ -214,7 +275,18 @@ def run_training(cfg: Config, datasets: Optional[Dict[str, ImageDataset]] = None
         save_checkpoint(ckpt_dir, step, state.params, state.optimizer.state, occ, cfg.train)
 
     sampler = PixelSampler(train_ds, cfg.scene.scene_scale, cfg.scene.white_background, dev)
-    train_step = make_train_step(renderer, loss=cfg.train.loss, huber_delta=cfg.train.huber_delta)
+    # span-normalized: raw-t distortion scales with the sampled range
+    loss_kw = dict(loss=cfg.train.loss, huber_delta=cfg.train.huber_delta,
+                   distortion=cfg.train.distortion_weight
+                   / max(cfg.sampler.far - cfg.sampler.near, 1e-6))
+    step_dense = make_train_step(renderer_dense, **loss_kw)
+    step_compact = make_train_step(renderer_compact, **loss_kw) if switching else step_dense
+    train_step = step_dense
+    # Switch once the occupied share fits the capacity with 40% headroom.
+    # Under CDF placement the occupied-cell share says nothing (samples sit
+    # in occupied cells by design): plan from the occupied-sample share.
+    compact_switch_frac = cfg.render.compact_fraction * 0.6
+    cdf_switch = switching and cfg.sampler.placement in ("occupancy_cdf", "density_cdf")
     gen = torch.Generator(device=dev)  # batches, sample jitter and occupancy probes
     gen.manual_seed(cfg.train.seed + 1)
     rays_per_step = cfg.train.batch_size
@@ -241,9 +313,17 @@ def run_training(cfg: Config, datasets: Optional[Dict[str, ImageDataset]] = None
                 batch = sampler.sample(gen, rays_per_step)
             aux = train_step(state, batch, occ_payload, gen)
             window_steps += 1
-            if step >= cfg.grid.warmup_steps and step % cfg.grid.update_every == 0:
+            if use_grid and step >= cfg.grid.warmup_steps and step % cfg.grid.update_every == 0:
                 occ = update_occupancy(occ, field.density, cfg.grid, generator=gen)
                 occ_payload = renderer_payload(occ, cfg.sampler, cfg.grid)
+                if switching:
+                    with torch.no_grad():
+                        frac = cdf_occupied_sample_fraction(batch.rays, occ_payload, cfg.grid,
+                                                            cfg.sampler) \
+                            if cdf_switch else occupancy_fraction(occ)
+                    compacted = float(frac) < compact_switch_frac  # waits for the device
+                    train_step = step_compact if compacted else step_dense
+                    renderer = renderer_compact if compacted else renderer_dense
 
             if step % cfg.train.log_every == 0 or step == cfg.train.steps - 1:
                 loss_host = float(aux["loss"])  # waits for the device
@@ -254,13 +334,16 @@ def run_training(cfg: Config, datasets: Optional[Dict[str, ImageDataset]] = None
                     "acc_mean": float(aux["acc_mean"]),
                     "rays_per_sec": rays_per_step / max(sec, 1e-9),
                     "step_seconds": sec,
-                    "occupancy_frac": float(occupancy_fraction(occ)),
                     "skipped_steps": float(state.optimizer.total_notfinite)
                     if cfg.train.skip_nonfinite else 0.0,
                 }
+                if occ is not None:
+                    m["occupancy_frac"] = float(occupancy_fraction(occ))
+                if "distortion" in aux:
+                    m["distortion"] = float(aux["distortion"])
                 metrics.write(step, **m)
                 log.info("step %d loss=%.5f psnr=%.2f rays/s=%.0f occ=%.2f", step, m["loss"],
-                         m["train_psnr"], m["rays_per_sec"], m["occupancy_frac"])
+                         m["train_psnr"], m["rays_per_sec"], m.get("occupancy_frac", 1.0))
                 if not np.isfinite(loss_host):
                     log.warning("non-finite loss at step %d (update was skipped)", step)
                 window_t0 = time.perf_counter()

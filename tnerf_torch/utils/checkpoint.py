@@ -15,12 +15,12 @@ L layers:
   (each laid out like the params), the schedule's `count` (only when the
   learning rate is scheduled),
 - `TrainState.step`, and `TrainState.ema` (must be `None`),
-- the last three: `OccupancyGridState(density_ema, bitfield, step)`.
+- the last three: `OccupancyGridState(density_ema, bitfield, step)`; the
+  uniform pipeline keeps no occupancy grid and saves the `TrainState` alone.
 
 `save_checkpoint` writes exactly this, so the reference's
 `restore_checkpoint` reads the port's checkpoints and the port resumes the
-reference's.  Anything else (a weight EMA, pose deltas, another field, a
-state-only checkpoint) is refused rather than guessed at.
+reference's.  Anything else (a weight EMA, pose deltas, another field) is refused rather than guessed at.
 """
 
 from __future__ import annotations
@@ -36,8 +36,11 @@ import torch
 from tnerf_torch.device import resolve_device
 from tnerf_torch.grid.occupancy import OccupancyGridState
 
-_HEAD = "PyTreeDef((CustomNode(namedtuple[TrainState], [{{'trunk': {{'b': [{b}], 'w': [{w}]}}}}, "
+_STATE = "CustomNode(namedtuple[TrainState], [{{'trunk': {{'b': [{b}], 'w': [{w}]}}}}, "
+_HEAD = "PyTreeDef((" + _STATE                   # (TrainState, OccupancyGridState)
 _TAIL = ", *, None]), CustomNode(namedtuple[OccupancyGridState], [*, *, *])))"
+_HEAD_ALONE = "PyTreeDef(" + _STATE               # a TrainState alone
+_TAIL_ALONE = ", *, None]))"
 
 
 def latest_checkpoint(ckpt_dir: str) -> Tuple[int, str]:
@@ -86,32 +89,37 @@ def n_layers(params: Dict[str, torch.Tensor]) -> int:
 
 
 def _read_leaves(ckpt_dir: str):
-    """(step, L, treedef, leaves) of the newest checkpoint, its layout checked."""
+    """(step, L, treedef, leaves, has_occupancy) of the newest checkpoint,
+    its layout checked."""
     step, path = latest_checkpoint(ckpt_dir)
     with open(os.path.join(ckpt_dir, "treedef.json")) as fh:
         meta = json.load(fh)
     treedef, n = meta["treedef"], int(meta["n_leaves"])
     if treedef.count("*") != n:
         raise ValueError(f"treedef has {treedef.count('*')} leaves, n_leaves says {n}")
-    m = re.match(r"PyTreeDef\(\(CustomNode\(namedtuple\[TrainState\], \[\{'trunk': \{'b': \[([*, ]*)\]",
+    m = re.match(r"PyTreeDef\(\(?CustomNode\(namedtuple\[TrainState\], \[\{'trunk': \{'b': \[([*, ]*)\]",
                  treedef)
     L = m.group(1).count("*") if m else 0
     stars = ", ".join(["*"] * L)
-    if L == 0 or not treedef.startswith(_HEAD.format(b=stars, w=stars)) \
-            or not treedef.endswith(_TAIL):
+    pair = treedef.startswith(_HEAD.format(b=stars, w=stars)) and treedef.endswith(_TAIL)
+    alone = treedef.startswith(_HEAD_ALONE.format(b=stars, w=stars)) \
+        and treedef.endswith(_TAIL_ALONE) and "OccupancyGridState" not in treedef
+    if L == 0 or not (pair or alone):
         raise ValueError(
             f"{ckpt_dir}: unsupported checkpoint layout (only a TrainState of "
-            "params.trunk with no weight EMA, plus an OccupancyGridState, is ported): "
-            f"{treedef[:160]}..."
+            "params.trunk with no weight EMA, with or without an OccupancyGridState, is "
+            f"ported): {treedef[:160]}..."
         )
     with np.load(path) as data:
         if sorted(data.files) != sorted(f"leaf_{i}" for i in range(n)):
             raise ValueError(f"{path} holds {len(data.files)} leaves; treedef.json says {n}")
         leaves = [data[f"leaf_{i}"] for i in range(n)]
-    return step, L, treedef, leaves
+    return step, L, treedef, leaves, pair
 
 
-def _occupancy_from_leaves(leaves, dev) -> OccupancyGridState:
+def _occupancy_from_leaves(leaves, dev, has_occupancy: bool) -> Optional[OccupancyGridState]:
+    if not has_occupancy:
+        return None
     ema, bits, occ_step = leaves[-3:]
     if bits.dtype != np.bool_ or bits.ndim != 3 or len(set(bits.shape)) != 1 \
             or ema.shape != bits.shape or occ_step.shape != ():
@@ -129,11 +137,13 @@ def _occupancy_from_leaves(leaves, dev) -> OccupancyGridState:
 def load_jax_checkpoint(ckpt_dir: str, device="cuda"):
     """Newest checkpoint of ckpt_dir -> (step, params, occupancy) on
     `device`: params from params_from_jax, occupancy an
-    OccupancyGridState whose bitfield is the saved [res]^3 bool grid."""
+    OccupancyGridState whose bitfield is the saved [res]^3 bool grid, or
+    None where the checkpoint holds none (the uniform pipeline's)."""
     dev = resolve_device(device)
-    step, L, _, leaves = _read_leaves(ckpt_dir)
+    step, L, _, leaves, has_occ = _read_leaves(ckpt_dir)
     params = params_from_jax({"trunk": {"b": leaves[:L], "w": leaves[L:2 * L]}})
-    return step, {k: v.to(dev) for k, v in params.items()}, _occupancy_from_leaves(leaves, dev)
+    return (step, {k: v.to(dev) for k, v in params.items()},
+            _occupancy_from_leaves(leaves, dev, has_occ))
 
 
 def load_train_checkpoint(ckpt_dir: str, device="cuda"):
@@ -142,10 +152,11 @@ def load_train_checkpoint(ckpt_dir: str, device="cuda"):
     `train.Optimizer.state`: which of the non-finite counters and the
     schedule's count it holds follows from the leaf count."""
     dev = resolve_device(device)
-    step, L, treedef, leaves = _read_leaves(ckpt_dir)
+    step, L, treedef, leaves, has_occ = _read_leaves(ckpt_dir)
     names = [f"trunk.b.{l}" for l in range(L)] + [f"trunk.w.{l}" for l in range(L)]
     params = params_from_jax({"trunk": {"b": leaves[:L], "w": leaves[L:2 * L]}})
-    opt = leaves[2 * L:-4]  # between the params and (step, occupancy x 3); ema=None is no leaf
+    i_step = -4 if has_occ else -1
+    opt = leaves[2 * L:i_step]  # between the params and (step, occupancy x 3); ema=None is no leaf
     extra = len(opt) - (1 + 4 * L)
     if extra not in (0, 1, 3, 4) \
             or ("ApplyIfFiniteState" in treedef) != (extra >= 3) \
@@ -162,15 +173,16 @@ def load_train_checkpoint(ckpt_dir: str, device="cuda"):
     state["nu"] = {k: t(a) for k, a in zip(names, opt[1 + 2 * L:1 + 4 * L])}
     if extra in (1, 4):
         state["sched_count"] = t(opt[1 + 4 * L])
-    if int(leaves[-4]) != step:
-        raise ValueError(f"{ckpt_dir}: TrainState.step {int(leaves[-4])} in step_{step} file")
+    if int(leaves[i_step]) != step:
+        raise ValueError(f"{ckpt_dir}: TrainState.step {int(leaves[i_step])} in step_{step} file")
     return (step, {k: v.to(dev) for k, v in params.items()}, state,
-            _occupancy_from_leaves(leaves, dev))
+            _occupancy_from_leaves(leaves, dev, has_occ))
 
 
-def checkpoint_treedef(L: int, train_cfg) -> str:
+def checkpoint_treedef(L: int, train_cfg, with_occupancy: bool = True) -> str:
     """The treedef string the reference writes for `(TrainState,
-    OccupancyGridState)` of an L-layer trunk under `train_cfg`'s optimizer
+    OccupancyGridState)`, or for the `TrainState` alone, of an L-layer
+    trunk under `train_cfg`'s optimizer
     (`str(jax.tree_util.tree_structure(...))`; informative: its reader
     checks only the leaf count, this port's reader the parts it names)."""
     stars = ", ".join(["*"] * L)
@@ -186,13 +198,16 @@ def checkpoint_treedef(L: int, train_cfg) -> str:
         opt = f"({empty}, {opt})"
     if train_cfg.skip_nonfinite:
         opt = f"CustomNode(namedtuple[ApplyIfFiniteState], [*, *, *, {opt}])"
+    if not with_occupancy:
+        return _HEAD_ALONE.format(b=stars, w=stars) + opt + _TAIL_ALONE
     return _HEAD.format(b=stars, w=stars) + opt + _TAIL
 
 
 def save_checkpoint(ckpt_dir: str, step: int, params: Dict[str, torch.Tensor], opt_state: dict,
-                    occupancy: OccupancyGridState, train_cfg) -> str:
+                    occupancy: Optional[OccupancyGridState], train_cfg) -> str:
     """Write ckpt_dir/step_<N>.npz + treedef.json in the reference's layout
-    (module docstring).  opt_state: `train.Optimizer.state`."""
+    (module docstring).  opt_state: `train.Optimizer.state`; occupancy:
+    None for a run that keeps no grid."""
     os.makedirs(ckpt_dir, exist_ok=True)
     L = n_layers(params)
     names = [f"trunk.b.{l}" for l in range(L)] + [f"trunk.w.{l}" for l in range(L)]
@@ -207,8 +222,9 @@ def save_checkpoint(ckpt_dir: str, step: int, params: Dict[str, torch.Tensor], o
     if "sched_count" in opt_state:
         leaves.append(host(opt_state["sched_count"]))
     leaves.append(np.asarray(step, np.int32))
-    leaves += [host(occupancy.density_ema), host(occupancy.bitfield), host(occupancy.step)]
-    treedef = checkpoint_treedef(L, train_cfg)
+    if occupancy is not None:
+        leaves += [host(occupancy.density_ema), host(occupancy.bitfield), host(occupancy.step)]
+    treedef = checkpoint_treedef(L, train_cfg, with_occupancy=occupancy is not None)
     if treedef.count("*") != len(leaves):
         raise ValueError(f"{len(leaves)} leaves to write, but the optimizer of this config "
                          f"has a state of {treedef.count('*')}")
