@@ -13,8 +13,8 @@
 //      chunk whose rays were all at or below term_eps when the forward
 //      entered its (128-sample) chunk, or that has no live sample, was not
 //      shaded and gets no gradient;
-//   2. the chunk's forward again, exactly as B1 (fused.cuh), keeping every
-//      layer's bf16 input in shared memory;
+//   2. the chunk's forward again (encoding, placement, coarse test and head
+//      activations as B1, fused.cuh), keeping every layer's bf16 input;
 //   3. the compositing VJP:  dw = g_r r + g_g g + g_b b + g_acc + g_dep t,
 //      G = dw w, dtau = -suffix(G) + dw T0 E e^-tau - gT T0 Texp,
 //      dsig = dtau dt mask, dsraw = dsig (1 - e^-sig), d{r,g,b}pre =
@@ -28,415 +28,608 @@
 // te + (s + 0.5) dt and dt (fused.cuh:Placement), so dsig = dtau dts mask;
 // ts and dts get no gradient either.
 //
-// What bounds it on an H100: the tensor cores (three 128-wide products per
-// layer and sample against ~1 KB of per-ray inputs), then the reduction.
-// Design (a simple, right first version):
-// - Shared memory.  Nine layers' inputs for 128 rows would be 288 KB, more
-//   than the 227 KB a block can have, so a tile is 64 rows: 9 x 17 KB of
-//   activations, one 34 KB weight tile, one 17 KB gradient tile, 212 KB in
-//   all, one block of 8 warps per SM.  With S >= 64 a tile is one ray's
-//   chunk of 64 samples; with fewer samples it holds 64 / S rays.
-// - Operand orientation.  mma.sync m16n8k16 wants A as pairs along the
-//   contraction and B likewise.  Forward (a @ W) stages W out-major (Wt),
-//   the input gradient (gb @ W^T) stages W in-major (W as it is), so both
-//   read plain 32-bit pairs.  The weight gradient contracts over the
-//   tile's rows, which are strided in both operands: ldmatrix.trans loads
-//   a_in and gb transposed.
-// - The dW reduction.  Blocks run together, so each adds its 128 x 128
-//   f32 tile per layer into the one global buffer with red.global.add.f32
-//   (atomicAdd whose result is unused); zeros (padded lanes, dead ReLU
-//   units, masked samples) are not sent.  The order of those adds differs
-//   from run to run, so the gradient is not bit-reproducible.
+// What bounds it on an H100: the tensor cores do 26 products of 64 x 128 x
+// 128 per 64-row tile (forward again, weight gradient, input gradient):
+// 54.5 MFLOP, 7.4 us of one SM at the card's 989 TFLOP/s.  Against that,
+// per tile: 16 weight tiles of 32 KB to bring in, and a 64 KB f32 partial
+// dW per layer to add into one sum shared by every SM.
+//
+// Design (redesigned for Hopper; the first version ran mma.sync from
+// padded rows and restaged both weight orientations per layer):
+// - Products on wgmma.  Two consumer warpgroups split each product: the
+//   forward a @ W and the input gradient g @ W^T by output column halves,
+//   the weight gradient a^T g by input-feature halves.  Every tile is held
+//   once, unpadded, in the 128-byte swizzled layout of hopper.cuh; wgmma
+//   reads a layer input K-major for the forward and MN-major for the weight
+//   gradient, the gradient tile K-major for the input gradient and
+//   MN-major for the weight gradient, and the one weight tile (in-major,
+//   as W) MN-major for the forward and K-major for the input gradient.
+//   ReLU' comes from the stored bf16 layer input.  The layer-0 input (the
+//   encoding) is not stored: the forward reads it from the gradient tile,
+//   which is free then, and layer 0's weight gradient recomputes it.  The
+//   gradient at layer m's output goes into the slot of layer m + 2's input
+//   (free once layer m + 2 is done), so a layer needs one block barrier,
+//   not two; only the last two layers' gradients share the gradient tile.
+// - Weights by TMA.  The grid is persistent, one CTA per SM (the occupancy
+//   query's count); CTA k takes tiles k, k + n_ctas, ...  Each layer's
+//   32 KB weight tile comes into a two-slot ring by TMA (128-byte swizzle,
+//   the layout wgmma reads), issued by one thread as soon as a slot is
+//   released, so the load of the next layer's tile overlaps this layer's
+//   products.  Every chunk walks the same sequence of weight tiles; a
+//   chunk the skip rule drops walks it without computing.  Multicasting
+//   each load to a thread-block cluster was built and measured first
+//   (PERF.md, section 6): the CTAs of a cluster must then release every slot
+//   together, and that lockstep cost more than the L2 reads it saves
+//   (4.30 ms at 8 CTAs a cluster, 4.11 at 4, 3.44 at 2, 2.87 without).
+// - The dW reduction.  Each warp adds its f32 partial into the one dW with
+//   red.global.add.v4.f32 (four neighbouring columns gathered by a lane
+//   shuffle), skipping quads that are all zero (dead ReLU units, masked
+//   samples, the head's unused columns), as soon as the layer's products
+//   are done (issuing them under the next layer's products measured
+//   slower).  A reduction inside a cluster over distributed shared memory was
+//   measured first and dropped (PERF.md, section 6): with every SM reducing at
+//   once, red.shared::cluster took 57 us per tile and layer, ordered
+//   st.shared::cluster with a fixed-order sum 9.2 us, red.global.add.v4
+//   4.6 us, a cluster barrier alone 0.7 us.  The adds land in no fixed
+//   order, so the gradient is not bit-reproducible from run to run.
+// - The compositing VJP runs on the tile's 64 rows (two warps); its scans
+//   along a ray (exclusive tau sum, suffix sum of G, sum of dw E F) are
+//   segmented warp scans (__shfl_*) with a carry across the two warps.
+//
+// Shared memory at NL = 9 (232,448 bytes a block can have):
+//   layer inputs 1..8: 8 x 16,384 = 131,072; gradient tile 16,384; weight
+//   ring 2 x 32,768 = 65,536; biases 4,608, coarse words 4,096, per-row
+//   scalars, head, bias column sums and mbarriers 4,624; alignment slack
+//   1,024: 227,344 in all.  Nine layers is the most that fits
+//   (MAX_BWD_LAYERS in render/fused.py).
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "coarse.cuh"
 #include "fused.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+using namespace tnerf::hopper;
 using tnerf::Coarse;
 using tnerf::kLanes;
-using tnerf::kStride;
-using tnerf::kWords;
 
 constexpr int kRows = tnerf::kBwdRows;  // sample rows per tile
 constexpr int kFwdRows = 128;           // the forward kernel's chunk, its skip granularity
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = kRows * kStride;  // one activation tile, in bf16
-constexpr int kMaxSmem = 232448;        // bytes a block can have on sm_90
+constexpr int kThreads = 256;           // two consumer warpgroups
+constexpr int kTileBytes = kRows * kLanes * 2;
+constexpr int kWBytes = kLanes * kLanes * 2;
+constexpr int kMaxSmem = 232448;  // bytes a block can have on sm_90
+constexpr int kMaxLayers = 9;     // MAX_BWD_LAYERS in render/fused.py
 
-static_assert(kRows == 64 && kWarps == 8, "the warp tilings below assume 64 rows and 8 warps");
+static_assert(kRows == 64 && kLanes == 128, "the wgmma tilings below assume 64 x 128 tiles");
 
 struct Fixed {
-  __nv_bfloat16 w[kLanes * kStride];  // one layer: [output][contraction]
-  __nv_bfloat16 g[kTile];             // gradient at a layer's output, bf16
-  uint32_t words[kWords];             // coarse bitfield
-  float head[kRows][4];               // last layer's lanes 0..3, raw
-  float tau[kRows], t[kRows], m[kRows], step[kRows];
-  float ex[kRows], G[kRows], dEF[kRows], suf[kRows];  // per row: excl. sum, dw w, dw E F, suffix
-  float T0[kRows], Texp[kRows], gT[kRows], gTn[kRows];  // per ray of the tile
+  float bias[kMaxLayers][kLanes];
+  uint32_t words[tnerf::kWords];  // coarse bitfield
+  float head[kRows][4];  // last layer's lanes 0..3, raw
+  float t[kRows], m[kRows], step[kRows], buf[kRows];
+  float T0[kRows], gT[kRows];  // per ray of the tile
+  float colsum[2][2][kLanes];  // bias gradient of two layers in turn, row halves
+  uint64_t full[2];            // weight slot holds its load (TMA bytes arrived)
 };
-static_assert(sizeof(Fixed) % 16 == 0, "the activation tiles after Fixed must stay 16-byte aligned");
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                                  uint32_t& r3, const __nv_bfloat16* p) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
+constexpr size_t smem_bytes(int n_layers) {
+  const int slots = n_layers > 1 ? n_layers - 1 : 1;
+  return 1024 + (size_t)(slots + 1) * kTileBytes + 2 * (size_t)kWBytes + sizeof(Fixed);
 }
 
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const __nv_bfloat16* p) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
+// Inclusive scan of v over segments of `ch` rows of the tile, by threads
+// 0..63 (row = thread), forward or (kRev) from the segment's end; `buf`
+// ends up holding every row's result.  Named barrier 1.
+template <bool kRev>
+__device__ __forceinline__ float seg_scan(float v, int row, int ch, float* buf) {
+  const int lane = row & 31, seg = row / ch;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = kRev ? __shfl_down_sync(0xffffffffu, v, off) : __shfl_up_sync(0xffffffffu, v, off);
+    const bool in = kRev ? (lane + off < 32 && (row + off) / ch == seg)
+                         : (lane >= off && (row - off) / ch == seg);
+    if (in) v += u;
+  }
+  buf[row] = v;
+  named_sync(1, kRows);
+  // carry across the two warps: row 31's (forward) or row 32's (reverse)
+  // partial belongs to this row's segment when the segment straddles them
+  if (kRev ? (row < 32 && 32 / ch == seg) : (row >= 32 && 31 / ch == seg)) v += buf[kRev ? 32 : 31];
+  named_sync(1, kRows);
+  buf[row] = v;
+  named_sync(1, kRows);
+  return v;
 }
 
-__device__ __forceinline__ void red_add(float* p, float v) {
-  if (v != 0.f) atomicAdd(p, v);
-}
-
-// dW[k0 .. k0+16)[n0 .. n0 + 8 NT) += a^T g for this warp: a [rows][in
-// features] and g [rows][out features] are both row-major by sample, and
-// the product contracts over the kRows samples, so both operands are
-// loaded transposed.  n_valid: columns at or beyond it are not sent.
-template <int NT>
-__device__ __forceinline__ void warp_wgrad(const __nv_bfloat16* a, const __nv_bfloat16* gb, int k0,
-                                           int n0, int lane, float* dw, int n_valid) {
-  float acc[NT][4];
+// dW rows k0 + (lane / 4) (+ 8), columns n0 + 8 i + 2 (lane % 4) (+ 1) hold
+// f[4 i + j]: added four neighbouring columns at a time (lane pairs trade
+// halves; even lanes send row k, odd lanes row k + 8), all-zero quads skipped.
+__device__ __forceinline__ void red_partial(float* dw, const float (&f)[32], int k0, int n0,
+                                           int lane) {
+  const bool odd = lane & 1;
+  const int k = k0 + (lane >> 2) + (odd ? 8 : 0);
+  const int n = n0 + 2 * (lane & 3) - (odd ? 2 : 0);
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  const int mat = lane >> 3, i = lane & 7;
-#pragma unroll
-  for (int kt = 0; kt < kRows / 16; ++kt) {
-    const int r0 = kt * 16;
-    // A[m = in feature][k = row]: matrices (rows r0.., cols k0..), (r0.., k0+8..),
-    // (r0+8.., k0..), (r0+8.., k0+8..) -> a0..a3
-    uint32_t a0, a1, a2, a3;
-    ldmatrix_x4_trans(a0, a1, a2, a3, a + (r0 + i + (mat >> 1) * 8) * kStride + k0 + (mat & 1) * 8);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      // B[k = row][n = out feature]: matrices (rows r0.., cols n..), (r0+8.., n..)
-      uint32_t b0, b1;
-      ldmatrix_x2_trans(b0, b1, gb + (r0 + i + (mat & 1) * 8) * kStride + n0 + nt * 8);
-      tnerf::mma_bf16(acc[nt], a0, a1, a2, a3, b0, b1);
+  for (int i = 0; i < 8; ++i) {
+    const float x0 = odd ? f[4 * i] : f[4 * i + 2], x1 = odd ? f[4 * i + 1] : f[4 * i + 3];
+    const float y0 = __shfl_xor_sync(0xffffffffu, x0, 1), y1 = __shfl_xor_sync(0xffffffffu, x1, 1);
+    const float a = odd ? y0 : f[4 * i], b = odd ? y1 : f[4 * i + 1];
+    const float c = odd ? f[4 * i + 2] : y0, d = odd ? f[4 * i + 3] : y1;
+    if (a != 0.f || b != 0.f || c != 0.f || d != 0.f) {
+      float* p = dw + (size_t)k * kLanes + n + 8 * i;
+      asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "f"(a), "f"(b),
+                   "f"(c), "f"(d)
+                   : "memory");
     }
   }
-  const int g = lane >> 2, tq = lane & 3;
+}
+
+// The backward products of one layer for this warpgroup, issued and
+// committed as one straight-line group: e = g @ W^T over the first kKt
+// 16-wide steps of the contraction (kIg), f0 / f1 = a^T g for dW columns
+// 0..63 / 64..127 (f1 only if kFull), over the tile's 64 rows.
+template <bool kIg, int kKt, bool kFull>
+__device__ __forceinline__ void bwd_products(float (&e)[32], float (&f0)[32], float (&f1)[32],
+                                             const unsigned char* a, const unsigned char* g,
+                                             const unsigned char* w, int wg) {
+  wgmma_fence();
+  if constexpr (kIg) {
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int col = n0 + nt * 8 + 2 * tq;
-    float* p = dw + (size_t)(k0 + g) * kLanes + col;
-    if (col < n_valid) {
-      red_add(p, acc[nt][0]);
-      red_add(p + 8 * kLanes, acc[nt][2]);
+    for (int kk = 0; kk < kKt; ++kk)
+      wgmma_m64n64k16<0, 0>(e, desc(smem_u32(g + (kk >> 2) * kBlockBytes + (kk & 3) * 32)),
+                            desc(smem_u32(w + ((kk >> 2) * 2 + wg) * kBlockBytes + (kk & 3) * 32)),
+                            kk);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t da = desc(smem_u32(a + wg * kBlockBytes + kk * 2048));
+    wgmma_m64n64k16<1, 1>(f0, da, desc(smem_u32(g + kk * 2048)), kk);
+    if constexpr (kFull) wgmma_m64n64k16<1, 1>(f1, da, desc(smem_u32(g + kBlockBytes + kk * 2048)), kk);
+  }
+  wgmma_commit();
+}
+
+// g at layer l - 1's output into `gn`: e = g @ W[l]^T (this warpgroup's
+// 64 input features) times ReLU' of layer l's stored input `a`, in bf16.
+__device__ __forceinline__ void relu_grad(unsigned char* gn, const unsigned char* a,
+                                          const float (&e)[32], int wg, int r0, int cq) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = 64 * wg + 8 * i + cq;
+    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(a + tile_offset(r0, col));
+    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(a + tile_offset(r0 + 8, col));
+    *reinterpret_cast<__nv_bfloat162*>(gn + tile_offset(r0, col)) =
+        __floats2bfloat162_rn(__low2float(lo) > 0.f ? e[4 * i] : 0.f,
+                              __high2float(lo) > 0.f ? e[4 * i + 1] : 0.f);
+    *reinterpret_cast<__nv_bfloat162*>(gn + tile_offset(r0 + 8, col)) =
+        __floats2bfloat162_rn(__low2float(hi) > 0.f ? e[4 * i + 2] : 0.f,
+                              __high2float(hi) > 0.f ? e[4 * i + 3] : 0.f);
+  }
+  fence_async_smem();
+}
+
+// The weight-tile sequence of one chunk: layers 0..NL-1 for the forward,
+// then NL-2..1 for the input gradients (layer NL-1's tile is still held).
+__device__ __forceinline__ int load_layer(int j, int n_layers) {
+  return j < n_layers ? j : 2 * n_layers - 2 - j;
+}
+
+// Layer 0's input, the encoding of the tile's rows, into `dst` (a [64][128]
+// tile), by 256 threads: a thread keeps one feature pair for all its rows,
+// so it reads (gamma, beta) once for each ray of the tile.
+template <bool kTmode>
+__device__ __forceinline__ void encode_tile(unsigned char* dst, const float* __restrict__ gamma,
+                                            const float* __restrict__ beta,
+                                            const tnerf::Placement<kTmode>& place,
+                                            const float* t_row, int tid, int c, int ch, int R,
+                                            int ray0, int B, int S) {
+  const int f = (tid & 63) * 2;
+  int cached = -1;
+  float2 g = make_float2(0.f, 0.f), b = g;
+  for (int row = tid >> 6; row < kRows; row += 4) {
+    const int j = row / ch, s = c * ch + row % ch, ray = ray0 + j;
+    float v0 = 0.f, v1 = 0.f;
+    if (j < R && ray < B && s < S) {
+      if (ray != cached) {
+        g = *reinterpret_cast<const float2*>(gamma + (size_t)ray * kLanes + f);
+        b = *reinterpret_cast<const float2*>(beta + (size_t)ray * kLanes + f);
+        cached = ray;
+      }
+      const float u = place.abscissa(s, t_row[row]);
+      v0 = tnerf::encode_feature(g.x, b.x, u, f);
+      v1 = tnerf::encode_feature(g.y, b.y, u, f + 1);
     }
-    if (col + 1 < n_valid) {
-      red_add(p + 1, acc[nt][1]);
-      red_add(p + 8 * kLanes + 1, acc[nt][3]);
-    }
+    *reinterpret_cast<__nv_bfloat162*>(dst + tile_offset(row, f)) = __floats2bfloat162_rn(v0, v1);
   }
 }
 
 template <bool kTmode>
 __global__ void __launch_bounds__(kThreads, 1)
-fused_backward_kernel(const __nv_bfloat16* __restrict__ wt, const __nv_bfloat16* __restrict__ wk,
-                      const float* __restrict__ bias, const float* __restrict__ gamma,
-                      const float* __restrict__ beta,
+fused_backward_kernel(const __grid_constant__ CUtensorMap wmap, const float* __restrict__ bias,
+                      const float* __restrict__ gamma, const float* __restrict__ beta,
                       const tnerf::Placement<kTmode> place, const float* __restrict__ o,
                       const float* __restrict__ d, const float* __restrict__ mask,
-                      const uint32_t* __restrict__ words_in, const float* __restrict__ tchk,
+                      const uint32_t* __restrict__ words, const float* __restrict__ tchk,
                       const float* __restrict__ gout, float* __restrict__ dW,
                       float* __restrict__ dB, int B, int S, int n_layers, int use_coarse,
                       Coarse cg, float term_eps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Fixed& sm = *reinterpret_cast<Fixed*>(smem_raw);
-  // acts[l]: layer l's input (the encoding for l = 0, else layer l-1's ReLU output)
-  __nv_bfloat16* acts = reinterpret_cast<__nv_bfloat16*>(smem_raw + sizeof(Fixed));
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  const int n_slots = n_layers > 1 ? n_layers - 1 : 1;
+  unsigned char* acts = base;                                  // layer l's input in slot l - 1
+  unsigned char* gt = base + (size_t)n_slots * kTileBytes;     // gradient tile (encoding in the forward)
+  unsigned char* wring = gt + kTileBytes;                      // two weight slots
+  Fixed& sm = *reinterpret_cast<Fixed*>(wring + 2 * kWBytes);
+  // Where the gradient at layer m's output lies: the gradient tile for the
+  // last two layers, else the slot of layer m + 2's input, free by then.
+  auto g_at = [&](int m) { return m >= n_layers - 2 ? gt : acts + (size_t)(m + 1) * kTileBytes; };
+  // Layer 0's input for its weight gradient: the gradient tile once the
+  // gradient has moved to the slots, else slot 0.
+  unsigned char* enc = n_layers > 2 ? gt : acts;
+
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31, w4 = (tid >> 5) & 3;
+  const int r0 = 16 * w4 + (lane >> 2), cq = 2 * (lane & 3);  // accumulator rows r0, r0 + 8
   const int ch = S < kRows ? S : kRows;  // samples per ray per chunk
   const int R = kRows / ch;              // rays per tile
-  const int ray0 = blockIdx.x * R;
+  const int n_tiles = (B + R - 1) / R;
   const int n_chunks = (S + ch - 1) / ch;
   const int fch = S < kFwdRows ? S : kFwdRows;
-  const int r0 = (warp & 3) * 16, c0 = (warp >> 2) * 64;  // this warp's rows and columns
+  const int my_tiles = (int)blockIdx.x < n_tiles ? (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const int per_chunk = n_layers + (n_layers > 2 ? n_layers - 2 : 0);
+  const long long n_loads = (long long)my_tiles * n_chunks * per_chunk;
 
+  auto issue = [&](long long i) {  // one thread: load i into its slot
+    const int layer = load_layer((int)(i % per_chunk), n_layers), s = (int)(i & 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)  // column half h: rows 0..127, blocks (0, h), (1, h)
+      tma_load(wring + s * kWBytes + h * 2 * kBlockBytes, &wmap, h * 64, layer * kLanes,
+               &sm.full[s]);
+  };
+  auto acquire = [&](long long i) { mbar_wait(&sm.full[i & 1], (uint32_t)((i >> 1) & 1)); };
+  // After a __syncthreads that follows the last read of load i's slot:
+  // the slot takes load i + 2.
+  auto release = [&](long long i) {
+    if (tid != 0 || i + 2 >= n_loads) return;
+    mbar_expect_tx(&sm.full[i & 1], kWBytes);
+    issue(i + 2);
+  };
+
+  if (tid == 0) {
+    prefetch_tensormap(&wmap);
+    mbar_init(&sm.full[0], 1);
+    mbar_init(&sm.full[1], 1);
+    fence_mbar_init();
+    for (int s = 0; s < 2 && s < n_loads; ++s) {
+      mbar_expect_tx(&sm.full[s], kWBytes);
+      issue(s);
+    }
+  }
+  for (int i = tid; i < n_layers * kLanes; i += kThreads) sm.bias[i / kLanes][i % kLanes] = bias[i];
   if (use_coarse)
-    for (int i = tid; i < kWords; i += kThreads) sm.words[i] = words_in[i];
-  for (int j = tid; j < kRows; j += kThreads)
-    sm.gT[j] = (j < R && ray0 + j < B) ? gout[(size_t)(ray0 + j) * 6 + 5] : 0.f;
+    for (int i = tid; i < tnerf::kWords; i += kThreads) sm.words[i] = words[i];
   __syncthreads();
 
-  for (int c = n_chunks - 1; c >= 0; --c) {
-    // Phase 1: per-row depth and mask, per-ray entry transmittance.
-    bool any = false;
-    for (int row = tid; row < kRows; row += kThreads) {
-      const int j = row / ch, s = c * ch + row % ch, ray = ray0 + j;
-      float m = 0.f, t = 0.f, step = 0.f;
-      if (j < R && ray < B && s < S) {
-        place.sample(ray, s, S, t, step);
-        m = mask[(size_t)ray * S + s];
-        if (use_coarse && m != 0.f) {
-          const float x = __fadd_rn(o[3 * ray], __fmul_rn(t, d[3 * ray]));
-          const float y = __fadd_rn(o[3 * ray + 1], __fmul_rn(t, d[3 * ray + 1]));
-          const float z = __fadd_rn(o[3 * ray + 2], __fmul_rn(t, d[3 * ray + 2]));
-          m = tnerf::occ_bit(sm.words, cg, x, y, z) ? m : 0.f;
+  long long li = 0;  // index of the chunk's first weight load
+  for (int tile = (int)blockIdx.x; tile < n_tiles; tile += (int)gridDim.x) {
+    const int ray0 = tile * R;
+    for (int j = tid; j < kRows; j += kThreads)
+      sm.gT[j] = (j < R && ray0 + j < B) ? gout[(size_t)(ray0 + j) * 6 + 5] : 0.f;
+
+    for (int c = n_chunks - 1; c >= 0; --c, li += per_chunk) {
+      // Phase 1: per-row depth and mask, per-ray entry transmittance, the skip rule.
+      bool any = false, live = false;
+      if (tid < kRows) {
+        const int row = tid, j = row / ch, s = c * ch + row % ch, ray = ray0 + j;
+        float m = 0.f, t = 0.f, step = 0.f;
+        if (j < R && ray < B && s < S) {
+          place.sample(ray, s, S, t, step);
+          m = mask[(size_t)ray * S + s];
+          if (use_coarse && m != 0.f) {
+            const float x = __fadd_rn(o[3 * ray], __fmul_rn(t, d[3 * ray]));
+            const float y = __fadd_rn(o[3 * ray + 1], __fmul_rn(t, d[3 * ray + 1]));
+            const float z = __fadd_rn(o[3 * ray + 2], __fmul_rn(t, d[3 * ray + 2]));
+            m = tnerf::occ_bit(sm.words, cg, x, y, z) ? m : 0.f;
+          }
+        }
+        sm.t[row] = t;
+        sm.m[row] = m;
+        sm.step[row] = step;
+        any = m != 0.f;
+        if (row < R) {
+          float T0 = 0.f;
+          if (ray0 + row < B) {
+            const float* tc = tchk + (size_t)(ray0 + row) * n_chunks;
+            T0 = tc[c];
+            // T at which the forward kernel entered its chunk holding this one
+            live = tc[((c * ch) / fch) * fch / ch] > term_eps;
+          }
+          sm.T0[row] = T0;
         }
       }
-      sm.t[row] = t;
-      sm.m[row] = m;
-      sm.step[row] = step;
-      any |= m != 0.f;
-    }
-    bool live = false;
-    for (int j = tid; j < R; j += kThreads) {
-      const int ray = ray0 + j;
-      float T0 = 0.f;
-      if (ray < B) {
-        const float* tc = tchk + (size_t)ray * n_chunks;
-        T0 = tc[c];
-        // T at which the forward kernel entered its chunk holding this one
-        live |= tc[((c * ch) / fch) * fch / ch] > term_eps;
-      }
-      sm.T0[j] = T0;
-    }
-    const int any_sample = __syncthreads_or(any);
-    const int any_live = __syncthreads_or(live);
-    if (!any_sample || !any_live) continue;
+      const bool any_sample = __syncthreads_or(any);
+      const bool compute = any_sample && __syncthreads_or(live);
 
-    // Phase 2: encode the tile's rows into acts[0].
-    for (int idx = tid; idx < kRows * kLanes; idx += kThreads) {
-      const int row = idx / kLanes, f = idx % kLanes;
-      const int j = row / ch, s = c * ch + row % ch, ray = ray0 + j;
-      float v = 0.f;
-      if (j < R && ray < B && s < S) {
-        const size_t gi = (size_t)ray * kLanes + f;
-        v = tnerf::encode_feature(gamma[gi], beta[gi], place.abscissa(s, sm.t[row]), f);
+      // Phase 2: encode the tile's rows into the gradient tile (layer 0's input).
+      if (compute) {
+        encode_tile(gt, gamma, beta, place, sm.t, tid, c, ch, R, ray0, B, S);
+        fence_async_smem();
       }
-      acts[row * kStride + f] = __float2bfloat16_rn(v);
-    }
-
-    // Phase 3: the forward MLP, keeping every layer's input.
-    for (int l = 0; l < n_layers; ++l) {
-      __syncthreads();  // layer input written; previous weights free
-      tnerf::stage_matrix(sm.w, wt + (size_t)l * kLanes * kLanes, tid, kThreads);
       __syncthreads();
-      const __nv_bfloat16* a_in = acts + l * kTile;
-      const float* bl = bias + l * kLanes;
-      if (l + 1 < n_layers) {
-        float acc[8][4];
-        tnerf::warp_gemm<8, kLanes / 16>(a_in, sm.w, r0, c0, g, tq, acc);
-        __nv_bfloat16* a_out = acts + (l + 1) * kTile;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int col = c0 + nt * 8 + 2 * tq;
-          const float b0 = bl[col], b1 = bl[col + 1];
-          *reinterpret_cast<__nv_bfloat162*>(a_out + (r0 + g) * kStride + col) =
-              __floats2bfloat162_rn(fmaxf(acc[nt][0] + b0, 0.f), fmaxf(acc[nt][1] + b1, 0.f));
-          *reinterpret_cast<__nv_bfloat162*>(a_out + (r0 + g + 8) * kStride + col) =
-              __floats2bfloat162_rn(fmaxf(acc[nt][2] + b0, 0.f), fmaxf(acc[nt][3] + b1, 0.f));
-        }
-      } else if (c0 == 0) {
-        float acc[1][4];
-        tnerf::warp_gemm<1, kLanes / 16>(a_in, sm.w, r0, 0, g, tq, acc);
-        if (tq < 2) {
-          const int col = 2 * tq;
-          sm.head[r0 + g][col] = acc[0][0] + bl[col];
-          sm.head[r0 + g][col + 1] = acc[0][1] + bl[col + 1];
-          sm.head[r0 + g + 8][col] = acc[0][2] + bl[col];
-          sm.head[r0 + g + 8][col + 1] = acc[0][3] + bl[col + 1];
-        }
-      }
-    }
-    __syncthreads();
 
-    // Phase 4: the compositing VJP.  Thread `row` owns one sample through
-    // (a), (c) and (e); thread j owns ray j's two scans (b) and (d).
-    const int row = tid;
-    bool valid = false;
-    int j = 0, ray = 0;
-    float cr = 0.f, cg_ = 0.f, cb = 0.f, sig = 0.f, tau = 0.f, dt = 0.f;
-    if (row < kRows) {
-      j = row / ch;
-      ray = ray0 + j;
-      valid = j < R && ray < B && c * ch + row % ch < S;
-      if (valid) {  // (a) head activations and optical depth
-        const float* h = sm.head[row];
-        cr = tnerf::sigmoidf(h[0]);
-        cg_ = tnerf::sigmoidf(h[1]);
-        cb = tnerf::sigmoidf(h[2]);
-        sig = tnerf::density_softplus(h[3]);
-        dt = sm.step[row];
-        tau = __fmul_rn(__fmul_rn(sig, dt), sm.m[row]);
-      }
-      sm.tau[row] = tau;
-    }
-    __syncthreads();
-    if (tid < R) {  // (b) exclusive sums of tau along the ray
-      float incl = 0.f;
-      for (int i = 0; i < ch; ++i) {
-        sm.ex[tid * ch + i] = incl;
-        incl += sm.tau[tid * ch + i];
-      }
-      sm.Texp[tid] = expf(-incl);
-    }
-    __syncthreads();
-    float w = 0.f, dw = 0.f, E = 0.f, emt = 1.f, T0 = 0.f, gr = 0.f, gg = 0.f, gb = 0.f;
-    if (row < kRows) {  // (c) weights and their cotangent
-      float G = 0.f, dEF = 0.f;
-      if (valid) {
-        const float* go = gout + (size_t)ray * 6;
-        gr = go[0];
-        gg = go[1];
-        gb = go[2];
-        T0 = sm.T0[j];
-        E = expf(-sm.ex[row]);
-        emt = expf(-tau);
-        const float F = 1.f - emt;
-        w = T0 * E * F;
-        dw = gr * cr + gg * cg_ + gb * cb + go[3] + go[4] * sm.t[row];
-        G = dw * w;
-        dEF = dw * E * F;
-      }
-      sm.G[row] = G;
-      sm.dEF[row] = dEF;
-    }
-    __syncthreads();
-    if (tid < R) {  // (d) suffix sums of G, and the carry to the earlier chunk
-      float run = 0.f, sef = 0.f;
-      for (int i = ch - 1; i >= 0; --i) {
-        sm.suf[tid * ch + i] = run;
-        run += sm.G[tid * ch + i];
-        sef += sm.dEF[tid * ch + i];
-      }
-      sm.gTn[tid] = sef + sm.gT[tid] * sm.Texp[tid];
-    }
-    __syncthreads();
-    if (row < kRows) {  // (e) gradient at the last layer's output, bf16
-      float q0 = 0.f, q1 = 0.f, q2 = 0.f, q3 = 0.f;
-      if (valid) {
-        const float dtau = -sm.suf[row] + dw * (T0 * E * emt) - sm.gT[j] * (T0 * sm.Texp[j]);
-        const float dsig = dtau * dt * sm.m[row];
-        q3 = dsig * (1.f - expf(-sig));
-        q0 = (w * gr) * cr * (1.f - cr);
-        q1 = (w * gg) * cg_ * (1.f - cg_);
-        q2 = (w * gb) * cb * (1.f - cb);
-      }
-      __nv_bfloat162* gp = reinterpret_cast<__nv_bfloat162*>(sm.g + row * kStride);
-      gp[0] = __floats2bfloat162_rn(q0, q1);
-      gp[1] = __floats2bfloat162_rn(q2, q3);
+      // Phase 3: the forward MLP, keeping every layer's input.
+      for (int l = 0; l < n_layers; ++l) {
+        acquire(li + l);
+        if (compute && (l + 1 < n_layers || wg == 0)) {  // the head's lanes 0..3 are warpgroup 0's
+          const unsigned char* a = l == 0 ? gt : acts + (size_t)(l - 1) * kTileBytes;
+          const unsigned char* w = wring + ((li + l) & 1) * kWBytes;
+          float acc[32];
+          wgmma_fence();
 #pragma unroll
-      for (int q = 2; q < 8; ++q) gp[q] = __floats2bfloat162_rn(0.f, 0.f);  // columns 4..15
-    }
-    __syncthreads();
-    if (tid < R) sm.gT[tid] = sm.gTn[tid];
+          for (int kk = 0; kk < 8; ++kk)
+            wgmma_m64n64k16<0, 1>(acc, desc(smem_u32(a + (kk >> 2) * kBlockBytes + (kk & 3) * 32)),
+                                  desc(smem_u32(w + (wg * 2 + (kk >> 2)) * kBlockBytes + (kk & 3) * 2048)),
+                                  kk);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(acc);
+          const float* bl = sm.bias[l];
+          if (l + 1 < n_layers) {
+            unsigned char* out = acts + (size_t)l * kTileBytes;
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const int col = 64 * wg + 8 * i + cq;
+              const float b0 = bl[col], b1 = bl[col + 1];
+              *reinterpret_cast<__nv_bfloat162*>(out + tile_offset(r0, col)) = __floats2bfloat162_rn(
+                  fmaxf(acc[4 * i] + b0, 0.f), fmaxf(acc[4 * i + 1] + b1, 0.f));
+              *reinterpret_cast<__nv_bfloat162*>(out + tile_offset(r0 + 8, col)) = __floats2bfloat162_rn(
+                  fmaxf(acc[4 * i + 2] + b0, 0.f), fmaxf(acc[4 * i + 3] + b1, 0.f));
+            }
+            fence_async_smem();
+          } else if ((lane & 3) < 2) {
+            sm.head[r0][cq] = acc[0] + bl[cq];
+            sm.head[r0][cq + 1] = acc[1] + bl[cq + 1];
+            sm.head[r0 + 8][cq] = acc[2] + bl[cq];
+            sm.head[r0 + 8][cq + 1] = acc[3] + bl[cq + 1];
+          }
+        }
+        __syncthreads();
+        if (l + 1 < n_layers) release(li + l);  // the last layer's tile serves its input gradient
+      }
+      if (n_layers == 1) release(li);
 
-    // Phase 5: the MLP backward, last layer first.
-    for (int l = n_layers - 1; l >= 0; --l) {
-      const bool last = l == n_layers - 1;  // only columns 0..3 of g are set
-      const __nv_bfloat16* a_in = acts + l * kTile;
-      // in-major weights for the input gradient (sm.w was last read before a sync)
-      if (l > 0) tnerf::stage_matrix(sm.w, wk + (size_t)l * kLanes * kLanes, tid, kThreads);
-      {  // bias gradient: column sums of g, two threads (32 rows each) per column
-        const int col = tid & (kLanes - 1), r_lo = (tid >> 7) * (kRows / 2);
-        if (!last || col < 4) {
-          float ssum = 0.f;
-          for (int r = r_lo; r < r_lo + kRows / 2; ++r)
-            ssum += __bfloat162float(sm.g[r * kStride + col]);
-          red_add(dB + l * kLanes + col, ssum);
+      // Phase 4: the compositing VJP on the tile's rows (threads 0..63):
+      // the gradient at the last layer's output into the gradient tile.
+      if (compute && tid < kRows) {
+        const int row = tid, j = row / ch, ray = ray0 + j;
+        const bool valid = j < R && ray < B && c * ch + row % ch < S;
+        const int last_row = valid ? (j + 1) * ch - 1 : row;  // the ray's last row in the tile
+        float cr = 0.f, cgr = 0.f, cb = 0.f, sig = 0.f, tau = 0.f, dt = 0.f, T0 = 0.f;
+        float gr = 0.f, gg = 0.f, gbl = 0.f, ga = 0.f, gd = 0.f;
+        if (valid) {  // (a) head activations and optical depth
+          cr = tnerf::sigmoidf(sm.head[row][0]);
+          cgr = tnerf::sigmoidf(sm.head[row][1]);
+          cb = tnerf::sigmoidf(sm.head[row][2]);
+          sig = tnerf::density_softplus(sm.head[row][3]);
+          dt = sm.step[row];
+          tau = __fmul_rn(__fmul_rn(sig, dt), sm.m[row]);
+          const float* go = gout + (size_t)ray * 6;
+          gr = go[0];
+          gg = go[1];
+          gbl = go[2];
+          ga = go[3];
+          gd = go[4];
+          T0 = sm.T0[j];
         }
-      }
-      float* dwl = dW + (size_t)l * kLanes * kLanes;
-      if (last) {
-        warp_wgrad<1>(a_in, sm.g, warp * 16, 0, lane, dwl, 4);
-      } else {
-        warp_wgrad<8>(a_in, sm.g, warp * 16, 0, lane, dwl, kLanes);
-        warp_wgrad<8>(a_in, sm.g, warp * 16, 64, lane, dwl, kLanes);
-      }
-      if (l > 0) {
-        __syncthreads();  // weights staged
-        float acc[8][4];
-        if (last)
-          tnerf::warp_gemm<8, 1>(sm.g, sm.w, r0, c0, g, tq, acc);
-        else
-          tnerf::warp_gemm<8, kLanes / 16>(sm.g, sm.w, r0, c0, g, tq, acc);
-        __syncthreads();  // every warp has read g
+        // (b) exclusive sums of tau along the ray, and its total
+        const float incl = seg_scan<false>(tau, row, ch, sm.buf);
+        const float total = sm.buf[last_row];
+        // (c) weights and their cotangent
+        const float E = expf(-(incl - tau)), emt = expf(-tau), F = 1.f - emt;
+        const float Texp = expf(-total);
+        const float w = T0 * E * F;
+        const float dw = valid ? gr * cr + gg * cgr + gbl * cb + ga + gd * sm.t[row] : 0.f;
+        const float G = dw * w;
+        // (d) suffix sums of G (exclusive), and sum of dw E F along the ray
+        named_sync(1, kRows);  // every row has read buf
+        const float suf = seg_scan<true>(G, row, ch, sm.buf) - G;
+        named_sync(1, kRows);
+        seg_scan<false>(dw * E * F, row, ch, sm.buf);
+        const float sef = sm.buf[last_row];
+        const float gTj = sm.gT[j < R ? j : 0];
+        // (e) gradient at the last layer's output, bf16
+        float q0 = 0.f, q1 = 0.f, q2 = 0.f, q3 = 0.f;
+        if (valid) {
+          const float dtau = -suf + dw * (T0 * E * emt) - gTj * (T0 * Texp);
+          const float dsig = dtau * dt * sm.m[row];
+          q3 = dsig * (1.f - expf(-sig));
+          q0 = (w * gr) * cr * (1.f - cr);
+          q1 = (w * gg) * cgr * (1.f - cgr);
+          q2 = (w * gbl) * cb * (1.f - cb);
+        }
+        const __nv_bfloat162 p01 = __floats2bfloat162_rn(q0, q1), p23 = __floats2bfloat162_rn(q2, q3);
+        uint4 first;
+        first.x = *reinterpret_cast<const uint32_t*>(&p01);
+        first.y = *reinterpret_cast<const uint32_t*>(&p23);
+        first.z = first.w = 0u;
+        *reinterpret_cast<uint4*>(gt + tile_offset(row, 0)) = first;
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {  // ReLU': this layer's input is the ReLU output
-          const int col = c0 + nt * 8 + 2 * tq;
-          const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(
-              a_in + (r0 + g) * kStride + col);
-          const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(
-              a_in + (r0 + g + 8) * kStride + col);
-          *reinterpret_cast<__nv_bfloat162*>(sm.g + (r0 + g) * kStride + col) =
-              __floats2bfloat162_rn(__low2float(lo) > 0.f ? acc[nt][0] : 0.f,
-                                    __high2float(lo) > 0.f ? acc[nt][1] : 0.f);
-          *reinterpret_cast<__nv_bfloat162*>(sm.g + (r0 + g + 8) * kStride + col) =
-              __floats2bfloat162_rn(__low2float(hi) > 0.f ? acc[nt][2] : 0.f,
-                                    __high2float(hi) > 0.f ? acc[nt][3] : 0.f);
+        for (int cc = 1; cc < kLanes / 8; ++cc)
+          *reinterpret_cast<uint4*>(gt + tile_offset(row, 8 * cc)) = make_uint4(0u, 0u, 0u, 0u);
+        fence_async_smem();
+        named_sync(1, kRows);  // every row has read gT
+        if (valid && row % ch == 0) sm.gT[j] = sef + gTj * Texp;  // carry to the earlier chunk
+      }
+      __syncthreads();
+
+      // Phase 5: the MLP backward, last layer first.
+      for (int l = n_layers - 1; l >= 0; --l) {
+        const bool last = l == n_layers - 1;  // only columns 0..3 of g are set
+        const long long wl = last ? li + n_layers - 1 : li + 2 * n_layers - 2 - l;
+        if (l > 0 && !last) acquire(wl);
+        if (l == 0 && compute) {  // layer 0's input, the encoding, again
+          encode_tile(enc, gamma, beta, place, sm.t, tid, c, ch, R, ray0, B, S);
+          fence_async_smem();
+          __syncthreads();
+        }
+        // the next gradient goes to another tile, except from the last
+        // layer, where it overwrites this one once every warp has read it
+        unsigned char* g = g_at(l);
+        unsigned char* gn = l > 0 ? g_at(l - 1) : g;
+        const bool apart = gn != g;
+        float e[32], f0[32], f1[32];
+        if (compute) {
+          const unsigned char* a = l == 0 ? enc : acts + (size_t)(l - 1) * kTileBytes;
+          const unsigned char* w = wring + (wl & 1) * kWBytes;
+          if (l > 0 && last)  // the head: g has 4 columns, one contraction step
+            bwd_products<true, 1, false>(e, f0, f1, a, g, w, wg);
+          else if (l > 0)
+            bwd_products<true, 8, true>(e, f0, f1, a, g, w, wg);
+          else if (last)
+            bwd_products<false, 0, false>(e, f0, f1, a, g, w, wg);
+          else
+            bwd_products<false, 0, true>(e, f0, f1, a, g, w, wg);
+          {  // bias gradient: column sums of g while the products run
+            const int col = tid & (kLanes - 1), h = tid >> 7;
+            float part[4] = {0.f, 0.f, 0.f, 0.f};
+            if (!last || col < 4)
+#pragma unroll
+              for (int r = 0; r < 32; ++r)
+                part[r & 3] += __bfloat162float(
+                    *reinterpret_cast<const __nv_bfloat16*>(g + tile_offset(32 * h + r, col)));
+            sm.colsum[l & 1][h][col] = (part[0] + part[1]) + (part[2] + part[3]);
+          }
+          wgmma_wait<0>();
+          fence_regs(e);
+          fence_regs(f0);
+          fence_regs(f1);
+          float* dwl = dW + (size_t)l * kLanes * kLanes;
+          red_partial(dwl, f0, 64 * wg + 16 * w4, 0, lane);
+          if (!last) red_partial(dwl, f1, 64 * wg + 16 * w4, 64, lane);
+          // g at layer l - 1's output, into another tile: no barrier first
+          if (l > 0 && apart) relu_grad(gn, acts + (size_t)(l - 1) * kTileBytes, e, wg, r0, cq);
+        }
+        __syncthreads();  // every read of g and W is done; the next g and the column sums are written
+        if (l > 0) release(wl);
+        if (compute && tid < kLanes) {
+          const float v = sm.colsum[l & 1][0][tid] + sm.colsum[l & 1][1][tid];
+          if (v != 0.f) atomicAdd(dB + l * kLanes + tid, v);
+        }
+        if (l > 0 && !apart) {
+          if (compute) relu_grad(gn, acts + (size_t)(l - 1) * kTileBytes, e, wg, r0, cq);
+          __syncthreads();  // g rewritten
         }
       }
-      __syncthreads();  // g rewritten (or, after layer 0, the tiles are free)
     }
   }
 }
 
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) != cudaSuccess)
+      return nullptr;
+#endif
+    if (q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// CTAs of the kernel the card holds at once (negative: a CUDA error).
 template <bool kTmode>
-int launch_backward(const void* wt, const void* wk, const float* bias, const float* gamma,
-                    const float* beta, const tnerf::Placement<kTmode>& place, const float* o,
-                    const float* d, const float* mask, const int32_t* words, const float* tchk,
+int max_ctas(int n_layers) {
+  const size_t smem = smem_bytes(n_layers);
+  if (n_layers > kMaxLayers || smem > kMaxSmem) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(fused_backward_kernel<kTmode>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return -(int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return -(int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return -(int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_backward_kernel<kTmode>,
+                                                      kThreads, smem);
+  return err == cudaSuccess ? sms * per_sm : -(int)err;
+}
+
+template <bool kTmode>
+int launch_backward(const void* w, const float* bias, const float* gamma, const float* beta,
+                    const tnerf::Placement<kTmode>& place, const float* o, const float* d,
+                    const float* mask, const int32_t* words, const float* tchk,
                     const float* gout, float* dW, float* dB, int B, int S, int n_layers,
-                    int use_coarse, const Coarse& cg, float term_eps, void* stream) {
-  const size_t smem = sizeof(Fixed) + (size_t)n_layers * kTile * sizeof(__nv_bfloat16);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;  // more layers than fit a block
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_backward_kernel<kTmode>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                    int n_ctas, int use_coarse, const Coarse& cg, float term_eps,
+                    void* stream) {
+  const size_t smem = smem_bytes(n_layers);
+  if (n_layers > kMaxLayers || smem > kMaxSmem || n_ctas < 1) return (int)cudaErrorInvalidValue;
+  auto encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap wmap;  // W [NL * 128 rows][128] bf16, 128 x 64 boxes, 128-byte swizzle
+  cuuint64_t dims[2] = {(cuuint64_t)kLanes, (cuuint64_t)n_layers * kLanes};
+  cuuint64_t strides[1] = {(cuuint64_t)kLanes * 2};
+  cuuint32_t box[2] = {64, 128};
+  cuuint32_t elem[2] = {1, 1};
+  if (encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(fused_backward_kernel<kTmode>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int ch = S < kRows ? S : kRows;
-  const int R = kRows / ch;
-  const int blocks = (B + R - 1) / R;
-  fused_backward_kernel<kTmode><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(wt), reinterpret_cast<const __nv_bfloat16*>(wk),
-      bias, gamma, beta, place, o, d, mask, reinterpret_cast<const uint32_t*>(words), tchk,
+  fused_backward_kernel<kTmode><<<n_ctas, kThreads, smem, (cudaStream_t)stream>>>(
+      wmap, bias, gamma, beta, place, o, d, mask, reinterpret_cast<const uint32_t*>(words), tchk,
       gout, dW, dB, B, S, n_layers, use_coarse, cg, term_eps);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int tnerf_fused_backward(const void* wt, const void* wk, const float* bias,
-                                    const float* gamma, const float* beta, const float* te,
-                                    const float* dt, const float* o, const float* d,
-                                    const float* mask, const int32_t* words, const float* tchk,
-                                    const float* gout, float* dW, float* dB, int B, int S,
-                                    int n_layers, int use_coarse, int res_c, float lo_x,
+// CTAs of the kernel the card holds at once for n_layers (uniform placement
+// if tmode == 0); negative: minus a cudaError_t.
+extern "C" int tnerf_fused_backward_max_ctas(int n_layers, int tmode) {
+  return tmode ? max_ctas<true>(n_layers) : max_ctas<false>(n_layers);
+}
+
+extern "C" int tnerf_fused_backward(const void* w, const float* bias, const float* gamma,
+                                    const float* beta, const float* te, const float* dt,
+                                    const float* o, const float* d, const float* mask,
+                                    const int32_t* words, const float* tchk, const float* gout,
+                                    float* dW, float* dB, int B, int S, int n_layers,
+                                    int n_ctas, int use_coarse, int res_c, float lo_x,
                                     float lo_y, float lo_z, float cell_x, float cell_y,
                                     float cell_z, float term_eps, void* stream) {
-  return launch_backward<false>(wt, wk, bias, gamma, beta, {te, dt, nullptr, nullptr}, o, d,
-                                mask, words, tchk, gout, dW, dB, B, S, n_layers, use_coarse,
+  return launch_backward<false>(w, bias, gamma, beta, {te, dt, nullptr, nullptr}, o, d, mask,
+                                words, tchk, gout, dW, dB, B, S, n_layers, n_ctas, use_coarse,
                                 Coarse{res_c, lo_x, lo_y, lo_z, cell_x, cell_y, cell_z},
                                 term_eps, stream);
 }
 
 // Per-sample placement: ts, dts [B, S] in the place of te, dt [B].
-extern "C" int tnerf_fused_backward_tmode(const void* wt, const void* wk, const float* bias,
-                                          const float* gamma, const float* beta,
-                                          const float* ts, const float* dts, const float* o,
-                                          const float* d, const float* mask,
+extern "C" int tnerf_fused_backward_tmode(const void* w, const float* bias, const float* gamma,
+                                          const float* beta, const float* ts, const float* dts,
+                                          const float* o, const float* d, const float* mask,
                                           const int32_t* words, const float* tchk,
                                           const float* gout, float* dW, float* dB, int B, int S,
-                                          int n_layers, int use_coarse, int res_c, float lo_x,
-                                          float lo_y, float lo_z, float cell_x, float cell_y,
-                                          float cell_z, float term_eps, void* stream) {
-  return launch_backward<true>(wt, wk, bias, gamma, beta, {nullptr, nullptr, ts, dts}, o, d,
-                               mask, words, tchk, gout, dW, dB, B, S, n_layers, use_coarse,
+                                          int n_layers, int n_ctas, int use_coarse, int res_c,
+                                          float lo_x, float lo_y, float lo_z, float cell_x,
+                                          float cell_y, float cell_z, float term_eps,
+                                          void* stream) {
+  return launch_backward<true>(w, bias, gamma, beta, {nullptr, nullptr, ts, dts}, o, d, mask,
+                               words, tchk, gout, dW, dB, B, S, n_layers, n_ctas, use_coarse,
                                Coarse{res_c, lo_x, lo_y, lo_z, cell_x, cell_y, cell_z},
                                term_eps, stream);
 }

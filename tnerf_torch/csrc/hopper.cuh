@@ -1,0 +1,151 @@
+// Hopper (sm_90a) building blocks of the fused backward kernel: wgmma
+// products from 128-byte-swizzled shared memory, TMA tile loads and
+// mbarriers.
+//
+// Tile layout.  Every bf16 operand tile in shared memory is a set of
+// 8 KB blocks of 64 rows x 64 columns (128-byte rows), swizzled as TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B writes them: the 16-byte chunk c of row r
+// sits at chunk c ^ (r % 8).  A [64][128] activation or gradient tile is
+// two such blocks (columns 0..63, 64..127); a layer's [128][128] weights
+// are four, block (row half, column half) at 8 KB * (2 column half + row
+// half).  Each block starts on a 1024-byte boundary, which the swizzle
+// needs.  wgmma reads a block either K-major (the 64 contiguous columns
+// are the contraction) or MN-major (they are the output dimension); in
+// both cases groups of 8 rows lie 1024 bytes apart (the descriptor's
+// stride byte offset), a 16-wide step along a K-major contraction moves
+// the start address by 32 bytes and along an MN-major one by 16 rows
+// (2048 bytes).
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tnerf {
+namespace hopper {
+
+constexpr int kBlockBytes = 64 * 128;  // one swizzled 64 x 64 bf16 block
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of bf16 element (r, c) of a [64][128] tile held as two blocks.
+__device__ __forceinline__ uint32_t tile_offset(int r, int c) {
+  return (c >> 6) * kBlockBytes + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) + ((c & 7) << 1);
+}
+
+// ---- wgmma ---------------------------------------------------------------
+
+// Shared-memory matrix descriptor: 128-byte swizzle, 8-row groups 1024
+// bytes apart; the leading byte offset is not read for a swizzled K-major
+// operand nor for an MN-major one of at most 64 along MN (all of ours).
+__device__ __forceinline__ uint64_t desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers of a wgmma m64n64 f32 accumulator are not reordered across
+// these: the compiler must see them written by the asynchronous product.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A[64 x 16] B[16 x 64], bf16 operands, f32 accumulator.  kTA / kTB:
+// 0 = K-major, 1 = MN-major.  scale_d = 0 overwrites d.
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+}
+
+// ---- barriers --------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try(uint64_t* bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(ok)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+// Wait for the phase of `parity` to complete.  A wait that outlasts any
+// legitimate one (seconds) traps, so a protocol fault fails the launch
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  for (uint32_t n = 0; !mbar_try(bar, parity); ++n)
+    if (n > (1u << 26)) __trap();
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// Generic-proxy shared-memory writes made visible to wgmma / TMA.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Barrier `id` (1..15) over the first `count` threads of the block.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- TMA -----------------------------------------------------------------
+
+// One box of a 2-d tensor map (c0 = column, c1 = row) into `dst`,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The tensor map's descriptor into the cache ahead of its first load.
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+}  // namespace hopper
+}  // namespace tnerf

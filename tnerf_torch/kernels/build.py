@@ -35,9 +35,11 @@ PROTOTYPES = {
     # wt, bias, gamma, beta, te, dt, o, d, mask, words, out, tchk (may be null), B, S,
     # n_layers, use_coarse, res_c, lo xyz, cell xyz, term_eps, stream
     "tnerf_fused_forward": [P] * 12 + [I, I, I, I, I] + [F] * 7 + [P],
-    # wt, wk, bias, gamma, beta, te, dt, o, d, mask, words, tchk, gout, dW, dB, B, S,
-    # n_layers, use_coarse, res_c, lo xyz, cell xyz, term_eps, stream
-    "tnerf_fused_backward": [P] * 15 + [I, I, I, I, I] + [F] * 7 + [P],
+    # w, bias, gamma, beta, te, dt, o, d, mask, words, tchk, gout, dW, dB, B, S, n_layers,
+    # n_ctas, use_coarse, res_c, lo xyz, cell xyz, term_eps, stream
+    "tnerf_fused_backward": [P] * 14 + [I, I, I, I, I, I] + [F] * 7 + [P],
+    # n_layers, tmode -> CTAs the card holds at once (negative: a cudaError_t)
+    "tnerf_fused_backward_max_ctas": [I, I],
     # o, d_safe, inv_d, te, tx, words (may be null), t0, cell, n, steps, res, cfactor, use_occ,
     # lo xyz, cell xyz, coarse cell xyz, stream
     "tnerf_dda_march": [P] * 8 + [I, I, I, I, I] + [F] * 9 + [P],

@@ -26,6 +26,8 @@ read (rpc=1 and rpc=2 give the same quadrature in the reference too).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -135,13 +137,46 @@ def pack_occupancy_words(occupancy, res: int, res_c: int):
 # Rows of the backward kernel's tile (`kBwdRows` in csrc/fused.cuh): the
 # forward saves each ray's transmittance at every BWD_CHUNK-th sample.
 BWD_CHUNK = 64
-# Layers the backward kernel can hold: 227 KB of shared memory less 59 KB of
-# fixed buffers, over 17 KB per layer input of a tile.
+# Layers the backward kernel can hold: 227 KB of shared memory less 94 KB of
+# fixed buffers (two-slot weight ring, gradient tile, biases, coarse words,
+# per-row scalars), over 16 KB per stored layer input of a tile
+# (csrc/fused_backward.cu's header).
 MAX_BWD_LAYERS = 9
 
 
 def n_bwd_chunks(S: int) -> int:
     return -(-S // min(S, BWD_CHUNK))
+
+
+def bwd_tiles(B: int, S: int) -> tuple[int, int]:
+    """(tiles, rays per tile) of the backward kernel: a tile is BWD_CHUNK
+    rows, one chunk of min(S, BWD_CHUNK) samples of each of its rays."""
+    R = BWD_CHUNK // min(S, BWD_CHUNK)
+    return -(-B // R), R
+
+
+def bwd_grid(n_tiles: int, max_active: int) -> int:
+    """CTAs of the backward kernel's persistent grid: as many as the card
+    holds at once (`max_active`, the occupancy query's answer: one per SM),
+    and no more than there are tiles."""
+    if max_active < 1:
+        raise ValueError("fused_backward: the card holds no CTA of the backward kernel")
+    return max(1, min(max_active, n_tiles))
+
+
+def bwd_schedule(B: int, S: int, n_ctas: int) -> list[list[tuple[int, int]]]:
+    """What the backward kernel's persistent grid does, in order: for CTA
+    k, the (ray, chunk) pairs it shades.  CTA k takes tiles k, k + n_ctas,
+    ...; a tile walks its chunks last first, all its rays in step, and
+    each chunk through every layer's weight tile in turn."""
+    n_tiles, R = bwd_tiles(B, S)
+    n_chunks = n_bwd_chunks(S)
+    plan = [[] for _ in range(n_ctas)]
+    for k in range(n_ctas):
+        for tile in range(k, n_tiles, n_ctas):
+            rays = range(tile * R, min(B, (tile + 1) * R))
+            plan[k] += [(ray, c) for c in reversed(range(n_chunks)) for ray in rays]
+    return plan
 
 
 def _chunk_forward(Wb, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, s0: int, s1: int,
@@ -356,46 +391,68 @@ def fused_backward(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, tchk
     output under the cotangent gout [B, 6], from the forward's own inputs
     (ts / dts included) and its tchk.  CPU tensors take the plain version;
     CUDA tensors launch the B2 kernel, which skips what the forward kernel
-    skipped under the same term_eps.  The kernel sums across blocks with
-    atomic adds, so its result is not bit-reproducible from run to run."""
+    skipped under the same term_eps.  The kernel runs a persistent grid,
+    one CTA per SM (`bwd_schedule`), and adds each tile's partial gradient
+    into the result with atomic adds, which land in no fixed order: the
+    result is not bit-reproducible from run to run."""
     if gamma.device.type == "cpu":
         return fused_backward_plain(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse,
                                     tchk, gout, ts=ts, dts=dts)
     if gamma.device.type != "cuda":
         raise ValueError(f"fused_backward: unsupported device {gamma.device}")
-    _check_fused_inputs("fused_backward", W, Bias, gamma, beta, te, dt, o, d, mask, words, ts,
-                        dts)
+    B, S, NL = _check_backward_inputs(W, Bias, gamma, beta, te, dt, o, d, mask, words, tchk, gout,
+                                      ts, dts)
     dev = gamma.device
-    B, S = mask.shape
-    NL = W.shape[0]
-    build.check_tensor("tchk", tchk, (B, n_bwd_chunks(S)), torch.float32, dev)
-    build.check_tensor("gout", gout, (B, 6), torch.float32, dev)
-    if NL > MAX_BWD_LAYERS:
-        raise ValueError(
-            f"fused_backward: {NL} layers; the kernel keeps every layer's input of a tile in "
-            f"shared memory, which holds at most {MAX_BWD_LAYERS}")
     dW = torch.zeros((NL, LANES, LANES), dtype=torch.float32, device=dev)
     dB = torch.zeros((NL, LANES), dtype=torch.float32, device=dev)
     if B == 0:
         return dW, dB
-    Wk = W.to(torch.bfloat16).contiguous()           # in-major [NL, k, n]: gb @ W^T
-    Wt = Wk.transpose(1, 2).contiguous()             # out-major [NL, n, k]: a @ W
+    Wk = W.to(torch.bfloat16).contiguous()  # in-major [NL, k, n], the one orientation
     lib = build.library()
-    launch = lib.tnerf_fused_backward if ts is None else lib.tnerf_fused_backward_tmode
+    tmode = ts is not None
+    n_ctas = bwd_grid(bwd_tiles(B, S)[0], _max_bwd_ctas(dev.index, NL, tmode))
+    launch = lib.tnerf_fused_backward_tmode if tmode else lib.tnerf_fused_backward
     with torch.cuda.device(dev):
         err = launch(
-            Wt.data_ptr(), Wk.data_ptr(), Bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            Wk.data_ptr(), Bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
             *_placement_ptrs(te, dt, ts, dts), o.data_ptr(), d.data_ptr(), mask.data_ptr(),
             words.data_ptr(), tchk.data_ptr(), gout.data_ptr(), dW.data_ptr(), dB.data_ptr(),
-            B, S, NL, *_coarse_args(coarse), float(np.float32(term_eps)),
+            B, S, NL, n_ctas, *_coarse_args(coarse), float(np.float32(term_eps)),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    build.check(err, "tnerf_fused_backward" if ts is None else "tnerf_fused_backward_tmode")
-    if ts is None:
-        fused_backward.launches += 1
-    else:
+    build.check(err, "tnerf_fused_backward_tmode" if tmode else "tnerf_fused_backward")
+    if tmode:
         fused_backward.launches_tmode += 1
+    else:
+        fused_backward.launches += 1
     return dW, dB
+
+
+def _check_backward_inputs(W, Bias, gamma, beta, te, dt, o, d, mask, words, tchk, gout, ts, dts):
+    """(B, S, NL) of a backward kernel call, or ValueError on what the
+    kernel does not take."""
+    _check_fused_inputs("fused_backward", W, Bias, gamma, beta, te, dt, o, d, mask, words, ts,
+                        dts)
+    B, S = mask.shape
+    NL = W.shape[0]
+    build.check_tensor("tchk", tchk, (B, n_bwd_chunks(S)), torch.float32, gamma.device)
+    build.check_tensor("gout", gout, (B, 6), torch.float32, gamma.device)
+    if NL > MAX_BWD_LAYERS:
+        raise ValueError(
+            f"fused_backward: {NL} layers; the kernel keeps every layer's input of a tile in "
+            f"shared memory, which holds at most {MAX_BWD_LAYERS}")
+    return B, S, NL
+
+
+@functools.lru_cache(maxsize=None)
+def _max_bwd_ctas(device_index: int, NL: int, tmode: bool) -> int:
+    """CTAs of the backward kernel the card holds at once (the CUDA
+    occupancy query); raises with the CUDA error if the query fails."""
+    with torch.cuda.device(device_index):
+        n = build.library().tnerf_fused_backward_max_ctas(NL, int(tmode))
+    if n < 0:
+        build.check(-n, "tnerf_fused_backward_max_ctas")
+    return n
 
 
 fused_backward.launches = 0
