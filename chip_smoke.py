@@ -22,7 +22,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
      at 64, 256 (four chunks per ray: the saved transmittance and the dL/dT
      carry), 32 (two rays per tile) and 100 samples per ray (a ragged last
      chunk), on batches that leave the kernel's persistent grid a ragged
-     last round, and with a 2-layer MLP of random weights;
+     last round, and with a 2-layer MLP of random weights.  B1 / B1t beyond
+     that: 2 and 12 layers of random weights (forward only: the backward
+     holds at most 9), a ragged batch of 1001 rays, two launches bit for
+     bit, and at 256 samples under the config's term_eps the chunks B1
+     leaves unshaded equal to those B2 skips and to the rule
+     `unshaded_chunks` states; the forward's branch-free sine bit-equal to
+     sinf over 2.1e7 arguments;
   4. `serve`: `tnerf_torch.cli eval` of runs/suite_rehearsal/prims with its
      config as committed (render.ray_compact=true; val + test views at
      400x400), launch counts set to 0 just before and read just after; B4
@@ -235,9 +241,9 @@ def n_bytes(tensors):
     return sum(x.numel() * x.element_size() for x in tensors)
 
 
-def live_samples(args, placed=None):
-    """Samples of a fused-kernel call that survive the span and coarse
-    masks: the only ones whose MLP work the result needs."""
+def live_mask(args, placed=None):
+    """[B, S] bool: the samples of a fused-kernel call that survive the span
+    and coarse masks, the only ones whose MLP work the result needs."""
     import torch
 
     from tnerf_torch.grid.tighten import occ_bit
@@ -250,7 +256,11 @@ def live_samples(args, placed=None):
         t = te[:, None] + s[None, :] * dt[:, None]
     bit = occ_bit(o[:, None, 0] + t * d[:, None, 0], o[:, None, 1] + t * d[:, None, 1],
                   o[:, None, 2] + t * d[:, None, 2], words, *coarse)
-    return int(((mask > 0) & bit).sum())
+    return (mask > 0) & bit
+
+
+def live_samples(args, placed=None):
+    return int(live_mask(args, placed).sum())
 
 
 def device_time_by_kernel(prof):
@@ -295,6 +305,110 @@ def check_forward(name, args, placed, eps, what):
     ms = cuda_ms(lambda: fz.fused_forward(*args, term_eps=eps, **placed), 20)
     plain = cuda_ms(lambda: fz.fused_forward_plain(*args, **placed), 3)
     return err, ms, plain
+
+
+def forward_err(out_k, out_p):
+    """max |kernel - plain| per output column (r, g, b, acc, depth, T), and
+    whether it is within B1_ATOL (B1_DEPTH_ATOL for depth)."""
+    err = (out_k - out_p).abs().amax(dim=0).tolist()
+    return err, max(err[:4] + err[5:]) <= B1_ATOL and err[4] <= B1_DEPTH_ATOL
+
+
+def check_forward_cases(tag, args, placed):
+    """B1 (B1t with placed) at the training shape beyond the committed
+    model: 2 and 12 layers of random weights (the forward takes any depth;
+    the backward at most MAX_BWD_LAYERS), a ragged batch, and two launches
+    bit for bit."""
+    import torch
+
+    from tnerf_torch.render import fused as fz
+
+    B = args[8].shape[0]
+    g = torch.Generator().manual_seed(4)
+    for NL in (2, 12):
+        W = (torch.randn((NL, fz.LANES, fz.LANES), generator=g) * 0.1).to("cuda")
+        Bias = (torch.randn((NL, fz.LANES), generator=g) * 0.1).to("cuda")
+        out_k, tchk_k = fz.fused_forward(W, Bias, *args[2:], return_tchk=True, **placed)
+        out_p, tchk_p = fz.fused_forward_plain(W, Bias, *args[2:], return_tchk=True, **placed)
+        err, ok = forward_err(out_k, out_p)
+        err_t = float((tchk_k - tchk_p).abs().max())
+        log(f"{tag} NL={NL} random weights: max |kernel - plain| {err}, tchk {err_t:.2e}")
+        if not (ok and err_t <= B1_ATOL and torch.isfinite(out_k).all()):
+            raise AssertionError(f"{tag} forward with {NL} random layers disagrees: {err}, tchk "
+                                 f"{err_t}")
+    n = 1001
+    cut = tuple(a[:n] if torch.is_tensor(a) and a.dim() >= 1 and a.shape[0] == B else a
+                for a in args[2:])
+    cut_placed = {k: v[:n] for k, v in placed.items()}
+    out_k, tchk_k = fz.fused_forward(*args[:2], *cut, return_tchk=True, **cut_placed)
+    out_p, tchk_p = fz.fused_forward_plain(*args[:2], *cut, return_tchk=True, **cut_placed)
+    err, ok = forward_err(out_k, out_p)
+    err_t = float((tchk_k - tchk_p).abs().max())
+    log(f"{tag} B={n}: max |kernel - plain| {err}, tchk {err_t:.2e}")
+    if not (ok and err_t <= B1_ATOL):
+        raise AssertionError(f"{tag} forward at B={n} disagrees: {err}, tchk {err_t}")
+    runs = [fz.fused_forward(*args, term_eps=0.0, return_tchk=True, **placed) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError(f"{tag}: two forward launches are not bit-equal")
+    log(f"{tag}: two forward launches bit-equal (out and tchk)")
+
+
+def check_skip_contract(tag, args, placed, gout, eps):
+    """Under term_eps the forward leaves chunks of opaque rays unshaded and
+    the backward must skip the same ones: B1's decisions (its `shaded`
+    output) equal B2's and the rule `unshaded_chunks` states.  Returns the
+    number of (ray, 128-sample chunk) pairs left unshaded."""
+    import torch
+
+    from tnerf_torch.render import fused as fz
+
+    B, S = args[8].shape
+    shaded_f = torch.empty((B, fz.n_bwd_chunks(S)), dtype=torch.uint8, device="cuda")
+    shaded_b = torch.empty_like(shaded_f)
+    _, tchk = fz.fused_forward(*args, term_eps=eps, return_tchk=True, shaded=shaded_f, **placed)
+    fz.fused_backward(*args, tchk, gout, term_eps=eps, shaded=shaded_b, **placed)
+    torch.cuda.synchronize()
+    rule = ~fz.unshaded_chunks(live_mask(args, placed), tchk, eps)
+    if not (torch.equal(shaded_f, shaded_b) and torch.equal(shaded_f.bool(), rule)):
+        raise AssertionError(
+            f"{tag}: B1 left {int((shaded_f == 0).sum())} chunks unshaded, B2 skipped "
+            f"{int((shaded_b == 0).sum())}, the rule says {int((~rule).sum())}; they differ in "
+            f"{int((shaded_f != shaded_b).sum())} / {int((shaded_f.bool() != rule).sum())}")
+    pairs = int((shaded_f.reshape(B, -1, 2) == 0).all(dim=2).sum()) if S >= 256 else 0
+    log(f"{tag} S={S} at term_eps={eps}: B1 and B2 both left {int((shaded_f == 0).sum())} "
+        f"(ray, 64-sample chunk) pairs unshaded ({pairs} whole 128-sample chunks), as the rule "
+        f"says")
+    return pairs
+
+
+def check_sin_fast_path():
+    """The forward kernel's branch-free sine (csrc/fused.cuh:sin_fast_path)
+    bit-equal to sinf wherever sinf takes the same path (|x| < 105615):
+    2^24 arguments over the encoding's range (|x| up to 1.6e3 rad), 2^22
+    over the whole fast-path range, and zeros, subnormals and the
+    neighbours of multiples of pi / 4."""
+    import numpy as np
+    import torch
+
+    from tnerf_torch.kernels import build
+
+    rng = np.random.default_rng(5)
+    k = np.arange(-3000, 3000)
+    near = (k * np.pi / 4).astype(np.float32)
+    parts = [rng.uniform(-2e3, 2e3, 1 << 24), rng.uniform(-105614, 105614, 1 << 22),
+             near, np.nextafter(near, np.float32(np.inf)), np.nextafter(near, np.float32(-np.inf)),
+             [0.0, -0.0, 1e-40, -1e-40, 1e-30, 105614.99]]
+    x = torch.from_numpy(np.concatenate([np.asarray(p, np.float32) for p in parts])).cuda()
+    fast, exact = torch.empty_like(x), torch.empty_like(x)
+    build.check(build.library().tnerf_sin_fast_check(
+        x.data_ptr(), fast.data_ptr(), exact.data_ptr(), x.numel(),
+        torch.cuda.current_stream().cuda_stream), "tnerf_sin_fast_check")
+    torch.cuda.synchronize()
+    bad = int((fast.view(torch.int32) != exact.view(torch.int32)).sum())
+    log(f"sin_fast_path against sinf on {x.numel()} arguments: {bad} differ in any bit")
+    if bad:
+        raise AssertionError(f"the forward kernel's sine differs from sinf in {bad} arguments")
 
 
 def check_kernels():
@@ -517,11 +631,12 @@ def check_backward():
             out_k, tchk = fz.fused_forward(*args, term_eps=0.0, return_tchk=True, **placed)
             out_p, tchk_p = fz.fused_forward_plain(*args, return_tchk=True, **placed)
             torch.cuda.synchronize()
-            err_out = float((out_k - out_p).abs()[:, [0, 1, 2, 3, 5]].max())
+            errs, ok = forward_err(out_k, out_p)
+            err_out = max(errs[:4] + errs[5:])
             err_t = float((tchk - tchk_p).abs().max())
-            if not (err_out <= B1_ATOL and err_t <= B1_ATOL):
+            if not (ok and err_t <= B1_ATOL):
                 raise AssertionError(f"{tag} forward at the training shape (S={S}): out "
-                                     f"{err_out}, tchk {err_t}")
+                                     f"{errs}, tchk {err_t}")
             _, dW_k, dB_k, dW_p, dB_p = backward_rel(f"{tag} S={S}", args, tchk, gout, placed)
             log(f"{tag} S={S}: tchk [B, {tchk.shape[1]}] err {err_t:.2e}, out err {err_out:.2e}")
             if S == 256:
@@ -539,8 +654,10 @@ def check_backward():
                 if not (rel_e <= 2e-3 and err_e <= 2e-3 and torch.isfinite(dW_e).all()):
                     raise AssertionError(f"{tag}: term_eps={eps} changed the S={S} result: dW "
                                          f"{rel_e}, out {err_e}")
+                check_skip_contract(tag, args, placed, gout, eps)
             if S != cfg.sampler.samples_per_ray:
                 continue
+            check_forward_cases(tag, args, placed)
             # a batch that leaves the persistent grid's last round ragged, and (uniform
             # placement) a 2-layer MLP of random weights on the same rays
             n = B - 3 if tmode else 1001
@@ -1109,6 +1226,7 @@ def main() -> int:
 
     rows = {}
     if "kernels" in phases:
+        check_sin_fast_path()
         for r in check_kernels() + check_backward() + check_dda():
             rows[r["name"]] = r
     launches = {k: 0 for k in kernel_counters()}

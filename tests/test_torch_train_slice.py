@@ -293,3 +293,17 @@ def test_training_options_this_slice_does_not_run_are_refused():
                "parallel.table_parallel=2", "logging.profile=true"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             validate_ported(cfg.apply_overrides([ov]), for_eval=False)
+
+
+def test_fused_training_deeper_than_the_backward_kernel_holds_is_refused_at_config_time():
+    from tnerf_torch.render.fused import MAX_BWD_LAYERS
+    from tnerf_torch.train_loop import validate_ported
+
+    _, cfg = _cfgs()
+    deep = cfg.apply_overrides([f"field_.hidden_layers={MAX_BWD_LAYERS}"])
+    with pytest.raises(ValueError, match=f"field_.hidden_layers={MAX_BWD_LAYERS}: fused training"):
+        validate_ported(deep, for_eval=False)
+    validate_ported(deep)  # served: the forward kernel takes any depth
+    validate_ported(deep.apply_overrides(["render.pipeline=grid_march"]), for_eval=False)
+    validate_ported(cfg.apply_overrides([f"field_.hidden_layers={MAX_BWD_LAYERS - 1}"]),
+                    for_eval=False)

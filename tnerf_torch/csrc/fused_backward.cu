@@ -84,7 +84,6 @@
 //   (MAX_BWD_LAYERS in render/fused.py).
 
 #include <cuda.h>
-#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -258,8 +257,8 @@ fused_backward_kernel(const __grid_constant__ CUtensorMap wmap, const float* __r
                       const float* __restrict__ d, const float* __restrict__ mask,
                       const uint32_t* __restrict__ words, const float* __restrict__ tchk,
                       const float* __restrict__ gout, float* __restrict__ dW,
-                      float* __restrict__ dB, int B, int S, int n_layers, int use_coarse,
-                      Coarse cg, float term_eps) {
+                      float* __restrict__ dB, uint8_t* __restrict__ shaded, int B, int S,
+                      int n_layers, int use_coarse, Coarse cg, float term_eps) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
       reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
@@ -356,6 +355,8 @@ fused_backward_kernel(const __grid_constant__ CUtensorMap wmap, const float* __r
       }
       const bool any_sample = __syncthreads_or(any);
       const bool compute = any_sample && __syncthreads_or(live);
+      if (shaded != nullptr && tid < R && ray0 + tid < B)
+        shaded[(size_t)(ray0 + tid) * n_chunks + c] = compute ? 1 : 0;
 
       // Phase 2: encode the tile's rows into the gradient tile (layer 0's input).
       if (compute) {
@@ -531,25 +532,6 @@ fused_backward_kernel(const __grid_constant__ CUtensorMap wmap, const float* __r
   }
 }
 
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &q) != cudaSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) != cudaSuccess)
-      return nullptr;
-#endif
-    if (q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
 // CTAs of the kernel the card holds at once (negative: a CUDA error).
 template <bool kTmode>
 int max_ctas(int n_layers) {
@@ -571,28 +553,20 @@ template <bool kTmode>
 int launch_backward(const void* w, const float* bias, const float* gamma, const float* beta,
                     const tnerf::Placement<kTmode>& place, const float* o, const float* d,
                     const float* mask, const int32_t* words, const float* tchk,
-                    const float* gout, float* dW, float* dB, int B, int S, int n_layers,
-                    int n_ctas, int use_coarse, const Coarse& cg, float term_eps,
+                    const float* gout, float* dW, float* dB, uint8_t* shaded, int B, int S,
+                    int n_layers, int n_ctas, int use_coarse, const Coarse& cg, float term_eps,
                     void* stream) {
   const size_t smem = smem_bytes(n_layers);
   if (n_layers > kMaxLayers || smem > kMaxSmem || n_ctas < 1) return (int)cudaErrorInvalidValue;
-  auto encode = tensor_map_encoder();
-  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  CUtensorMap wmap;  // W [NL * 128 rows][128] bf16, 128 x 64 boxes, 128-byte swizzle
-  cuuint64_t dims[2] = {(cuuint64_t)kLanes, (cuuint64_t)n_layers * kLanes};
-  cuuint64_t strides[1] = {(cuuint64_t)kLanes * 2};
-  cuuint32_t box[2] = {64, 128};
-  cuuint32_t elem[2] = {1, 1};
-  if (encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return (int)cudaErrorInvalidValue;
+  CUtensorMap wmap;
+  const int map_err = weight_map(&wmap, w, n_layers);
+  if (map_err != (int)cudaSuccess) return map_err;
   cudaError_t err = cudaFuncSetAttribute(fused_backward_kernel<kTmode>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   fused_backward_kernel<kTmode><<<n_ctas, kThreads, smem, (cudaStream_t)stream>>>(
       wmap, bias, gamma, beta, place, o, d, mask, reinterpret_cast<const uint32_t*>(words), tchk,
-      gout, dW, dB, B, S, n_layers, use_coarse, cg, term_eps);
+      gout, dW, dB, shaded, B, S, n_layers, use_coarse, cg, term_eps);
   return (int)cudaGetLastError();
 }
 
@@ -608,13 +582,13 @@ extern "C" int tnerf_fused_backward(const void* w, const float* bias, const floa
                                     const float* beta, const float* te, const float* dt,
                                     const float* o, const float* d, const float* mask,
                                     const int32_t* words, const float* tchk, const float* gout,
-                                    float* dW, float* dB, int B, int S, int n_layers,
-                                    int n_ctas, int use_coarse, int res_c, float lo_x,
-                                    float lo_y, float lo_z, float cell_x, float cell_y,
-                                    float cell_z, float term_eps, void* stream) {
+                                    float* dW, float* dB, uint8_t* shaded, int B, int S,
+                                    int n_layers, int n_ctas, int use_coarse, int res_c,
+                                    float lo_x, float lo_y, float lo_z, float cell_x,
+                                    float cell_y, float cell_z, float term_eps, void* stream) {
   return launch_backward<false>(w, bias, gamma, beta, {te, dt, nullptr, nullptr}, o, d, mask,
-                                words, tchk, gout, dW, dB, B, S, n_layers, n_ctas, use_coarse,
-                                Coarse{res_c, lo_x, lo_y, lo_z, cell_x, cell_y, cell_z},
+                                words, tchk, gout, dW, dB, shaded, B, S, n_layers, n_ctas,
+                                use_coarse, Coarse{res_c, lo_x, lo_y, lo_z, cell_x, cell_y, cell_z},
                                 term_eps, stream);
 }
 
@@ -623,13 +597,14 @@ extern "C" int tnerf_fused_backward_tmode(const void* w, const float* bias, cons
                                           const float* beta, const float* ts, const float* dts,
                                           const float* o, const float* d, const float* mask,
                                           const int32_t* words, const float* tchk,
-                                          const float* gout, float* dW, float* dB, int B, int S,
-                                          int n_layers, int n_ctas, int use_coarse, int res_c,
+                                          const float* gout, float* dW, float* dB,
+                                          uint8_t* shaded, int B, int S, int n_layers,
+                                          int n_ctas, int use_coarse, int res_c,
                                           float lo_x, float lo_y, float lo_z, float cell_x,
                                           float cell_y, float cell_z, float term_eps,
                                           void* stream) {
   return launch_backward<true>(w, bias, gamma, beta, {nullptr, nullptr, ts, dts}, o, d, mask,
-                               words, tchk, gout, dW, dB, B, S, n_layers, n_ctas, use_coarse,
-                               Coarse{res_c, lo_x, lo_y, lo_z, cell_x, cell_y, cell_z},
+                               words, tchk, gout, dW, dB, shaded, B, S, n_layers, n_ctas,
+                               use_coarse, Coarse{res_c, lo_x, lo_y, lo_z, cell_x, cell_y, cell_z},
                                term_eps, stream);
 }

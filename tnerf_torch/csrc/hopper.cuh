@@ -1,6 +1,6 @@
-// Hopper (sm_90a) building blocks of the fused backward kernel: wgmma
-// products from 128-byte-swizzled shared memory, TMA tile loads and
-// mbarriers.
+// Hopper (sm_90a) building blocks of the fused kernels: wgmma products
+// from 128-byte-swizzled shared memory (and, in the forward, with A from
+// registers), TMA tile loads and mbarriers, and the weights' tensor map.
 //
 // Tile layout.  Every bf16 operand tile in shared memory is a set of
 // 8 KB blocks of 64 rows x 64 columns (128-byte rows), swizzled as TMA's
@@ -18,6 +18,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,11 +58,12 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Registers of a wgmma m64n64 f32 accumulator are not reordered across
+// Registers of a wgmma f32 accumulator are not reordered across
 // these: the compiler must see them written by the asynchronous product.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (+)= A[64 x 16] B[16 x 64], bf16 operands, f32 accumulator.  kTA / kTB:
@@ -84,6 +86,56 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+}
+
+// The same product with A [64 x 16] from registers: a0..a3 are the bf16
+// pairs of an m16n8k16 A fragment of this warp's 16 rows (a0: row g, columns
+// 2 tq, 2 tq + 1; a1: row g + 8; a2 / a3: columns + 8; g = lane / 4,
+// tq = lane % 4), which is also how an m64nN accumulator's columns 16 k ..
+// 16 k + 15 lie in its registers 8 k .. 8 k + 7.
+template <int kTB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                                   uint32_t a2, uint32_t a3, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d), "n"(kTB));
+}
+
+// d (+)= A[64 x 16] B[16 x 8], A from registers as above.
+template <int kTB>
+__device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4], uint32_t a0, uint32_t a1,
+                                                  uint32_t a2, uint32_t a3, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d), "n"(kTB));
+}
+
+// Registers of a register-A operand are held until the product that reads
+// them has retired, as the accumulator's are.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 // ---- barriers --------------------------------------------------------------
@@ -129,6 +181,22 @@ __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// OR of `v` over the first `count` threads of the block, at barrier `id`.
+__device__ __forceinline__ bool bar_or(int id, int count, bool v) {
+  uint32_t r;
+  asm volatile(
+      "{\n"
+      ".reg .pred p, q;\n"
+      "setp.ne.u32 p, %1, 0;\n"
+      "bar.red.or.pred q, %2, %3, p;\n"
+      "selp.u32 %0, 1, 0, q;\n"
+      "}\n"
+      : "=r"(r)
+      : "r"((uint32_t)v), "r"(id), "r"(count)
+      : "memory");
+  return r != 0;
+}
+
 // ---- TMA -----------------------------------------------------------------
 
 // One box of a 2-d tensor map (c0 = column, c1 = row) into `dst`,
@@ -142,9 +210,59 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
       : "memory");
 }
 
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// memory into `dst`, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // The tensor map's descriptor into the cache ahead of its first load.
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// ---- host side -------------------------------------------------------------
+
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) != cudaSuccess)
+      return nullptr;
+#endif
+    if (q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// The tensor map of the bf16 weights W [n_layers * 128 rows][128] (in-major,
+// row = input feature), read as boxes of 128 rows x 64 columns with the
+// 128-byte swizzle: a layer's tile is two boxes, columns 0..63 and 64..127.
+// Returns a cudaError_t.
+inline int weight_map(CUtensorMap* map, const void* w, int n_layers) {
+  auto encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  cuuint64_t dims[2] = {128, (cuuint64_t)n_layers * 128};
+  cuuint64_t strides[1] = {128 * 2};
+  cuuint32_t box[2] = {64, 128};
+  cuuint32_t elem[2] = {1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaSuccess;
 }
 
 }  // namespace hopper

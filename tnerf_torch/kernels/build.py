@@ -32,12 +32,16 @@ PROTOTYPES = {
     # o, d, te, tx, words, t0, t1, mask, n, n_samples, res_c, lo xyz, cell xyz, probes,
     # pad_diag, stream
     "tnerf_tighten_sample_mask": [P] * 8 + [I, I, I] + [F] * 6 + [I, F, P],
-    # wt, bias, gamma, beta, te, dt, o, d, mask, words, out, tchk (may be null), B, S,
-    # n_layers, use_coarse, res_c, lo xyz, cell xyz, term_eps, stream
-    "tnerf_fused_forward": [P] * 12 + [I, I, I, I, I] + [F] * 7 + [P],
-    # w, bias, gamma, beta, te, dt, o, d, mask, words, tchk, gout, dW, dB, B, S, n_layers,
-    # n_ctas, use_coarse, res_c, lo xyz, cell xyz, term_eps, stream
-    "tnerf_fused_backward": [P] * 14 + [I, I, I, I, I, I] + [F] * 7 + [P],
+    # w, bias, gamma, beta, te, dt, o, d, mask, words, out, tchk, shaded (both may be null),
+    # B, S, n_layers, n_ctas, use_coarse, res_c, lo xyz, cell xyz, term_eps, stream
+    "tnerf_fused_forward": [P] * 13 + [I, I, I, I, I, I] + [F] * 7 + [P],
+    # tmode -> CTAs the card holds at once (negative: a cudaError_t)
+    "tnerf_fused_forward_max_ctas": [I],
+    # x, fast, exact, n, stream: the forward's branch-free sine against sinf
+    "tnerf_sin_fast_check": [P, P, P, I, P],
+    # w, bias, gamma, beta, te, dt, o, d, mask, words, tchk, gout, dW, dB, shaded (may be
+    # null), B, S, n_layers, n_ctas, use_coarse, res_c, lo xyz, cell xyz, term_eps, stream
+    "tnerf_fused_backward": [P] * 15 + [I, I, I, I, I, I] + [F] * 7 + [P],
     # n_layers, tmode -> CTAs the card holds at once (negative: a cudaError_t)
     "tnerf_fused_backward_max_ctas": [I, I],
     # o, d_safe, inv_d, te, tx, words (may be null), t0, cell, n, steps, res, cfactor, use_occ,

@@ -134,9 +134,16 @@ def pack_occupancy_words(occupancy, res: int, res_c: int):
     return pack_words_rows(make_coarse_occupancy(occupancy.reshape(res, res, res), res // res_c))
 
 
-# Rows of the backward kernel's tile (`kBwdRows` in csrc/fused.cuh): the
+# Rows of the fused kernels' tile (`kBwdRows` in csrc/fused.cuh): the
 # forward saves each ray's transmittance at every BWD_CHUNK-th sample.
 BWD_CHUNK = 64
+# Samples per ray over which the kernels' skip rule reads the entry
+# transmittance (`kFwdRows` in csrc/fused_forward.cu and fused_backward.cu).
+SKIP_CHUNK = 128
+# Warpgroups of the forward kernel, and the tiles each holds at once
+# (`kGroups`, `kPair` in csrc/fused_forward.cu).
+FWD_GROUPS = 2
+FWD_TILES_PER_GROUP = 2
 # Layers the backward kernel can hold: 227 KB of shared memory less 94 KB of
 # fixed buffers (two-slot weight ring, gradient tile, biases, coarse words,
 # per-row scalars), over 16 KB per stored layer input of a tile
@@ -155,13 +162,22 @@ def bwd_tiles(B: int, S: int) -> tuple[int, int]:
     return -(-B // R), R
 
 
+def _persistent_grid(n_tiles: int, max_active: int, what: str) -> int:
+    if max_active < 1:
+        raise ValueError(f"{what}: the card holds no CTA of the kernel")
+    return max(1, min(max_active, n_tiles))
+
+
 def bwd_grid(n_tiles: int, max_active: int) -> int:
     """CTAs of the backward kernel's persistent grid: as many as the card
     holds at once (`max_active`, the occupancy query's answer: one per SM),
     and no more than there are tiles."""
-    if max_active < 1:
-        raise ValueError("fused_backward: the card holds no CTA of the backward kernel")
-    return max(1, min(max_active, n_tiles))
+    return _persistent_grid(n_tiles, max_active, "fused_backward")
+
+
+def fwd_grid(n_tiles: int, max_active: int) -> int:
+    """CTAs of the forward kernel's persistent grid, sized as `bwd_grid`'s."""
+    return _persistent_grid(n_tiles, max_active, "fused_forward")
 
 
 def bwd_schedule(B: int, S: int, n_ctas: int) -> list[list[tuple[int, int]]]:
@@ -177,6 +193,53 @@ def bwd_schedule(B: int, S: int, n_ctas: int) -> list[list[tuple[int, int]]]:
             rays = range(tile * R, min(B, (tile + 1) * R))
             plan[k] += [(ray, c) for c in reversed(range(n_chunks)) for ray in rays]
     return plan
+
+
+def fwd_schedule(B: int, S: int, n_ctas: int) -> list[list[list[tuple[int, int]]]]:
+    """What the forward kernel's persistent grid does, in order: for CTA k
+    and warpgroup g, the (ray, chunk) pairs it shades.  CTA k takes tiles
+    k, k + n_ctas, ... (the tiles of `bwd_tiles`) in rounds of FWD_GROUPS x
+    FWD_TILES_PER_GROUP, its i-th tile going to warpgroup (i %
+    (FWD_GROUPS FWD_TILES_PER_GROUP)) // FWD_TILES_PER_GROUP; a warpgroup
+    walks its tiles' chunks first to last, the tiles of a round in step,
+    carrying their rays' transmittance."""
+    n_tiles, R = bwd_tiles(B, S)
+    n_chunks = n_bwd_chunks(S)
+    per_round = FWD_GROUPS * FWD_TILES_PER_GROUP
+    plan = [[[] for _ in range(FWD_GROUPS)] for _ in range(n_ctas)]
+    for k in range(n_ctas):
+        mine = list(range(k, n_tiles, n_ctas))
+        for r0 in range(0, len(mine), per_round):
+            for g in range(FWD_GROUPS):
+                tiles = mine[r0 + g * FWD_TILES_PER_GROUP:r0 + (g + 1) * FWD_TILES_PER_GROUP]
+                rays = [ray for t in tiles for ray in range(t * R, min(B, (t + 1) * R))]
+                plan[k][g] += [(ray, c) for c in range(n_chunks) for ray in rays]
+    return plan
+
+
+def unshaded_chunks(live, tchk, term_eps: float):
+    """[B, n_bwd_chunks(S)] bool: the (ray, chunk) pairs the forward kernel
+    leaves unshaded, in its own terms.  live [B, S] bool: the samples that
+    survive the span and coarse masks; tchk: the forward's entry
+    transmittance per chunk.  Walking a tile's chunks first to last, the
+    kernel keeps the transmittance at which each ray entered the current
+    SKIP_CHUNK-sample chunk, and leaves a chunk unshaded when none of the
+    tile's samples in it is live, or when every ray of the tile had entered
+    at or below term_eps.  Every ray of a tile shares its tile's decision."""
+    B, S = live.shape
+    n_tiles, R = bwd_tiles(B, S)
+    ch, fch = min(S, BWD_CHUNK), min(S, SKIP_CHUNK)
+    pad = n_tiles * R - B
+    out = torch.zeros((B, n_bwd_chunks(S)), dtype=torch.bool, device=live.device)
+    t_entry = None
+    for c in range(n_bwd_chunks(S)):
+        if (c * ch) % fch == 0:
+            t_entry = tchk[:, c]
+        any_live = torch.nn.functional.pad(live[:, c * ch:(c + 1) * ch].any(dim=1), (0, pad))
+        above = torch.nn.functional.pad(t_entry > term_eps, (0, pad))
+        shade = any_live.reshape(n_tiles, R).any(dim=1) & above.reshape(n_tiles, R).any(dim=1)
+        out[:, c] = ~shade.repeat_interleave(R)[:B]
+    return out
 
 
 def _chunk_forward(Wb, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, s0: int, s1: int,
@@ -295,7 +358,9 @@ def _check_fused_inputs(what, W, Bias, gamma, beta, te, dt, o, d, mask, words, t
     B, S = mask.shape
     NL = W.shape[0]
     f32 = torch.float32
-    build.check_tensor("W", W, (NL, LANES, LANES), f32, dev)
+    # f32, or the bf16 copy the kernels read (rounded once per train step)
+    build.check_tensor("W", W, (NL, LANES, LANES),
+                       torch.bfloat16 if W.dtype == torch.bfloat16 else f32, dev)
     build.check_tensor("Bias", Bias, (NL, LANES), f32, dev)
     for name, t in (("gamma", gamma), ("beta", beta)):
         build.check_tensor(name, t, (B, LANES), f32, dev)
@@ -323,6 +388,20 @@ def _coarse_args(coarse):
             fl(cell_c[0]), fl(cell_c[1]), fl(cell_c[2]))
 
 
+def _weights_bf16(W):
+    """The bf16 weights both kernels read, in-major [NL, k, n] as W: W
+    itself where the caller rounded it already."""
+    return W if W.dtype == torch.bfloat16 else W.to(torch.bfloat16).contiguous()
+
+
+def _shaded_arg(shaded, B: int, S: int, dev):
+    """The `shaded` output's pointer (null if not wanted), after checking it."""
+    if shaded is None:
+        return None
+    build.check_tensor("shaded", shaded, (B, n_bwd_chunks(S)), torch.uint8, dev)
+    return shaded.data_ptr()
+
+
 def _placement_ptrs(te, dt, ts, dts):
     """The two placement pointers of a launch: (te, dt) per ray, or (ts,
     dts) per sample, which the per-sample instantiation reads instead."""
@@ -330,12 +409,12 @@ def _placement_ptrs(te, dt, ts, dts):
 
 
 def fused_forward(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, term_eps: float = 0.0,
-                  return_tchk: bool = False, ts=None, dts=None):
+                  return_tchk: bool = False, ts=None, dts=None, shaded=None):
     """Encode + MLP + composite every ray's S samples.
 
-    W [NL, 128, 128] f32 (cast to bf16 here), Bias [NL, 128] f32, gamma /
-    beta [B, 128] f32, te / dt [B] f32, o / d [B, 3] f32, mask [B, S] f32,
-    words int32 [1024], coarse = (res_c, lo, cell_c) from
+    W [NL, 128, 128] f32 (rounded to bf16 here) or already bf16, Bias [NL,
+    128] f32, gamma / beta [B, 128] f32, te / dt [B] f32, o / d [B, 3] f32,
+    mask [B, S] f32, words int32 [1024], coarse = (res_c, lo, cell_c) from
     `coarse_constants` or None (no occupancy test).  Uniform placement:
     sample s sits at te + (s + 0.5) dt with step dt, (gamma, beta) folded
     at (te, dt).  Per-sample placement (ts, dts [B, S] f32 given): depth
@@ -344,41 +423,58 @@ def fused_forward(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, term_
     background), acc, depth = sum w t, T_final; with return_tchk also tchk
     [B, n_bwd_chunks(S)] f32, the transmittance at which each ray enters
     every BWD_CHUNK-th sample (what `fused_backward` restarts its chunks
-    from).
+    from).  `shaded`, a uint8 [B, n_bwd_chunks(S)] tensor, receives 1
+    where a ray's chunk was shaded and 0 where the skip rule dropped it.
 
-    CPU tensors take the plain version (term_eps does not apply there);
-    CUDA tensors launch the B1 kernel (its per-sample instantiation with
-    ts / dts), which stops shading a tile of rays once all of them are
-    below term_eps."""
+    CPU tensors take the plain version (term_eps does not apply there: it
+    shades every chunk); CUDA tensors launch the B1 kernel (its per-sample
+    instantiation with ts / dts) on a persistent grid (`fwd_schedule`),
+    which leaves a tile's chunk unshaded by the rule of `unshaded_chunks`."""
+    B, S = mask.shape
     if gamma.device.type == "cpu":
+        if shaded is not None:
+            shaded.fill_(1)
         return fused_forward_plain(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse,
                                    return_tchk=return_tchk, ts=ts, dts=dts)
     if gamma.device.type != "cuda":
         raise ValueError(f"fused_forward: unsupported device {gamma.device}")
     _check_fused_inputs("fused_forward", W, Bias, gamma, beta, te, dt, o, d, mask, words, ts, dts)
     dev = gamma.device
-    B, S = mask.shape
+    shaded_ptr = _shaded_arg(shaded, B, S, dev)
     out = torch.empty((B, 6), dtype=torch.float32, device=dev)
     tchk = torch.empty((B, n_bwd_chunks(S)), dtype=torch.float32, device=dev) \
         if return_tchk else None
     if B > 0:
-        Wt = W.to(torch.bfloat16).transpose(1, 2).contiguous()  # out-major [NL, n, k]
+        Wk = _weights_bf16(W)
         lib = build.library()
-        launch = lib.tnerf_fused_forward if ts is None else lib.tnerf_fused_forward_tmode
+        tmode = ts is not None
+        n_ctas = fwd_grid(bwd_tiles(B, S)[0], _max_fwd_ctas(dev.index, tmode))
+        launch = lib.tnerf_fused_forward_tmode if tmode else lib.tnerf_fused_forward
         with torch.cuda.device(dev):
             err = launch(
-                Wt.data_ptr(), Bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                Wk.data_ptr(), Bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                 *_placement_ptrs(te, dt, ts, dts), o.data_ptr(), d.data_ptr(), mask.data_ptr(),
                 words.data_ptr(), out.data_ptr(), tchk.data_ptr() if return_tchk else None,
-                B, S, W.shape[0], *_coarse_args(coarse), float(np.float32(term_eps)),
-                torch.cuda.current_stream(dev).cuda_stream,
+                shaded_ptr, B, S, W.shape[0], n_ctas, *_coarse_args(coarse),
+                float(np.float32(term_eps)), torch.cuda.current_stream(dev).cuda_stream,
             )
-        build.check(err, "tnerf_fused_forward" if ts is None else "tnerf_fused_forward_tmode")
-        if ts is None:
-            fused_forward.launches += 1
-        else:
+        build.check(err, "tnerf_fused_forward_tmode" if tmode else "tnerf_fused_forward")
+        if tmode:
             fused_forward.launches_tmode += 1
+        else:
+            fused_forward.launches += 1
     return (out, tchk) if return_tchk else out
+
+
+@functools.lru_cache(maxsize=None)
+def _max_fwd_ctas(device_index: int, tmode: bool) -> int:
+    """CTAs of the forward kernel the card holds at once (the CUDA
+    occupancy query; its shared memory does not depend on the depth)."""
+    with torch.cuda.device(device_index):
+        n = build.library().tnerf_fused_forward_max_ctas(int(tmode))
+    if n < 0:
+        build.check(-n, "tnerf_fused_forward_max_ctas")
+    return n
 
 
 fused_forward.launches = 0        # of the uniform-placement instantiation
@@ -386,16 +482,19 @@ fused_forward.launches_tmode = 0  # of the per-sample instantiation
 
 
 def fused_backward(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, tchk, gout,
-                   term_eps: float = 0.0, ts=None, dts=None):
+                   term_eps: float = 0.0, ts=None, dts=None, shaded=None):
     """(dL/dW [NL, 128, 128], dL/dBias [NL, 128]) f32 of `fused_forward`'s
     output under the cotangent gout [B, 6], from the forward's own inputs
-    (ts / dts included) and its tchk.  CPU tensors take the plain version;
-    CUDA tensors launch the B2 kernel, which skips what the forward kernel
-    skipped under the same term_eps.  The kernel runs a persistent grid,
-    one CTA per SM (`bwd_schedule`), and adds each tile's partial gradient
-    into the result with atomic adds, which land in no fixed order: the
-    result is not bit-reproducible from run to run."""
+    (W in f32 or bf16, ts / dts included) and its tchk.  CPU tensors take
+    the plain version; CUDA tensors launch the B2 kernel, which skips what
+    the forward kernel skipped under the same term_eps (`shaded`, as in
+    `fused_forward`, receives its decisions).  The kernel runs a persistent
+    grid, one CTA per SM (`bwd_schedule`), and adds each tile's partial
+    gradient into the result with atomic adds, which land in no fixed
+    order: the result is not bit-reproducible from run to run."""
     if gamma.device.type == "cpu":
+        if shaded is not None:
+            shaded.fill_(1)
         return fused_backward_plain(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse,
                                     tchk, gout, ts=ts, dts=dts)
     if gamma.device.type != "cuda":
@@ -403,11 +502,12 @@ def fused_backward(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, tchk
     B, S, NL = _check_backward_inputs(W, Bias, gamma, beta, te, dt, o, d, mask, words, tchk, gout,
                                       ts, dts)
     dev = gamma.device
+    shaded_ptr = _shaded_arg(shaded, B, S, dev)
     dW = torch.zeros((NL, LANES, LANES), dtype=torch.float32, device=dev)
     dB = torch.zeros((NL, LANES), dtype=torch.float32, device=dev)
     if B == 0:
         return dW, dB
-    Wk = W.to(torch.bfloat16).contiguous()  # in-major [NL, k, n], the one orientation
+    Wk = _weights_bf16(W)
     lib = build.library()
     tmode = ts is not None
     n_ctas = bwd_grid(bwd_tiles(B, S)[0], _max_bwd_ctas(dev.index, NL, tmode))
@@ -417,7 +517,7 @@ def fused_backward(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, tchk
             Wk.data_ptr(), Bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
             *_placement_ptrs(te, dt, ts, dts), o.data_ptr(), d.data_ptr(), mask.data_ptr(),
             words.data_ptr(), tchk.data_ptr(), gout.data_ptr(), dW.data_ptr(), dB.data_ptr(),
-            B, S, NL, n_ctas, *_coarse_args(coarse), float(np.float32(term_eps)),
+            shaded_ptr, B, S, NL, n_ctas, *_coarse_args(coarse), float(np.float32(term_eps)),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(err, "tnerf_fused_backward_tmode" if tmode else "tnerf_fused_backward")
@@ -466,9 +566,11 @@ class _FusedRender(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, term_eps, ts, dts):
-        out, tchk = fused_forward(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse,
+        # one bf16 copy of the weights serves both kernels
+        Wk = W.to(torch.bfloat16).contiguous()
+        out, tchk = fused_forward(Wk, Bias, gamma, beta, te, dt, o, d, mask, words, coarse,
                                   term_eps=term_eps, return_tchk=True, ts=ts, dts=dts)
-        ctx.save_for_backward(W, Bias, gamma, beta, te, dt, o, d, mask, words, tchk, ts, dts)
+        ctx.save_for_backward(Wk, Bias, gamma, beta, te, dt, o, d, mask, words, tchk, ts, dts)
         ctx.coarse, ctx.term_eps = coarse, term_eps
         return out
 

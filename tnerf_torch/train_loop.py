@@ -28,7 +28,7 @@ from tnerf_torch.grid.occupancy import (
     renderer_payload,
     update_occupancy,
 )
-from tnerf_torch.render.fused import make_fused_renderer
+from tnerf_torch.render.fused import MAX_BWD_LAYERS, make_fused_renderer
 from tnerf_torch.render.grid_renderer import cdf_occupied_sample_fraction, make_grid_renderer
 from tnerf_torch.render.renderer import make_uniform_renderer
 from tnerf_torch.train import PixelSampler, init_train_state, make_train_step
@@ -107,6 +107,13 @@ def validate_ported(cfg: Config, for_eval: bool = True) -> None:
     for what, hit in refused.items():
         if hit:
             raise _not_ported(what)
+    if p == "fused" and cfg.field_.hidden_layers + 1 > MAX_BWD_LAYERS:
+        raise ValueError(
+            f"field_.hidden_layers={cfg.field_.hidden_layers}: fused training runs at most "
+            f"{MAX_BWD_LAYERS - 1} hidden layers (the backward kernel keeps every layer's input "
+            f"of a tile in shared memory, which holds {MAX_BWD_LAYERS} layers); a deeper model "
+            "is served on the fused path and trains on grid_march or grid_intervals"
+        )
     if t.shuffle not in ("random", "epoch"):
         raise ValueError(f"train.shuffle must be random or epoch, got {t.shuffle!r}")
     if t.distortion_weight > 0.0:
