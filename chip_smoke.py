@@ -28,7 +28,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
      bit, and at 256 samples under the config's term_eps the chunks B1
      leaves unshaded equal to those B2 skips and to the rule
      `unshaded_chunks` states; the forward's branch-free sine bit-equal to
-     sinf over 2.1e7 arguments;
+     sinf over 2.1e7 arguments.  B3 and B4 beyond that (check_probe_kernels):
+     bit-equal at the training batch of both uses, at res_c = 1, 7, 16, 32
+     with model, random, empty and full bitfields at 64, 100 and 256
+     probes, with rays whose te == tx, at B = 1, 1001 and 66,000, at every
+     lane group the kernels build, two launches bit for bit, and the
+     probe kernels' cell ids by reciprocal bit-equal to the division over
+     2.1e7 arguments.  Every kernel's `ms` is its device time
+     (torch.profiler, at least 50 launches), `wrapper_ms` the host clock
+     per call of its wrapper; B3 / B4 are timed at the training batch, the
+     serving chunk, the march eval and 66,000 rays, with the share of
+     probes their scan evaluates (probe_kernels.json);
   4. `serve`: `tnerf_torch.cli eval` of runs/suite_rehearsal/prims with its
      config as committed (render.ray_compact=true; val + test views at
      400x400), launch counts set to 0 just before and read just after; B4
@@ -180,6 +190,44 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, kernel, reps=50):
+    """Mean device time (ms) of the kernels whose name holds `kernel`, over
+    at least `reps` of their launches, from windows of `reps` calls of fn
+    under torch.profiler.  The profiler may miss launches of a window (at
+    its start); windows are added until it has seen `reps`, at most six."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    total = count = 0
+    for _ in range(6):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and kernel in e.key]
+        total += sum(e.self_device_time_total for e in evs)
+        count += sum(e.count for e in evs)
+        if count >= reps:
+            return total / count / 1e3
+    raise AssertionError(f"the profiler saw {count} launches of *{kernel}* in {6 * reps} calls")
+
+
+def wrapper_ms(fn, reps=50):
+    """Host clock per call of fn over `reps` calls, synchronised once at the
+    end: what a caller pays for the wrapper and the launch."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
 class _Tee(io.StringIO):
     """Keeps what is written and passes it on."""
 
@@ -230,11 +278,25 @@ def counted(fn):
     return result, {k: getattr(wrapper, attr) for k, (wrapper, attr) in counters.items()}
 
 
-def bound_row(name, source, replaces, err, ms, plain_ms, n_bytes, ops, peak_ops):
+def bound_row(name, source, replaces, err, ms, plain_ms, n_bytes, ops, peak_ops, wrapper=None):
+    """A row of the kernels line: ms is the kernel's device time, wrapper
+    the host clock per call of its wrapper."""
     by_bytes, by_ops = n_bytes / PEAK_BYTES, ops / peak_ops
     return dict(name=name, route="cuda", source=source, replaces=replaces, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops) * 1e3,
+                wrapper_ms=wrapper, plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops) * 1e3,
                 bound_by="bytes" if by_bytes > by_ops else "operations", library_ms=None)
+
+
+def probe_bound(n_rays, live, probes, n):
+    """(bytes, f32 operations) of B3 (n = 0) or B4 (n midpoints) on n_rays
+    rays, live of them with a span: the reference's work, every probe
+    evaluated, whatever the kernel skips.  Bytes: o, d, te, tx read, t0,
+    t1 (and the mask) written, the bitfield read.  Operations per probe:
+    depth 4, position 6, cell ids 9, min / max 2; per midpoint: depth 3,
+    position 6, cell ids 9, and 1."""
+    from tnerf_torch.grid.tighten import WORDS
+
+    return n_rays * (24 + 8 + 8 + n) + 4 * WORDS, live * (probes * 21 + n * 19)
 
 
 def n_bytes(tensors):
@@ -287,7 +349,8 @@ def serving_chunk(cfg, dev):
 
 def check_forward(name, args, placed, eps, what):
     """B1 (or, with placed, B1t) against its plain version on one call's
-    inputs; returns (max |err| per column, kernel ms, plain ms)."""
+    inputs; returns (max |err| per column, kernel device ms, plain ms,
+    wrapper ms)."""
     import torch
 
     from tnerf_torch.render import fused as fz
@@ -302,9 +365,10 @@ def check_forward(name, args, placed, eps, what):
     if max(err[:4] + err[5:]) > B1_ATOL or err[4] > B1_DEPTH_ATOL:
         raise AssertionError(f"{name} fused forward ({what}) disagrees with its plain version: "
                              f"{err}")
-    ms = cuda_ms(lambda: fz.fused_forward(*args, term_eps=eps, **placed), 20)
+    run = lambda: fz.fused_forward(*args, term_eps=eps, **placed)
+    ms, wrapper = device_ms(run, "fused_forward_kernel"), wrapper_ms(run)
     plain = cuda_ms(lambda: fz.fused_forward_plain(*args, **placed), 3)
-    return err, ms, plain
+    return err, ms, plain, wrapper
 
 
 def forward_err(out_k, out_p):
@@ -452,12 +516,12 @@ def check_kernels():
             raise AssertionError(f"B3 tighten ({name} bitfield): {bad} of {B} rays differ")
         log(f"B3 tighten bit-equal on {B} rays ({name} bitfield)")
     live = int((tx > te).sum())
-    b3_ms = cuda_ms(lambda: tg.tighten_range(o, d, te, tx, words, res_c, cfg.grid), 50)
+    b3 = probe_shape("serving chunk", o, d, te, tx, words, res_c, cfg.grid, 256, 0)
+    b3_ms = b3["ms"]
     b3_plain = cuda_ms(lambda: tg.tighten_range_plain(o, d, te, tx, words, res_c, cfg.grid), 3)
-    probe_ops = 256 * 21  # per probe: depth 4, position 6, cell ids 9, min/max 2
     rows.append(bound_row("tighten_range", "tnerf_torch/csrc/tighten.cu",
                           "tnerf/grid/pallas_dda.py:333", 0.0, b3_ms, b3_plain,
-                          B * (24 + 8 + 8) + 4 * tg.WORDS, live * probe_ops, PEAK_F32))
+                          *probe_bound(B, live, 256, 0), PEAK_F32, b3["wrapper_ms"]))
 
     # B4 tighten + sample mask: bit-equal t0, t1 and mask for both of its
     # uses (ray compaction: n = S on the kernel's pooling; CDF bins: n =
@@ -481,28 +545,26 @@ def check_kernels():
                 f"{float(k[2].any(dim=1).float().mean()):.3f} of rays kept, "
                 f"{float(k[2].float().mean()):.3f} of midpoints occupied")
         wd = tg.pack_words_rows(model)
-        b4_ms = cuda_ms(lambda: tg.tighten_sample_mask(o, d, te, tx, model, n, cfg.grid,
-                                                       words=wd), 50)
+        b4 = probe_shape(f"serving chunk, {use}", o, d, te, tx, wd, pool, cfg.grid, 256, n, model)
+        b4_ms, b4_wrap = b4["ms"], b4["wrapper_ms"]
         b4_plain = cuda_ms(lambda: tg.tighten_sample_mask_plain(o, d, te, tx, model, n, cfg.grid,
                                                                 words=wd), 3)
-        log(f"B4 ({use}): {b4_ms:.4f} ms (plain {b4_plain:.1f})")
-    # the row is the CDF use (timed last); per midpoint: depth 3, position 6, cell ids 9, and 1
+    # the row is the CDF use (timed last)
     rows.append(bound_row("tighten_sample_mask", "tnerf_torch/csrc/tighten.cu",
                           "tnerf/grid/pallas_dda.py:400", 0.0, b4_ms, b4_plain,
-                          B * (24 + 8 + 8 + P) + 4 * tg.WORDS, live * (probe_ops + P * 19),
-                          PEAK_F32))
+                          *probe_bound(B, live, 256, P), PEAK_F32, b4_wrap))
 
     # B1 fused forward on exactly the renderer's kernel inputs.
     eps = cfg.render.transmittance_threshold
     widths = [params[f"trunk.w.{l}"].shape for l in range(len(params) // 2)]
     macs = sum(a * b for a, b in widths)
     args = build_renderer(cfg).kernel_inputs(params, flat, occ.bitfield)
-    err, b1_ms, b1_plain = check_forward("B1", args, {}, eps, "uniform placement")
+    err, b1_ms, b1_plain, b1_wrap = check_forward("B1", args, {}, eps, "uniform placement")
     # work this chunk needs: the MLP at its true widths for every live sample
     n_live = live_samples(args)
     rows.append(bound_row("fused_forward", "tnerf_torch/csrc/fused_forward.cu",
                           "tnerf/render/pallas_fused2.py:350", max(err), b1_ms, b1_plain,
-                          n_bytes(args[:10]) + B * 6 * 4, n_live * 2 * macs, PEAK_BF16))
+                          n_bytes(args[:10]) + B * 6 * 4, n_live * 2 * macs, PEAK_BF16, b1_wrap))
 
     # B1t fed the uniform samples as per-sample placement agrees with B1.
     _, _, _, _, te_u, dt_u, o_u, d_u, mask_u, _, _ = args
@@ -527,12 +589,13 @@ def check_kernels():
     cdf = cfg.apply_overrides(["sampler.placement=occupancy_cdf"])
     *args_t, placed = build_renderer(cdf).kernel_inputs(params, flat, occ.bitfield)
     args_t = tuple(args_t)
-    err_t, b1t_ms, b1t_plain = check_forward("B1t", args_t, placed, eps, "CDF placement")
+    err_t, b1t_ms, b1t_plain, b1t_wrap = check_forward("B1t", args_t, placed, eps,
+                                                       "CDF placement")
     n_live_t = live_samples(args_t, placed)
     rows.append(bound_row("fused_forward_tmode", "tnerf_torch/csrc/fused_forward.cu",
                           "tnerf/render/pallas_fused2.py:350", max(err_t), b1t_ms, b1t_plain,
                           n_bytes(args_t[:4] + args_t[6:10] + tuple(placed.values())) + B * 6 * 4,
-                          n_live_t * 2 * macs, PEAK_BF16))
+                          n_live_t * 2 * macs, PEAK_BF16, b1t_wrap))
     # The same placement computed on the CPU: the cumulative sum adds in
     # another order there, so a stratum centre that sits on a CDF edge may
     # fall into the neighbouring bin (its position is continuous across the
@@ -586,6 +649,213 @@ def backward_rel(tag, args, tchk, gout, placed):
     if max(rel.values()) > B2_RTOL:
         raise AssertionError(f"{tag} backward disagrees with its plain version: {rel}")
     return rel, dW_k, dB_k, dW_p, dB_p
+
+
+PROBE_TIMES = []
+
+
+def probe_shape(what, o, d, te, tx, words, res_c, grid, probes, n, occ=None):
+    """B3 (n = 0) or B4 (n midpoints of occ, whose bitfield is `words`) on
+    these rays: device and wrapper time, the reference's bound, and the
+    share of probes the kernels' scan evaluates (`tighten_range_scan` at
+    the wrapper's lane group); printed and kept in PROBE_TIMES."""
+    from tnerf_torch.grid import tighten as tg
+
+    B = o.shape[0]
+    if n:
+        run = lambda: tg.tighten_sample_mask(o, d, te, tx, occ, n, grid, probes, words=words)
+        name, kernel = "tighten_sample_mask", "tighten_mask_kernel"
+    else:
+        run = lambda: tg.tighten_range(o, d, te, tx, words, res_c, grid, probes)
+        name, kernel = "tighten_range", "tighten_kernel"
+    ms, wrap = device_ms(run, kernel), wrapper_ms(run)
+    group = tg._launch_group(B, probes)
+    _, _, evaluated = tg.tighten_range_scan(o, d, te, tx, words, res_c, grid, probes, group)
+    share = float(evaluated.sum()) / (B * probes)
+    nb, ops = probe_bound(B, int((tx > te).sum()), probes, n)
+    bound = max(nb / PEAK_BYTES, ops / PEAK_F32) * 1e3
+    rec = dict(shape=what, kernel=name, rays=B, probes=probes, n=n, res_c=res_c, group=group,
+               ms=ms, wrapper_ms=wrap, bound_ms=bound, evaluated_share=share)
+    PROBE_TIMES.append(rec)
+    print(f"{name} at the {what}: {B} rays, {probes} probes, n = {n}, {res_c}^3, G = {group}: "
+          f"{ms:.5f} ms device, {wrap:.4f} ms wrapper, bound {bound:.5f}; the scan evaluates "
+          f"{share:.4f} of the probes", flush=True)
+    return rec
+
+
+def probe_rays(o, d, grid, near):
+    """(o, d, te, tx) as the renderers give B3 / B4 their spans."""
+    import torch
+
+    from tnerf_torch.grid.traversal import ray_aabb
+
+    o, d = o.float().contiguous(), d.float().contiguous()
+    te, tx = ray_aabb(o, d, grid.aabb_min, grid.aabb_max)
+    te = torch.clamp_min(te, near)
+    return o, d, te.contiguous(), torch.maximum(tx, te).contiguous()
+
+
+def check_cell_ids():
+    """probe.cuh's cell_id_fast bit-equal to coarse.cuh's cell_id (the
+    division that B1 and B2 use) over 2.1e7 arguments: 5e6 uniform over three
+    box widths around the box at res_c = 1, 7, 16 and 32, 1e6 around a
+    box of another size and offset, and every cell boundary +- 4 ulp
+    (computed in float32 and in float64)."""
+    import numpy as np
+    import torch
+
+    from tnerf_torch.kernels import build
+
+    rng = np.random.default_rng(8)
+    total = bad = divided = 0
+    for lo, hi, res_c, n in ((-1.0, 1.0, 1, 5_000_000), (-1.0, 1.0, 7, 5_000_000),
+                             (-1.0, 1.0, 16, 5_000_000), (-1.0, 1.0, 32, 5_000_000),
+                             (-0.7, 2.3, 32, 1_000_000)):
+        lo32 = np.float32(lo)
+        cell = (np.float32(hi) - lo32) / np.float32(res_c)
+        ext = np.float32(hi) - lo32
+        k = np.arange(res_c + 1)
+        edges = [(lo32 + np.float32(k) * cell).astype(np.float32),
+                 (lo + k * (hi - lo) / res_c).astype(np.float32)]
+        near = []
+        for e in edges:
+            up = down = e
+            near.append(e)
+            for _ in range(4):
+                up, down = np.nextafter(up, np.float32(np.inf)), np.nextafter(down,
+                                                                                np.float32(-np.inf))
+                near += [up, down]
+        p = np.concatenate([rng.uniform(lo - ext, hi + ext, n).astype(np.float32)] + near)
+        x = torch.from_numpy(p).cuda()
+        fast = torch.empty(x.numel(), dtype=torch.int32, device="cuda")
+        exact = torch.empty_like(fast)
+        div = torch.empty(x.numel(), dtype=torch.uint8, device="cuda")
+        build.check(build.library().tnerf_cell_id_check(
+            x.data_ptr(), fast.data_ptr(), exact.data_ptr(), div.data_ptr(), x.numel(),
+            float(lo32), float(cell), res_c, torch.cuda.current_stream().cuda_stream),
+            "tnerf_cell_id_check")
+        torch.cuda.synchronize()
+        total += x.numel()
+        bad += int((fast != exact).sum())
+        divided += int(div.sum())
+    log(f"cell ids by reciprocal against the division on {total} arguments: {bad} differ; "
+        f"{divided} ({divided / total:.2e}) took the division")
+    if bad:
+        raise AssertionError(f"probe.cuh's cell_id_fast differs from cell_id in {bad} arguments")
+    return total, divided
+
+
+def check_probe_kernels():
+    """Phase 3, B3 and B4 at every edge of their contract: t0, t1 and the
+    mask bit-equal to the plain versions on a training batch of 8192
+    rays (both of its uses: B3 on the kernel bitfield at 256 probes, B4
+    at n = cdf_bins on the bin pooling), at res_c = 1, 7, 16 and 32 with
+    the model's pooled, a random, an empty and a full bitfield at 64, 100
+    and 256 probes (B4 at n = 33: rows that start off a 4-byte boundary
+    and ragged tails); rays with te == tx; B = 1 and 1001; every lane
+    group the kernels build, G = 8, 16 and 32 (by replacing `lane_group`);
+    two launches bit-equal;
+    66,000 rays of a view; the cell ids by reciprocal (check_cell_ids).
+    Times both kernels at the training batch and at 66,000 rays."""
+    import numpy as np
+    import torch
+
+    from tnerf_torch.cameras import camera_rays, focal_from_angle
+    from tnerf_torch.config import Config
+    from tnerf_torch.data.dataset import load_data, scene_proc_kwargs
+    from tnerf_torch.data.procedural import CAMERA_ANGLE_X, sphere_poses
+    from tnerf_torch.grid import tighten as tg
+    from tnerf_torch.grid.traversal import make_coarse_occupancy
+    from tnerf_torch.render import fused as fz
+    from tnerf_torch.train import PixelSampler
+    from tnerf_torch.utils.checkpoint import load_jax_checkpoint
+
+    check_cell_ids()
+    dev = torch.device("cuda")
+    cfg = Config.from_json_file(CONFIG)
+    grid, near = cfg.grid, cfg.sampler.near
+    res = grid.resolution
+    _, _, occ = load_jax_checkpoint(CKPT, device=dev)
+    pooled = lambda c: make_coarse_occupancy(occ.bitfield.reshape(res, res, res), res // c)
+    train = load_data("procedural", cfg.scene.name, splits=("train",),
+                      proc=scene_proc_kwargs(cfg.scene))["train"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rays = PixelSampler(train, cfg.scene.scene_scale, cfg.scene.white_background,
+                        dev).sample(gen, cfg.train.batch_size).rays
+    o, d, te, tx = probe_rays(rays.origins, rays.directions, grid, near)
+
+    def same(tag, o, d, te, tx, oc, n, probes):
+        w = tg.pack_words_rows(oc)
+        c = oc.shape[0]
+        p = tg.tighten_sample_mask_plain(o, d, te, tx, oc, n, grid, probes, words=w)
+        k3 = tg.tighten_range(o, d, te, tx, w, c, grid, probes)
+        k4 = tg.tighten_sample_mask(o, d, te, tx, oc, n, grid, probes, words=w)
+        torch.cuda.synchronize()
+        bad = [int((a != b).sum()) for a, b in zip(k3 + k4, p[:2] + p)]
+        if any(bad):
+            raise AssertionError(f"{tag}: B3 (t0, t1) and B4 (t0, t1, mask) differ from the plain "
+                                 f"versions in {bad} elements")
+        return p
+
+    cases = 0
+    rng = np.random.default_rng(6)
+    for c in (1, 7, 16, 32):
+        fields = {"random": torch.from_numpy(rng.uniform(size=(c,) * 3) < 0.1).to(dev),
+                  "empty": torch.zeros((c,) * 3, dtype=torch.bool, device=dev),
+                  "full": torch.ones((c,) * 3, dtype=torch.bool, device=dev)}
+        if res % c == 0:
+            fields["model"] = pooled(c)
+        for fname, oc in fields.items():
+            for probes in (64, 100, 256):
+                same(f"res_c={c}, {fname} bitfield, {probes} probes", o, d, te, tx, oc, 33, probes)
+                cases += 1
+    model = pooled(32)
+    flat_tx = tx.clone()
+    flat_tx[::7] = te[::7]
+    same("every 7th ray with te == tx", o, d, te, flat_tx, model, 64, 256)
+    for n_rays in (1, 1001):
+        same(f"B = {n_rays}", o[:n_rays], d[:n_rays], te[:n_rays], tx[:n_rays], model, 33, 256)
+    chosen = tg.lane_group
+    try:
+        for G in (8, 16, 32):
+            tg.lane_group = lambda *_, G=G: G
+            same(f"G = {G}", o, d, te, tx, model, 33, 256)
+            same(f"G = {G}, 100 probes", o, d, te, tx, model, 64, 100)
+    finally:
+        tg.lane_group = chosen
+    cases += 6
+
+    # both uses at the training batch, timed; two launches bit-equal
+    res_c, res_t = fz.select_coarse_res(cfg.render, res), fz.select_bin_pool_res(res)
+    kernel_words = fz.pack_occupancy_words(occ.bitfield, res, res_c)
+    k = tg.tighten_range(o, d, te, tx, kernel_words, res_c, grid)
+    if not all(torch.equal(a, b) for a, b in
+               zip(k, tg.tighten_range_plain(o, d, te, tx, kernel_words, res_c, grid))):
+        raise AssertionError("B3 at the training batch differs from its plain version")
+    bins = pooled(res_t)
+    same("training batch, CDF bins", o, d, te, tx, bins, cfg.sampler.cdf_bins, 256)
+    again3 = [tg.tighten_range(o, d, te, tx, kernel_words, res_c, grid) for _ in range(2)]
+    again4 = [tg.tighten_sample_mask(o, d, te, tx, bins, 64, grid) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for x, y in (again3, again4) for a, b in zip(x, y)):
+        raise AssertionError("two launches of B3 or B4 are not bit-equal")
+    log(f"B3 / B4 bit-equal to the plain versions in {cases + 5} cases; two launches bit-equal")
+    probe_shape("training batch", o, d, te, tx, kernel_words, res_c, grid, 256, 0)
+    probe_shape("training batch, CDF bins", o, d, te, tx, tg.pack_words_rows(bins), res_t, grid,
+                256, cfg.sampler.cdf_bins, bins)
+
+    # 66,000 rays of a 400x400 view: two blocks of 256 one-ray threads per SM
+    W = cfg.scene.proc_width
+    view = camera_rays(sphere_poses(8, seed=30)[0], W, W, focal_from_angle(W, CAMERA_ANGLE_X),
+                       cfg.scene.scene_scale, device=dev)
+    pick = torch.randperm(W * W, generator=torch.Generator().manual_seed(3))[:66000].to(dev)
+    ob, db, teb, txb = probe_rays(view.origins.reshape(-1, 3)[pick],
+                                  view.directions.reshape(-1, 3)[pick], grid, near)
+    same("66,000 rays", ob, db, teb, txb, bins, 64, 256)
+    probe_shape("66,000 rays", ob, db, teb, txb, kernel_words, res_c, grid, 256, 0)
+    probe_shape("66,000 rays, CDF bins", ob, db, teb, txb, tg.pack_words_rows(bins), res_t, grid,
+                256, 64, bins)
 
 
 def check_backward():
@@ -673,11 +943,11 @@ def check_backward():
                 backward_rel(f"{tag} S={S} NL=2 random weights", (W2, B2) + args[2:], tchk2,
                              gout, {})
             # times and bound at the training shape
-            b2_ms = cuda_ms(lambda: fz.fused_backward(*args, tchk, gout, term_eps=eps, **placed),
-                            10)
+            b2_run = lambda: fz.fused_backward(*args, tchk, gout, term_eps=eps, **placed)
+            b2_ms, b2_wrap = device_ms(b2_run, "fused_backward_kernel"), wrapper_ms(b2_run)
             b2_plain = cuda_ms(lambda: fz.fused_backward_plain(*args, tchk, gout, **placed), 2)
-            b1_ms = cuda_ms(lambda: fz.fused_forward(*args, term_eps=eps, return_tchk=True,
-                                                     **placed), 20)
+            b1_ms = device_ms(lambda: fz.fused_forward(*args, term_eps=eps, return_tchk=True,
+                                                       **placed), "fused_forward_kernel")
             b1_plain = cuda_ms(lambda: fz.fused_forward_plain(*args, return_tchk=True, **placed),
                                2)
             live = live_samples(args, placed)
@@ -690,7 +960,7 @@ def check_backward():
                             "tnerf/render/pallas_fused2.py:438",
                             float(max((dW_k - dW_p).abs().max(), (dB_k - dB_p).abs().max())),
                             b2_ms, b2_plain, n_bytes(read + (tchk, gout, dW_k, dB_k)), b2_ops,
-                            PEAK_BF16)
+                            PEAK_BF16, b2_wrap)
             rows.append(row)
             b1_bound = max((n_bytes(read + (tchk,)) + B * 6 * 4) / PEAK_BYTES,
                            live * 2 * macs / PEAK_BF16) * 1e3
@@ -780,12 +1050,13 @@ def check_dda():
         raise AssertionError("B5 at the intervals training shape is not bit-equal to its plain "
                              "version")
     n_small = rays.origins.shape[0]
-    ms_small = cuda_ms(lambda: dda.dda_steps(*args, words, 16, 1, steps, icfg.grid), 100)
+    b5_run = lambda: dda.dda_steps(*args, words, 16, 1, steps, icfg.grid)
+    ms_small, b5_wrap = device_ms(b5_run, "dda_kernel"), wrapper_ms(b5_run)
     plain_small = cuda_ms(lambda: dda.dda_steps_plain(*args, words, 16, 1, steps, icfg.grid), 3)
     # per step: three crossing depths (4 each), min / max / compare ~14, cell id
     # and bounds ~14; the coarse test and the jump add ~35
     row = bound_row("dda_march", "tnerf_torch/csrc/dda.cu", "tnerf/grid/pallas_dda.py:61", 0.0,
-                    ms_small, plain_small, *bound(n_small, steps, True, 75), PEAK_F32)
+                    ms_small, plain_small, *bound(n_small, steps, True, 75), PEAK_F32, b5_wrap)
 
     # the reference benchmark's shape: an 800x800 view, 128^3, dense, 384 steps
     big = camera_rays(sphere_poses(8, seed=30)[0], 800, 800, focal_from_angle(800, CAMERA_ANGLE_X),
@@ -793,7 +1064,7 @@ def check_dda():
     g128 = GridConfig(resolution=128)
     args_b = dda._ray_setup(big.origins, big.directions, g128)
     n_big = args_b[0].shape[0]
-    ms_big = cuda_ms(lambda: dda.dda_steps(*args_b, None, 128, 1, 384, g128), 10)
+    ms_big = device_ms(lambda: dda.dda_steps(*args_b, None, 128, 1, 384, g128), "dda_kernel")
     bytes_big, ops_big = bound(n_big, 384, False, 40)
     bound_big = max(bytes_big / PEAK_BYTES, ops_big / PEAK_F32) * 1e3
     print(f"dda_march: {n_small} rays x {steps} steps at 16^3 with occupancy {ms_small:.4f} ms "
@@ -806,16 +1077,14 @@ def check_dda():
     te, tx = ray_aabb(o, d, cfg.grid.aabb_min, cfg.grid.aabb_max)
     te = torch.clamp_min(te, cfg.sampler.near).contiguous()
     tx = torch.maximum(tx, te).contiguous()
-    kb = tg.tighten_sample_mask(o, d, te, tx, occ16, 96, cfg.grid, probes=64)
+    w16 = tg.pack_words_rows(occ16)
+    kb = tg.tighten_sample_mask(o, d, te, tx, occ16, 96, cfg.grid, probes=64, words=w16)
     pb = tg.tighten_sample_mask_plain(o, d, te, tx, occ16, 96, cfg.grid, probes=64)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(kb, pb)):
         raise AssertionError("B4 at the march eval's shape is not bit-equal to its plain version")
-    b4_ms = cuda_ms(lambda: tg.tighten_sample_mask(o, d, te, tx, occ16, 96, cfg.grid, probes=64),
-                    50)
-    print(f"tighten_sample_mask at the march eval's shape ({B} rays, 16^3, 64 probes, 96 "
-          f"midpoints): bit-equal, {b4_ms:.4f} ms, {float(kb[2].any(dim=1).float().mean()):.3f} "
-          f"of rays kept", flush=True)
+    probe_shape("march eval (16^3, 64 probes, 96 midpoints, words passed)", o, d, te, tx, w16,
+                16, cfg.grid, 64, 96, occ16)
     return [row]
 
 
@@ -1227,8 +1496,11 @@ def main() -> int:
     rows = {}
     if "kernels" in phases:
         check_sin_fast_path()
+        check_probe_kernels()
         for r in check_kernels() + check_backward() + check_dda():
             rows[r["name"]] = r
+        with open(os.path.join(OUT, "probe_kernels.json"), "w") as fh:
+            json.dump(PROBE_TIMES, fh, indent=1)
     launches = {k: 0 for k in kernel_counters()}
 
     def add(counts):
@@ -1251,8 +1523,8 @@ def main() -> int:
     if "intervals" in phases:
         add(train_and_serve_intervals())
 
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "wrapper_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, r in rows.items():
         r["launches"] = launches[name]
     if phases >= set(ALL_PHASES) and (len(rows) != 7

@@ -28,7 +28,14 @@ from tnerf_torch.grid.traversal import make_coarse_occupancy, ray_aabb
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NPZ = os.path.join(REPO, "runs", "suite_rehearsal", "prims", "checkpoints", "step_00001500.npz")
-CASES = [(res_c, n, kind) for res_c in (16, 32) for n in (16, 64) for kind in ("model", "random")]
+CASES = [(res_c, n, kind, 256) for res_c in (16, 32) for n in (16, 64)
+         for kind in ("model", "random")]
+# the march's 64 probes (16^3, 96 midpoints) and a count that is not a
+# multiple of any lane group
+CASES += [(16, 96, "model", 64), (32, 64, "random", 64), (16, 16, "random", 100),
+          (32, 64, "model", 100)]
+PARAMS = [pytest.param(*case, id="-".join(map(str, case[:3])) if case[3] == 256
+                       else "-".join(map(str, case[:3])) + f"-probes{case[3]}") for case in CASES]
 
 _REFERENCE = """
 import sys
@@ -40,9 +47,10 @@ inp = np.load(sys.argv[1])
 o, d, te, tx = (jnp.asarray(inp[k]) for k in ("o", "d", "te", "tx"))
 out = {}
 for case in inp["cases"]:
-    res_c, n, kind = case.split("_")
+    res_c, n, kind, probes = case.split("_")
     t0, t1, mask = tighten_sample_mask_pallas(o, d, te, tx, jnp.asarray(inp[f"occ_{kind}_{res_c}"]),
-                                              int(n), GridConfig(), interpret=True)
+                                              int(n), GridConfig(), probes=int(probes),
+                                              interpret=True)
     out[f"{case}_t0"], out[f"{case}_t1"] = np.asarray(t0), np.asarray(t1)
     out[f"{case}_mask"] = np.asarray(mask)
 np.savez(sys.argv[2], **out)
@@ -80,8 +88,8 @@ def reference(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tighten_mask")
     o, d, te, tx = _rays()
     occs = _occupancies()
-    inp = {"cases": np.asarray([f"{c}_{n}_{k}" for c, n, k in CASES]), "o": o, "d": d, "te": te,
-           "tx": tx, **{f"occ_{k}": v for k, v in occs.items()}}
+    inp = {"cases": np.asarray(["_".join(map(str, case)) for case in CASES]), "o": o, "d": d,
+           "te": te, "tx": tx, **{f"occ_{k}": v for k, v in occs.items()}}
     np.savez(tmp / "in.npz", **inp)
     env = {**os.environ, "PYTHONPATH": REPO, "JAX_PLATFORMS": "cpu",
            "XLA_FLAGS": "--xla_cpu_max_isa=AVX --xla_backend_optimization_level=0"}
@@ -91,13 +99,13 @@ def reference(tmp_path_factory):
         return (o, d, te, tx), occs, {k: out[k] for k in out.files}
 
 
-@pytest.mark.parametrize("res_c,n,kind", CASES)
-def test_tighten_sample_mask_plain_bit_exact_with_reference(reference, res_c, n, kind):
+@pytest.mark.parametrize("res_c,n,kind,probes", PARAMS)
+def test_tighten_sample_mask_plain_bit_exact_with_reference(reference, res_c, n, kind, probes):
     rays, occs, ref = reference
     o, d, te, tx = (torch.from_numpy(a) for a in rays)
     occ = torch.from_numpy(occs[f"{kind}_{res_c}"])
-    t0, t1, mask = tighten_sample_mask(o, d, te, tx, occ, n, GridConfig())
-    case = f"{res_c}_{n}_{kind}"
+    t0, t1, mask = tighten_sample_mask(o, d, te, tx, occ, n, GridConfig(), probes)
+    case = f"{res_c}_{n}_{kind}_{probes}"
     np.testing.assert_array_equal(t0.numpy(), ref[f"{case}_t0"])
     np.testing.assert_array_equal(t1.numpy(), ref[f"{case}_t1"])
     assert mask.dtype == torch.bool and mask.shape == (o.shape[0], n)

@@ -12,10 +12,22 @@ midpoints of the tightened span.
 
 The result must be bit-exact with the reference, so the plain version
 and the CUDA kernels (`tnerf_torch/csrc/tighten.cu`, `probe.cuh`) round
-every multiply and add separately, in the reference's association, and
-find cell ids by a true division by the cell size.  Every constant that enters a
-division is a tensor on the data's device: PyTorch's CUDA division by a
-Python scalar multiplies by its reciprocal, which is not bit-exact.
+every multiply and add separately, in the reference's association.  The
+probe fraction, step and midpoint spacing multiply by the float32
+reciprocal of the probe or sample count, as the reference's XLA computes
+its division by that constant (`reciprocal`).  Cell ids are floor((p -
+lo) / cell) with a correctly rounded division, as everywhere in the port
+(the kernels multiply by the reciprocal only where that cannot change
+the cell id, `probe.cuh`); the reference's XLA multiplies there too,
+which differs only where the cell size is not a power of two (ROADMAP
+Queue C).  Every constant that enters a division is a tensor on the
+data's device: PyTorch's CUDA division by a Python scalar multiplies by
+its reciprocal, which is not bit-exact.
+
+The kernels give each ray a group of G lanes (`lane_group`), which scan
+the probes in rounds of G from the front to the first occupied probe and
+from the back to the last (`tighten_range_scan` transcribes the scan and
+counts the probes it evaluates).
 
 `tighten_range` and `tighten_sample_mask` take the plain version for CPU
 tensors and launch the kernel for CUDA tensors; there is no fallback
@@ -23,6 +35,8 @@ between the two.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -74,22 +88,32 @@ def occ_bit(x, y, z, words, res_c: int, lo, cell_c):
     return ((w >> (cflat & 31)) & 1) > 0
 
 
+def reciprocal(v, dev) -> torch.Tensor:
+    """1 / v rounded once to float32, as a tensor on dev.  The reference
+    divides by constants (`span / probes`, `(i + 0.5) / probes`, `(t1 -
+    t0) / n_samples`), and XLA's algebraic simplifier turns x / c for a
+    constant c into x * (1 / c), in interpret mode too; so the port
+    multiplies by this.  For a power of two it equals the division."""
+    with np.errstate(divide="ignore"):
+        return torch.tensor(np.float32(1.0) / np.float32(v), dtype=torch.float32, device=dev)
+
+
 def tighten_range_plain(o, d, te, tx, words, res_c: int, grid, probes: int = 256):
     """The plain PyTorch version (any device): the probe phase that both
     plain versions share (`_probe_tighten`, :299)."""
     lo, cell_c, fine_diag = coarse_constants(grid, res_c)
     dev = o.device
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
-    n_probes = f32(float(probes))
+    rcp = reciprocal(probes, dev)
     span = torch.clamp_min(tx - te, 0.0)
-    step = span / n_probes
+    step = span * rcp
     big = f32(3.0e38)
     tf = torch.full_like(te, 3.0e38)
     tl = torch.full_like(te, -3.0e38)
     ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
     for i in range(probes):
-        t = te + span * ((f32(float(i)) + 0.5) / n_probes)
+        t = te + span * ((f32(float(i)) + 0.5) * rcp)
         occ = occ_bit(ox + dx * t, oy + dy * t, oz + dz * t, words, res_c, lo, cell_c) & (span > 0)
         tf = torch.minimum(tf, torch.where(occ, t, big))
         tl = torch.maximum(tl, torch.where(occ, t, -big))
@@ -98,6 +122,97 @@ def tighten_range_plain(o, d, te, tx, words, res_c: int, grid, probes: int = 256
     t0 = torch.where(hit, torch.maximum(tf - pad, te), te)
     t1 = torch.where(hit, torch.minimum(tl + pad, tx), tx)
     return t0, t1
+
+
+def _pow2_at_least(v: int) -> int:
+    g = 1
+    while g < v:
+        g *= 2
+    return g
+
+
+def lane_group(n_rays: int, probes: int, n_sms: int, threads_per_sm: int = 2048) -> int:
+    """G, the lanes of one warp that the kernels give each ray, a power of
+    two in [8, 32]: at least the least power of two for which n_rays x G
+    threads fill the card's n_sms x threads_per_sm resident slots (32
+    where n_rays cannot), and at least probes / 8 rounded up to a power of
+    two, so that a full pass takes at most 8 rounds.  Measured on an H100
+    (`tools/torch_probe_turns.py --groups`): G = 32 is the fastest at 256 probes from 8192 to
+    66,000 rays, 16 at 64 probes and 32,000 rays, and G < 8 is slower
+    everywhere, since the groups of one warp then wait on each other's
+    ballots."""
+    fill = _pow2_at_least(-(-n_sms * threads_per_sm // max(n_rays, 1)))
+    return min(32, max(8, fill, _pow2_at_least(-(-probes // 8))))
+
+
+def tighten_range_scan(o, d, te, tx, words, res_c: int, grid, probes: int = 256, group: int = 32):
+    """The kernels' probe phase transcribed (any device): (t0, t1,
+    evaluated [B] int64, the probes each ray's lane group evaluates).
+
+    Each ray's G = `group` lanes evaluate probes in rounds of G, front to
+    back, up to the round that holds the first occupied probe; that
+    round's occupancy bits are kept.  Then, from the last probe down, in
+    rounds of G, the probes above that round, up to the round that holds
+    the last occupied probe; where none is occupied, the last is the
+    highest bit of the kept round.  No probe is evaluated twice, and a
+    ray with no occupied probe makes one full forward pass.  The probe
+    depths t_i = te + span * ((i + 0.5) * (1 / probes)), each operation
+    rounded, do not decrease with i, so the first and last occupied
+    depths are the minimum and maximum that `tighten_range_plain` folds
+    over all probes, and the result is bit-equal to it."""
+    lo, cell_c, fine_diag = coarse_constants(grid, res_c)
+    dev = o.device
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    rcp = reciprocal(probes, dev)
+    span = torch.clamp_min(tx - te, 0.0)
+    step = span * rcp
+    frac = (torch.arange(probes, dtype=torch.float32, device=dev) + 0.5) * rcp
+    B = te.shape[0]
+    lanes = torch.arange(group, device=dev)
+
+    def occupied(rows, idx):
+        """[len(rows), G] occupancy bits of probes idx ([G]) of rays rows."""
+        t = te[rows, None] + span[rows, None] * frac[idx.clamp(0, probes - 1)][None, :]
+        p = [o[rows, a, None] + d[rows, a, None] * t for a in range(3)]
+        return occ_bit(*p, words, res_c, lo, cell_c)
+
+    first = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    last = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    evaluated = torch.zeros(B, dtype=torch.int64, device=dev)
+    rows = torch.nonzero(span > 0).flatten()
+    for base in range(0, probes, group):
+        if rows.numel() == 0:
+            break
+        idx = base + lanes
+        valid = idx < probes
+        occ = occupied(rows, idx) & valid
+        evaluated[rows] += int(valid.sum())
+        hit = occ.any(dim=1)
+        first[rows[hit]] = base + occ[hit].int().argmax(dim=1)
+        # the highest occupied probe of the kept round
+        last[rows[hit]] = base + group - 1 - occ[hit].flip(1).int().argmax(dim=1)
+        rows = rows[~hit]
+    rows = torch.nonzero(first >= 0).flatten()
+    above = first - first % group + group  # the first probe above the kept round
+    for top in range(probes - 1, -1, -group):
+        rows = rows[top >= above[rows]]
+        if rows.numel() == 0:
+            break
+        idx = top - lanes
+        live = idx[None, :] >= above[rows, None]
+        occ = occupied(rows, idx) & live
+        evaluated[rows] += live.sum(dim=1)
+        hit = occ.any(dim=1)
+        last[rows[hit]] = top - occ[hit].int().argmax(dim=1)
+        rows = rows[~hit]
+    hit = first >= 0
+    t_at = lambda i: te + span * frac[i.clamp_min(0)]
+    tf = torch.minimum(t_at(first), f32(3.0e38))
+    tl = torch.maximum(t_at(last), f32(-3.0e38))
+    pad = step + f32(fine_diag)
+    t0 = torch.where(hit, torch.maximum(tf - pad, te), te)
+    t1 = torch.where(hit, torch.minimum(tl + pad, tx), tx)
+    return t0, t1, evaluated
 
 
 def _check_ray_inputs(o, d, te, tx, words):
@@ -109,11 +224,26 @@ def _check_ray_inputs(o, d, te, tx, words):
     build.check_tensor("words", words, (WORDS,), torch.int32, dev)
 
 
+@functools.lru_cache(maxsize=None)
 def _coarse_floats(grid, res_c: int):
-    """(lo xyz, cell xyz, fine_diag) as the launch functions take them."""
+    """(lo xyz, cell xyz, fine_diag) as the launch functions take them,
+    computed once per (grid, res_c): the wrappers run in every train step
+    and view chunk, and the steps are host-bound."""
     lo, cell_c, fine_diag = coarse_constants(grid, res_c)
     f = lambda v: float(np.float32(v))
     return (f(lo[0]), f(lo[1]), f(lo[2]), f(cell_c[0]), f(cell_c[1]), f(cell_c[2])), f(fine_diag)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_slots(index: int):
+    """(SMs, resident threads per SM) of CUDA device `index`."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, getattr(props, "max_threads_per_multi_processor", 2048)
+
+
+def _launch_group(B: int, probes: int) -> int:
+    """G for B rays and `probes` probes on the current CUDA device."""
+    return lane_group(B, probes, *_card_slots(torch.cuda.current_device()))
 
 
 def tighten_range(o, d, te, tx, words, res_c: int, grid, probes: int = 256):
@@ -138,7 +268,7 @@ def tighten_range(o, d, te, tx, words, res_c: int, grid, probes: int = 256):
         err = lib.tnerf_tighten_range(
             o.data_ptr(), d.data_ptr(), te.data_ptr(), tx.data_ptr(), words.data_ptr(),
             t0.data_ptr(), t1.data_ptr(), B, res_c, *coarse, probes, fine_diag,
-            torch.cuda.current_stream(dev).cuda_stream,
+            _launch_group(B, probes), torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(err, "tnerf_tighten_range")
     tighten_range.launches += 1
@@ -157,7 +287,7 @@ def tighten_sample_mask_plain(o, d, te, tx, occ_coarse, n_samples: int, grid, pr
     lo, cell_c, _ = coarse_constants(grid, res_c)
     t0, t1 = tighten_range_plain(o, d, te, tx, words, res_c, grid, probes)
     dev = o.device
-    dt = ((t1 - t0) / torch.tensor(float(n_samples), dtype=torch.float32, device=dev))[:, None]
+    dt = ((t1 - t0) * reciprocal(n_samples, dev))[:, None]
     s = torch.arange(n_samples, dtype=torch.float32, device=dev)[None, :] + 0.5
     t = t0[:, None] + dt * s
     bit = occ_bit(o[:, 0:1] + d[:, 0:1] * t, o[:, 1:2] + d[:, 1:2] * t, o[:, 2:3] + d[:, 2:3] * t,
@@ -199,7 +329,7 @@ def tighten_sample_mask(o, d, te, tx, occ_coarse, n_samples: int, grid, probes: 
         err = lib.tnerf_tighten_sample_mask(
             o.data_ptr(), d.data_ptr(), te.data_ptr(), tx.data_ptr(), words.data_ptr(),
             t0.data_ptr(), t1.data_ptr(), mask.data_ptr(), B, n_samples, res_c, *coarse, probes,
-            fine_diag, torch.cuda.current_stream(dev).cuda_stream,
+            fine_diag, _launch_group(B, probes), torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(err, "tnerf_tighten_sample_mask")
     tighten_sample_mask.launches += 1

@@ -27,11 +27,15 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]  # never --use_fast_math
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 PROTOTYPES = {
-    # o, d, te, tx, words, t0, t1, n, res_c, lo xyz, cell xyz, probes, pad_diag, stream
-    "tnerf_tighten_range": [P] * 7 + [I, I] + [F] * 6 + [I, F, P],
+    # o, d, te, tx, words, t0, t1, n, res_c, lo xyz, cell xyz, probes, pad_diag, lanes per
+    # ray, stream
+    "tnerf_tighten_range": [P] * 7 + [I, I] + [F] * 6 + [I, F, I, P],
     # o, d, te, tx, words, t0, t1, mask, n, n_samples, res_c, lo xyz, cell xyz, probes,
-    # pad_diag, stream
-    "tnerf_tighten_sample_mask": [P] * 8 + [I, I, I] + [F] * 6 + [I, F, P],
+    # pad_diag, lanes per ray, stream
+    "tnerf_tighten_sample_mask": [P] * 8 + [I, I, I] + [F] * 6 + [I, F, I, P],
+    # p, fast, exact, divided, n, lo, cell, res_c, stream: the probe kernels' cell ids by
+    # reciprocal against coarse.cuh's by division
+    "tnerf_cell_id_check": [P] * 4 + [I, F, F, I, P],
     # w, bias, gamma, beta, te, dt, o, d, mask, words, out, tchk, shaded (both may be null),
     # B, S, n_layers, n_ctas, use_coarse, res_c, lo xyz, cell xyz, term_eps, stream
     "tnerf_fused_forward": [P] * 13 + [I, I, I, I, I, I] + [F] * 7 + [P],
