@@ -33,8 +33,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
      with model, random, empty and full bitfields at 64, 100 and 256
      probes, with rays whose te == tx, at B = 1, 1001 and 66,000, at every
      lane group the kernels build, two launches bit for bit, and the
-     probe kernels' cell ids by reciprocal bit-equal to the division over
-     2.1e7 arguments.  Every kernel's `ms` is its device time
+     kernels' cell ids (by the reciprocal of the cell size, as the
+     reference's XLA computes them) bit-equal to the plain versions'
+     arithmetic over 2.1e7 arguments.  Every kernel's `ms` is its device time
      (torch.profiler, at least 50 launches), `wrapper_ms` the host clock
      per call of its wrapper; B3 / B4 are timed at the training batch, the
      serving chunk, the march eval and 66,000 rays, with the share of
@@ -76,11 +77,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
      steps under torch.profiler;
  10. print the kernels' JSON line, then the status line.
 In the `kernels` phase B5 (the grid walk) is held bit-equal to its plain
-version, dense at 16^3 and 128^3 and with occupancy at 64^3 (the prims
+version, dense at 16^3 and 128^3, with occupancy at 64^3 (the prims
 model's bitfield, coarse factor 4) and 32^3 (a random 8% bitfield, factor
-8), and timed at the intervals training shape (4096 rays, 16^3, 49 steps)
-and at 640,000 rays, 128^3, dense, 384 steps; B4 is held bit-equal at the
-march eval's shape (16^3 pooling, 64 probes, 96 midpoints).
+8), and at the non-power-of-two 24^3 (dense, and factor 2) and on the box
+[-1.3, 0.9]^3 at 24^3 (dense, and factor 3) with rays through the
+coordinates where a cell id by the reciprocal differs from the division's;
+it is timed at the intervals training shape (4096 rays, 16^3, 49 steps),
+an intervals eval chunk (a 128 x 128 view) and at 640,000 rays, 128^3,
+dense, 384 steps; B4 is held bit-equal at the march eval's shape (16^3
+pooling, 64 probes, 96 midpoints).
 `--phases kernels,serve,train,resume,cdf,march,intervals` runs a subset (for development;
 the kernels' line then lists what ran).  Files go under chiprun_out/
 (git-ignored).
@@ -696,23 +701,29 @@ def probe_rays(o, d, grid, near):
 
 
 def check_cell_ids():
-    """probe.cuh's cell_id_fast bit-equal to coarse.cuh's cell_id (the
-    division that B1 and B2 use) over 2.1e7 arguments: 5e6 uniform over three
-    box widths around the box at res_c = 1, 7, 16 and 32, 1e6 around a
-    box of another size and offset, and every cell boundary +- 4 ulp
-    (computed in float32 and in float64)."""
+    """coarse.cuh's cell id, which B1 to B4 share (floor((p - lo) * RN(1 /
+    cell)), formed in floats), bit-equal on the card to the plain
+    versions' arithmetic (`tighten.cell_ids`) over 2.1e7 arguments: 5e6
+    uniform over three box widths around the box at res_c = 1, 7, 16 and
+    32, 1e6 around a box of another size and offset, every cell boundary
+    +- 4 ulp (computed in float32 and in float64), and at res_c = 12 and
+    24 every argument within 64 ulp of a boundary where the reciprocal and
+    the division floor differently."""
     import numpy as np
     import torch
 
+    from tnerf_torch.grid.tighten import cell_ids
     from tnerf_torch.kernels import build
 
     rng = np.random.default_rng(8)
-    total = bad = divided = 0
+    total = bad = split = 0
     for lo, hi, res_c, n in ((-1.0, 1.0, 1, 5_000_000), (-1.0, 1.0, 7, 5_000_000),
                              (-1.0, 1.0, 16, 5_000_000), (-1.0, 1.0, 32, 5_000_000),
-                             (-0.7, 2.3, 32, 1_000_000)):
+                             (-0.7, 2.3, 32, 1_000_000), (-1.0, 1.0, 12, 0),
+                             (-1.0, 1.0, 24, 0)):
         lo32 = np.float32(lo)
         cell = (np.float32(hi) - lo32) / np.float32(res_c)
+        rcp = np.float32(1.0) / cell
         ext = np.float32(hi) - lo32
         k = np.arange(res_c + 1)
         edges = [(lo32 + np.float32(k) * cell).astype(np.float32),
@@ -725,24 +736,43 @@ def check_cell_ids():
                 up, down = np.nextafter(up, np.float32(np.inf)), np.nextafter(down,
                                                                                 np.float32(-np.inf))
                 near += [up, down]
-        p = np.concatenate([rng.uniform(lo - ext, hi + ext, n).astype(np.float32)] + near)
+        ties = split_arguments(lo32, cell, res_c)
+        split += ties.size
+        p = np.concatenate([rng.uniform(lo - ext, hi + ext, n).astype(np.float32), ties] + near)
         x = torch.from_numpy(p).cuda()
-        fast = torch.empty(x.numel(), dtype=torch.int32, device="cuda")
-        exact = torch.empty_like(fast)
-        div = torch.empty(x.numel(), dtype=torch.uint8, device="cuda")
+        ids = torch.empty(x.numel(), dtype=torch.int32, device="cuda")
         build.check(build.library().tnerf_cell_id_check(
-            x.data_ptr(), fast.data_ptr(), exact.data_ptr(), div.data_ptr(), x.numel(),
-            float(lo32), float(cell), res_c, torch.cuda.current_stream().cuda_stream),
-            "tnerf_cell_id_check")
+            x.data_ptr(), ids.data_ptr(), x.numel(), float(lo32), float(rcp), res_c,
+            torch.cuda.current_stream().cuda_stream), "tnerf_cell_id_check")
         torch.cuda.synchronize()
         total += x.numel()
-        bad += int((fast != exact).sum())
-        divided += int(div.sum())
-    log(f"cell ids by reciprocal against the division on {total} arguments: {bad} differ; "
-        f"{divided} ({divided / total:.2e}) took the division")
+        bad += int((ids != cell_ids(x, float(lo32), float(rcp), res_c)).sum())
+    log(f"coarse.cuh's cell ids against the plain arithmetic on {total} arguments ({split} where "
+        f"the reciprocal and the division floor differently): {bad} differ")
     if bad:
-        raise AssertionError(f"probe.cuh's cell_id_fast differs from cell_id in {bad} arguments")
-    return total, divided
+        raise AssertionError(f"coarse.cuh's cell_id differs from tighten.cell_ids in {bad} "
+                             "arguments")
+    return total, split
+
+
+def split_arguments(lo, cell, res, ulps=64):
+    """The float32 p within `ulps` ulp of a cell boundary lo + k cell (k =
+    0 .. res) where floor((p - lo) / cell) and floor((p - lo) * RN(1 /
+    cell)) differ, sorted."""
+    import numpy as np
+
+    rcp = np.float32(1.0) / cell
+    out = []
+    for k in range(res + 1):
+        b = np.float32(float(lo) + k * float(cell))
+        steps = [np.array([b], np.float32)]
+        up = down = steps[0]
+        for _ in range(ulps):
+            up, down = np.nextafter(up, np.float32(np.inf)), np.nextafter(down, np.float32(-np.inf))
+            steps += [up, down]
+        p = np.concatenate(steps)
+        out.append(p[np.floor((p - lo) / cell) != np.floor((p - lo) * rcp)])
+    return np.unique(np.concatenate(out).astype(np.float32))
 
 
 def check_probe_kernels():
@@ -981,11 +1011,41 @@ def check_backward():
     return rows
 
 
+def split_rays(grid, axes=(0, 1, 2)):
+    """Rays along each of `axes` (the others' direction components 0, which
+    `d_safe` turns into 1e-12) from 1.5 before the box, whose two other
+    coordinates are arguments where the cell id by the reciprocal and by
+    the division differ (`split_arguments`): (o, d) [n, 3] float32 numpy."""
+    import numpy as np
+
+    lo = np.asarray(grid.aabb_min, np.float32)
+    cell = (np.asarray(grid.aabb_max, np.float32) - lo) / np.float32(grid.resolution)
+    os_, ds = [], []
+    for a in axes:
+        b, c = (a + 1) % 3, (a + 2) % 3
+        pb = split_arguments(lo[b], cell[b], grid.resolution)
+        pc = split_arguments(lo[c], cell[c], grid.resolution)
+        n = max(pb.size, pc.size)
+        o = np.zeros((n, 3), np.float32)
+        o[:, a] = lo[a] - 1.5
+        o[:, b] = np.resize(pb, n)
+        o[:, c] = np.resize(pc, n)[::-1]
+        d = np.zeros((n, 3), np.float32)
+        d[:, a] = 1.0
+        os_.append(o)
+        ds.append(d)
+    return np.concatenate(os_), np.concatenate(ds)
+
+
 def check_dda():
     """Phase 3, the grid walk: B5 bit-equal to its plain version (cells, and
-    depths on the rays that hit the box) in both modes, its times at the
-    intervals training shape and at the reference benchmark's shape, and B4
-    at the march eval's shape; returns B5's row."""
+    depths on the rays that hit the box) in both modes, at 16^3, 32^3,
+    64^3, 128^3 and at the non-power-of-two 24^3 on [-1, 1]^3 and on
+    [-1.3, 0.9]^3 (with rays through the coordinates where a cell id by
+    the reciprocal differs from the division's), its times at the
+    intervals training shape, an intervals eval chunk and the reference
+    benchmark's shape, and B4 at the march eval's shape; returns B5's
+    row."""
     import numpy as np
     import torch
 
@@ -1005,24 +1065,54 @@ def check_dda():
     o, d = flat.origins, flat.directions
     B = o.shape[0]
     _, _, occ = load_jax_checkpoint(CKPT, device=dev)
-    rand32 = torch.from_numpy(np.random.default_rng(2).uniform(size=(32,) * 3) < 0.08).to(dev)
-    for res, occupancy, factor, what in (
-            (16, None, 1, "dense"), (128, None, 1, "dense"),
-            (64, occ.bitfield, 4, "the prims model's bitfield, factor 4"),
-            (32, rand32, 8, "a random 8% bitfield, factor 8")):
-        grid = GridConfig(resolution=res)
-        k_t0, k_cell, te, tx = dda.march_raw(o, d, grid, occupancy, factor)
-        p_t0, p_cell, _, _ = dda.march_raw_plain(o, d, grid, occupancy, factor)
+    rand = lambda r: torch.from_numpy(np.random.default_rng(2).uniform(size=(r,) * 3)
+                                      < 0.08).to(dev)
+    off = dict(aabb_min=(-1.3,) * 3, aabb_max=(0.9,) * 3)
+    for res, box, occupancy, factor, what in (
+            (16, {}, None, 1, "dense"), (128, {}, None, 1, "dense"),
+            (64, {}, occ.bitfield, 4, "the prims model's bitfield, factor 4"),
+            (32, {}, rand(32), 8, "a random 8% bitfield, factor 8"),
+            (24, {}, None, 1, "dense"), (24, {}, rand(24), 2, "a random 8% bitfield, factor 2"),
+            (24, off, rand(24), 3, "box [-1.3, 0.9]^3, a random 8% bitfield, factor 3"),
+            (24, off, None, 1, "box [-1.3, 0.9]^3, dense")):
+        grid = GridConfig(resolution=res, **box)
+        ro, rd = o, d
+        if res == 24:  # add rays along the axes through coordinates where the cell id by
+            # the reciprocal differs from the division's
+            ro, rd = (torch.cat([a, torch.from_numpy(b).to(dev)])
+                      for a, b in zip((o, d), split_rays(grid)))
+        k_t0, k_cell, te, tx = dda.march_raw(ro, rd, grid, occupancy, factor)
+        p_t0, p_cell, _, _ = dda.march_raw_plain(ro, rd, grid, occupancy, factor)
         torch.cuda.synchronize()
         hit = tx > te
         bad_cells = int((k_cell != p_cell).sum())
         bad_t0 = int((k_t0[:, hit] != p_t0[:, hit]).sum())
-        log(f"B5 at {res}^3 ({what}), {B} rays x {k_t0.shape[0]} steps: {bad_cells} cells and "
-            f"{bad_t0} depths differ from the plain version; {float(hit.float().mean()):.3f} of "
-            f"rays hit the box, {float((k_cell >= 0).float().mean()):.4f} of steps emit a cell")
+        log(f"B5 at {res}^3 ({what}), {ro.shape[0]} rays x {k_t0.shape[0]} steps: {bad_cells} "
+            f"cells and {bad_t0} depths differ from the plain version; "
+            f"{float(hit.float().mean()):.3f} of rays hit the box, "
+            f"{float((k_cell >= 0).float().mean()):.4f} of steps emit a cell")
         if bad_cells or bad_t0:
             raise AssertionError(f"B5 at {res}^3 ({what}) is not bit-equal to its plain version: "
                                  f"{bad_cells} cells, {bad_t0} depths")
+
+    # ragged and tiny batches (a partial last block, one block of 8 threads with
+    # one ray), one step, and two launches bit for bit
+    g16, w16 = GridConfig(resolution=16), dda.pack_coarse_words(rand(16))
+    for n, n_steps in ((1, 1), (1, 48), (1001, 1), (1001, 48)):
+        args_n = dda._ray_setup(o[:n], d[:n], g16)
+        for words_n in (None, w16):
+            k = dda.dda_steps(*args_n, words_n, 16, 1, n_steps, g16)
+            again = dda.dda_steps(*args_n, words_n, 16, 1, n_steps, g16)
+            p = dda.dda_steps_plain(*args_n, words_n, 16, 1, n_steps, g16)
+            hit = args_n[4] > args_n[3]
+            mode = "dense" if words_n is None else "skipping"
+            if not (torch.equal(k[1], p[1]) and torch.equal(k[0][:, hit], p[0][:, hit])
+                    and torch.equal(k[0], again[0]) and torch.equal(k[1], again[1])):
+                raise AssertionError(f"B5 on {n} rays x {n_steps} steps ({mode}) is not "
+                                     "bit-equal to its plain version or to its own second launch")
+    log("B5 on 1 and 1001 rays, 1 and 48 steps, dense and skipping: bit-equal to the plain "
+        "version, two launches bit-equal")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def bound(n_rays, steps, words, ops_per_step):
         n_b = n_rays * 44 + steps * n_rays * 8 + (4096 if words else 0)
@@ -1052,6 +1142,14 @@ def check_dda():
     n_small = rays.origins.shape[0]
     b5_run = lambda: dda.dda_steps(*args, words, 16, 1, steps, icfg.grid)
     ms_small, b5_wrap = device_ms(b5_run, "dda_kernel"), wrapper_ms(b5_run)
+    # an intervals eval chunk: test view 0 of the hard scene (128 x 128 rays, one chunk)
+    W = train_ds.width
+    view = camera_rays(sphere_poses(8, seed=30)[0], W, train_ds.height,
+                       focal_from_angle(W, CAMERA_ANGLE_X), icfg.scene.scene_scale, device=dev)
+    args_e = dda._ray_setup(view.origins, view.directions, icfg.grid)
+    eval_run = lambda: dda.dda_steps(*args_e, words, 16, 1, steps, icfg.grid)
+    ms_eval, eval_wrap = device_ms(eval_run, "dda_kernel"), wrapper_ms(eval_run)
+    n_eval = args_e[0].shape[0]
     plain_small = cuda_ms(lambda: dda.dda_steps_plain(*args, words, 16, 1, steps, icfg.grid), 3)
     # per step: three crossing depths (4 each), min / max / compare ~14, cell id
     # and bounds ~14; the coarse test and the jump add ~35
@@ -1067,11 +1165,18 @@ def check_dda():
     ms_big = device_ms(lambda: dda.dda_steps(*args_b, None, 128, 1, 384, g128), "dda_kernel")
     bytes_big, ops_big = bound(n_big, 384, False, 40)
     bound_big = max(bytes_big / PEAK_BYTES, ops_big / PEAK_F32) * 1e3
-    print(f"dda_march: {n_small} rays x {steps} steps at 16^3 with occupancy {ms_small:.4f} ms "
-          f"(plain {plain_small:.2f}, bound {row['bound_ms']:.5f} by {row['bound_by']}); {n_big} "
+    bytes_eval, ops_eval = bound(n_eval, steps, True, 75)
+    bound_eval = max(bytes_eval / PEAK_BYTES, ops_eval / PEAK_F32) * 1e3
+    shapes = {k: dda.block_shape(n, sms) for k, n in (("train", n_small), ("eval", n_eval),
+                                                       ("big", n_big))}
+    print(f"dda_march: {n_small} rays x {steps} steps at 16^3 with occupancy {ms_small:.5f} ms "
+          f"device, {b5_wrap:.4f} ms wrapper (plain {plain_small:.2f}, bound "
+          f"{row['bound_ms']:.5f} by {row['bound_by']}); eval chunk of {n_eval} rays "
+          f"{ms_eval:.5f} ms device, {eval_wrap:.4f} ms wrapper (bound {bound_eval:.5f}); {n_big} "
           f"rays x 384 steps at 128^3 dense {ms_big:.4f} ms (bound {bound_big:.4f} by "
           f"{'bytes' if bytes_big / PEAK_BYTES > ops_big / PEAK_F32 else 'operations'}, "
-          f"{bytes_big / ms_big / 1e6:.1f} GB/s)", flush=True)
+          f"{bytes_big / ms_big / 1e6:.1f} GB/s); blocks (threads, count) on {sms} SMs: {shapes}",
+          flush=True)
 
     # B4 at the march eval's shape: 16^3 pooling, 64 probes, 96 midpoints
     te, tx = ray_aabb(o, d, cfg.grid.aabb_min, cfg.grid.aabb_max)

@@ -287,6 +287,8 @@ def test_launch_constants_are_computed_once_per_grid():
     a = tg._coarse_floats(GRID, 32)
     assert tg._coarse_floats(GridConfig(), 32) is a
     lo, cell, diag = tg.coarse_constants(GRID, 32)
-    assert a == (tuple(float(np.float32(v)) for v in (*lo, *cell)), float(np.float32(diag)))
+    # the kernels take the reciprocals of the cell size (the reference's XLA multiplies by them)
+    rcp = np.float32(1.0) / cell
+    assert a == (tuple(float(np.float32(v)) for v in (*lo, *rcp)), float(np.float32(diag)))
     other = tg._coarse_floats(GridConfig(aabb_min=(-1.5, -1.5, -1.5), aabb_max=(1.5, 1.5, 1.5)), 32)
     assert other != a

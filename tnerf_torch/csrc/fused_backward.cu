@@ -584,11 +584,11 @@ extern "C" int tnerf_fused_backward(const void* w, const float* bias, const floa
                                     const int32_t* words, const float* tchk, const float* gout,
                                     float* dW, float* dB, uint8_t* shaded, int B, int S,
                                     int n_layers, int n_ctas, int use_coarse, int res_c,
-                                    float lo_x, float lo_y, float lo_z, float cell_x,
-                                    float cell_y, float cell_z, float term_eps, void* stream) {
+                                    float lo_x, float lo_y, float lo_z, float rcp_x,
+                                    float rcp_y, float rcp_z, float term_eps, void* stream) {
   return launch_backward<false>(w, bias, gamma, beta, {te, dt, nullptr, nullptr}, o, d, mask,
                                 words, tchk, gout, dW, dB, shaded, B, S, n_layers, n_ctas,
-                                use_coarse, Coarse{res_c, lo_x, lo_y, lo_z, cell_x, cell_y, cell_z},
+                                use_coarse, Coarse{res_c, lo_x, lo_y, lo_z, rcp_x, rcp_y, rcp_z},
                                 term_eps, stream);
 }
 
@@ -600,11 +600,11 @@ extern "C" int tnerf_fused_backward_tmode(const void* w, const float* bias, cons
                                           const float* gout, float* dW, float* dB,
                                           uint8_t* shaded, int B, int S, int n_layers,
                                           int n_ctas, int use_coarse, int res_c,
-                                          float lo_x, float lo_y, float lo_z, float cell_x,
-                                          float cell_y, float cell_z, float term_eps,
+                                          float lo_x, float lo_y, float lo_z, float rcp_x,
+                                          float rcp_y, float rcp_z, float term_eps,
                                           void* stream) {
   return launch_backward<true>(w, bias, gamma, beta, {nullptr, nullptr, ts, dts}, o, d, mask,
                                words, tchk, gout, dW, dB, shaded, B, S, n_layers, n_ctas,
-                               use_coarse, Coarse{res_c, lo_x, lo_y, lo_z, cell_x, cell_y, cell_z},
+                               use_coarse, Coarse{res_c, lo_x, lo_y, lo_z, rcp_x, rcp_y, rcp_z},
                                term_eps, stream);
 }

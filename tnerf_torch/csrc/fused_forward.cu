@@ -611,11 +611,11 @@ extern "C" int tnerf_fused_forward(const void* w, const float* bias, const float
                                    const float* o, const float* d, const float* mask,
                                    const int32_t* words, float* out, float* tchk, uint8_t* shaded,
                                    int B, int S, int n_layers, int n_ctas, int use_coarse,
-                                   int res_c, float lo_x, float lo_y, float lo_z, float cell_x,
-                                   float cell_y, float cell_z, float term_eps, void* stream) {
+                                   int res_c, float lo_x, float lo_y, float lo_z, float rcp_x,
+                                   float rcp_y, float rcp_z, float term_eps, void* stream) {
   return launch_forward<false>(w, bias, gamma, beta, {te, dt, nullptr, nullptr}, o, d, mask,
                                words, out, tchk, shaded, B, S, n_layers, n_ctas, use_coarse,
-                               Coarse{res_c, lo_x, lo_y, lo_z, cell_x, cell_y, cell_z}, term_eps,
+                               Coarse{res_c, lo_x, lo_y, lo_z, rcp_x, rcp_y, rcp_z}, term_eps,
                                stream);
 }
 
@@ -626,11 +626,11 @@ extern "C" int tnerf_fused_forward_tmode(const void* w, const float* bias, const
                                          const int32_t* words, float* out, float* tchk,
                                          uint8_t* shaded, int B, int S, int n_layers, int n_ctas,
                                          int use_coarse, int res_c, float lo_x, float lo_y,
-                                         float lo_z, float cell_x, float cell_y, float cell_z,
+                                         float lo_z, float rcp_x, float rcp_y, float rcp_z,
                                          float term_eps, void* stream) {
   return launch_forward<true>(w, bias, gamma, beta, {nullptr, nullptr, ts, dts}, o, d, mask,
                               words, out, tchk, shaded, B, S, n_layers, n_ctas, use_coarse,
-                              Coarse{res_c, lo_x, lo_y, lo_z, cell_x, cell_y, cell_z}, term_eps,
+                              Coarse{res_c, lo_x, lo_y, lo_z, rcp_x, rcp_y, rcp_z}, term_eps,
                               stream);
 }
 

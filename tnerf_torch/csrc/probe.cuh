@@ -21,7 +21,7 @@
 // probes`), and XLA's algebraic simplifier turns a division by a constant
 // into a multiply by its reciprocal, rounded once to float32; so the port
 // multiplies by rcp = RN(1 / probes) (the same as the division for a power
-// of two; tighten.py:reciprocal).
+// of two; grid/traversal.py:reciprocal).
 //
 // Why the scan is bit-exact with the reference, which folds min / max over
 // the depths of every occupied probe: t_i = RN(te + RN(span * RN((i + 0.5)
@@ -33,21 +33,8 @@
 // nvcc contracting them into FMAs) in the reference's association; step,
 // pad and the clamps to [te, tx] are the reference's.
 //
-// The cell ids.  The port floors a correctly rounded quotient (p - lo) /
-// cell (coarse.cuh:cell_id, which B1 and B2 share and which is unchanged;
-// the reference's XLA multiplies by the reciprocal here too, which
-// differs only where the cell size is not a power of two: ROADMAP Queue
-// C).  cell_id_fast multiplies by the reciprocal instead and floors that,
-// unless the product lies within 2^-15 of an integer, where it falls back
-// to cell_id's division.  The product q differs from the rounded quotient
-// by at most 3.1 * 2^-24 |q| (the roundings of the reciprocal and of the
-// product, and the quotient's own), which is under 2^-15 for q < 33, so
-// both floor to the same value; where q >= res_c both clip to res_c - 1,
-// and a negative q clips to 0 like the quotient, which has its sign.  The
-// test of the distance to an integer is exact for q >= 0 (Sterbenz).
-// Subnormal and non-finite products take the division.  chip_smoke.py
-// holds the two bit-equal through tnerf_cell_id_check (tighten.cu) over
-// 2e7 arguments and every cell boundary +- 4 ulp.
+// The cell ids are coarse.cuh's: a multiply by the reciprocal of the cell
+// size, which is what the reference's XLA computes for its division.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -65,63 +52,14 @@ __device__ __forceinline__ RayGeom load_ray(const float* o, const float* d, int 
   return RayGeom{o[3 * r], o[3 * r + 1], o[3 * r + 2], d[3 * r], d[3 * r + 1], d[3 * r + 2]};
 }
 
-// A cell size's reciprocal; NaN where it is not a normal float, which
-// sends every cell id of that axis to the division.
-__device__ __forceinline__ float usable_rcp(float cell) {
-  const float r = __frcp_rn(cell);
-  return (isfinite(r) && fabsf(r) >= 1.17549435e-38f) ? r : __int_as_float(0x7fffffff);
-}
-
-// The reciprocals a launch needs: of the probe count and of the cell sizes.
-struct ProbeRcp {
-  float probes, x, y, z;
-};
-
-__device__ __forceinline__ ProbeRcp probe_rcp(const Coarse& g, int probes) {
-  return ProbeRcp{__frcp_rn((float)probes), usable_rcp(g.cell_x), usable_rcp(g.cell_y),
-                  usable_rcp(g.cell_z)};
-}
-
-// floor((p - lo) * rcp) in fl; false where the product lies within 2^-15 of
-// an integer (or is not finite), where only the division decides.  The
-// floor is taken without a conversion instruction: q - 0.5 + 1.5 * 2^23
-// rounds to an integer, and where q is at least 2^-15 from one that
-// integer is floor(q) for |q| < 33 (for larger |q| every candidate clips
-// alike); where it is not, q - fl falls outside (2^-15, 1 - 2^-15).
-__device__ __forceinline__ bool floor_by_rcp(float p, float lo, float rcp, float& fl) {
-  const float q = __fmul_rn(__fsub_rn(p, lo), rcp);
-  const float m = 12582912.0f;  // 1.5 * 2^23
-  fl = __fsub_rn(__fadd_rn(__fsub_rn(q, 0.5f), m), m);
-  return fabsf(__fsub_rn(__fsub_rn(q, fl), 0.5f)) < 0.5f - 0x1p-15f;
-}
-
-// coarse.cuh's cell_id, bit for bit, mostly without its division.
-__device__ __forceinline__ int cell_id_fast(float p, float lo, float cell, float rcp, int res_c) {
-  float fl;
-  if (floor_by_rcp(p, lo, rcp, fl)) return (int)fminf(fmaxf(fl, 0.0f), (float)(res_c - 1));
-  return cell_id(p, lo, cell, res_c);
-}
-
 // The occupancy bit at depth t of the ray (position o + d t, rounded op by
-// op): coarse.cuh's occ_bit, its cell ids by cell_id_fast.  The flat cell
-// index is formed in floats (exact: integers below 2^15) and read out of
-// the bits of flat + 2^23, so a probe takes no conversion instruction.
-__device__ __forceinline__ bool occ_at(const uint32_t* words, const Coarse& g, const ProbeRcp& rc,
-                                       const RayGeom& r, float t) {
+// op): coarse.cuh's occ_bit.
+__device__ __forceinline__ bool occ_at(const uint32_t* words, const Coarse& g, const RayGeom& r,
+                                       float t) {
   const float x = __fadd_rn(r.ox, __fmul_rn(r.dx, t));
   const float y = __fadd_rn(r.oy, __fmul_rn(r.dy, t));
   const float z = __fadd_rn(r.oz, __fmul_rn(r.dz, t));
-  float fx, fy, fz;
-  const bool fast = floor_by_rcp(x, g.lo_x, rc.x, fx) & floor_by_rcp(y, g.lo_y, rc.y, fy) &
-                    floor_by_rcp(z, g.lo_z, rc.z, fz);
-  if (!fast) return occ_bit(words, g, x, y, z);
-  const float top = (float)(g.res_c - 1), rcf = (float)g.res_c;
-  fx = fminf(fmaxf(fx, 0.0f), top);
-  fy = fminf(fmaxf(fy, 0.0f), top);
-  fz = fminf(fmaxf(fz, 0.0f), top);
-  const float flat = __fmaf_rn(__fmaf_rn(fx, rcf, fy), rcf, fz);
-  const int cflat = __float_as_int(__fadd_rn(flat, 8388608.0f)) & 0x7fffff;
-  return (words[cflat >> 5] >> (cflat & 31)) & 1u;
+  return occ_bit(words, g, x, y, z);
 }
 
 // The G lanes of one warp that serve one ray.
@@ -144,14 +82,14 @@ struct LaneGroup {
 
 template <int G>
 __device__ __forceinline__ void probe_tighten(const uint32_t* words, const Coarse& g,
-                                              const ProbeRcp& rc, const RayGeom& r, float te,
+                                              float rcp_probes, const RayGeom& r, float te,
                                               float tx, int probes, float pad_diag,
                                               const LaneGroup<G>& lg, float& t0, float& t1) {
   const float span = fmaxf(__fsub_rn(tx, te), 0.0f);
-  const float step = __fmul_rn(span, rc.probes);
+  const float step = __fmul_rn(span, rcp_probes);
   // the depth of probe i, given i + 0.5 as a float (exact below 2^23)
   auto depth = [&](float i_half) {
-    return __fadd_rn(te, __fmul_rn(span, __fmul_rn(i_half, rc.probes)));
+    return __fadd_rn(te, __fmul_rn(span, __fmul_rn(i_half, rcp_probes)));
   };
   int first = -1, last = -1;
   if (span > 0.0f) {
@@ -159,7 +97,7 @@ __device__ __forceinline__ void probe_tighten(const uint32_t* words, const Coars
     int base = 0;
     float fi = (float)lg.lane + 0.5f;
     for (; base < probes; base += G, fi = __fadd_rn(fi, (float)G)) {  // forward
-      bits = lg.ballot(base + lg.lane < probes && occ_at(words, g, rc, r, depth(fi)));
+      bits = lg.ballot(base + lg.lane < probes && occ_at(words, g, r, depth(fi)));
       if (bits) break;
     }
     if (bits) {
@@ -168,7 +106,7 @@ __device__ __forceinline__ void probe_tighten(const uint32_t* words, const Coars
       const int above = base + G;  // backward, over the probes above the kept round
       fi = (float)(probes - 1 - lg.lane) + 0.5f;
       for (int top = probes - 1; top >= above; top -= G, fi = __fsub_rn(fi, (float)G)) {
-        const unsigned b = lg.ballot(top - lg.lane >= above && occ_at(words, g, rc, r, depth(fi)));
+        const unsigned b = lg.ballot(top - lg.lane >= above && occ_at(words, g, r, depth(fi)));
         if (b) {
           last = top - (__ffs(b) - 1);
           break;

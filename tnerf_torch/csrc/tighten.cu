@@ -38,10 +38,9 @@
 //   warp wait for it.  The probes of a ray run side by side;
 // - the scan of probe.cuh stops at the first and the last occupied probe;
 // - no division in the loop: the probe fraction multiplies by the
-//   reciprocal of the probe count, as the reference's XLA does, and cell
-//   ids multiply by the cell size's reciprocal where that cannot change
-//   them (probe.cuh); the division is left for products within 2^-15 of
-//   a cell boundary.
+//   reciprocal of the probe count and the cell ids by the reciprocal of
+//   the cell size, as the reference's XLA computes its divisions by these
+//   constants (probe.cuh, coarse.cuh).
 // What is left is instruction issue over the probes the scan evaluates,
 // and the launch.
 //
@@ -65,12 +64,11 @@ using tnerf::Coarse;
 using tnerf::kWords;
 constexpr int kThreads = 256;
 
-// Stage the bitfield; returns the launch's reciprocals.
-__device__ __forceinline__ tnerf::ProbeRcp stage(uint32_t* words, const uint32_t* words_in,
-                                                 const Coarse& g, int probes) {
+// Stage the bitfield; returns RN(1 / probes).
+__device__ __forceinline__ float stage(uint32_t* words, const uint32_t* words_in, int probes) {
   for (int i = threadIdx.x; i < kWords; i += kThreads) words[i] = words_in[i];
   __syncthreads();
-  return tnerf::probe_rcp(g, probes);
+  return __frcp_rn((float)probes);
 }
 
 template <int G>
@@ -80,13 +78,13 @@ tighten_kernel(const float* __restrict__ o, const float* __restrict__ d,
                const uint32_t* __restrict__ words_in, float* __restrict__ t0_out,
                float* __restrict__ t1_out, int n, Coarse g, int probes, float pad_diag) {
   __shared__ uint32_t words[kWords];
-  const tnerf::ProbeRcp rc = stage(words, words_in, g, probes);
+  const float rcp_probes = stage(words, words_in, probes);
   const int r = (blockIdx.x * kThreads + threadIdx.x) / G;
   if (r >= n) return;  // whole groups: a group serves one ray
   const tnerf::LaneGroup<G> lg;
   float t0, t1;
-  tnerf::probe_tighten<G>(words, g, rc, tnerf::load_ray(o, d, r), te_in[r], tx_in[r], probes,
-                          pad_diag, lg, t0, t1);
+  tnerf::probe_tighten<G>(words, g, rcp_probes, tnerf::load_ray(o, d, r), te_in[r], tx_in[r],
+                          probes, pad_diag, lg, t0, t1);
   if (lg.lane == 0) {
     t0_out[r] = t0;
     t1_out[r] = t1;
@@ -101,13 +99,14 @@ tighten_mask_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     float* __restrict__ t1_out, uint8_t* __restrict__ mask_out, int n, Coarse g,
                     int probes, float pad_diag, int n_samples) {
   __shared__ uint32_t words[kWords];
-  const tnerf::ProbeRcp rc = stage(words, words_in, g, probes);
+  const float rcp_probes = stage(words, words_in, probes);
   const int r = (blockIdx.x * kThreads + threadIdx.x) / G;
   if (r >= n) return;
   const tnerf::LaneGroup<G> lg;
   const tnerf::RayGeom ray = tnerf::load_ray(o, d, r);
   float t0, t1;
-  tnerf::probe_tighten<G>(words, g, rc, ray, te_in[r], tx_in[r], probes, pad_diag, lg, t0, t1);
+  tnerf::probe_tighten<G>(words, g, rcp_probes, ray, te_in[r], tx_in[r], probes, pad_diag, lg,
+                          t0, t1);
   if (lg.lane == 0) {
     t0_out[r] = t0;
     t1_out[r] = t1;
@@ -118,7 +117,7 @@ tighten_mask_kernel(const float* __restrict__ o, const float* __restrict__ d,
   const float dt = __fmul_rn(__fsub_rn(t1, t0), __frcp_rn((float)n_samples));
   auto bit = [&](int s) -> uint32_t {
     const float t = __fadd_rn(t0, __fmul_rn(dt, __fadd_rn((float)s, 0.5f)));
-    return (open && tnerf::occ_at(words, g, rc, ray, t)) ? 1u : 0u;
+    return (open && tnerf::occ_at(words, g, ray, t)) ? 1u : 0u;
   };
   uint8_t* row = mask_out + (size_t)r * n_samples;
   // stores: a byte to a 2-byte boundary, `pairs` 2-byte stores, a tail byte
@@ -136,18 +135,12 @@ tighten_mask_kernel(const float* __restrict__ o, const float* __restrict__ d,
   }
 }
 
-// coarse.cuh's cell_id and probe.cuh's cell_id_fast on n arguments, and
-// whether cell_id_fast took the division (chip_smoke.py compares them).
-__global__ void cell_id_check_kernel(const float* __restrict__ p, int* __restrict__ fast,
-                                     int* __restrict__ exact, uint8_t* __restrict__ divided,
-                                     int n, float lo, float cell, int res_c) {
-  const float rcp = tnerf::usable_rcp(cell);
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
-    float fl;
-    fast[i] = tnerf::cell_id_fast(p[i], lo, cell, rcp, res_c);
-    exact[i] = tnerf::cell_id(p[i], lo, cell, res_c);
-    divided[i] = !tnerf::floor_by_rcp(p[i], lo, rcp, fl);
-  }
+// coarse.cuh's cell id of n coordinates (chip_smoke.py holds it against the
+// plain version's arithmetic, tighten.py:cell_ids, on the card).
+__global__ void cell_id_check_kernel(const float* __restrict__ p, int* __restrict__ ids, int n,
+                                     float lo, float rcp, int res_c) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x)
+    ids[i] = tnerf::cell_id(p[i], lo, rcp, res_c);
 }
 
 int blocks_for(int n, int group) {
@@ -168,9 +161,9 @@ int blocks_for(int n, int group) {
 extern "C" int tnerf_tighten_range(const float* o, const float* d, const float* te,
                                    const float* tx, const int32_t* words, float* t0,
                                    float* t1, int n, int res_c, float lo_x, float lo_y,
-                                   float lo_z, float cell_x, float cell_y, float cell_z,
+                                   float lo_z, float rcp_x, float rcp_y, float rcp_z,
                                    int probes, float pad_diag, int group, void* stream) {
-  Coarse g{res_c, lo_x, lo_y, lo_z, cell_x, cell_y, cell_z};
+  Coarse g{res_c, lo_x, lo_y, lo_z, rcp_x, rcp_y, rcp_z};
 #define LAUNCH(G)                                                                         \
   tighten_kernel<G><<<blocks_for(n, G), kThreads, 0, (cudaStream_t)stream>>>(            \
       o, d, te, tx, reinterpret_cast<const uint32_t*>(words), t0, t1, n, g, probes, pad_diag)
@@ -183,9 +176,9 @@ extern "C" int tnerf_tighten_sample_mask(const float* o, const float* d, const f
                                          const float* tx, const int32_t* words, float* t0,
                                          float* t1, uint8_t* mask, int n, int n_samples,
                                          int res_c, float lo_x, float lo_y, float lo_z,
-                                         float cell_x, float cell_y, float cell_z, int probes,
+                                         float rcp_x, float rcp_y, float rcp_z, int probes,
                                          float pad_diag, int group, void* stream) {
-  Coarse g{res_c, lo_x, lo_y, lo_z, cell_x, cell_y, cell_z};
+  Coarse g{res_c, lo_x, lo_y, lo_z, rcp_x, rcp_y, rcp_z};
 #define LAUNCH(G)                                                                         \
   tighten_mask_kernel<G><<<blocks_for(n, G), kThreads, 0, (cudaStream_t)stream>>>(       \
       o, d, te, tx, reinterpret_cast<const uint32_t*>(words), t0, t1, mask, n, g, probes, \
@@ -195,9 +188,8 @@ extern "C" int tnerf_tighten_sample_mask(const float* o, const float* d, const f
   return (int)cudaGetLastError();
 }
 
-extern "C" int tnerf_cell_id_check(const float* p, int* fast, int* exact, uint8_t* divided,
-                                   int n, float lo, float cell, int res_c, void* stream) {
-  cell_id_check_kernel<<<1024, 256, 0, (cudaStream_t)stream>>>(p, fast, exact, divided, n, lo,
-                                                               cell, res_c);
+extern "C" int tnerf_cell_id_check(const float* p, int* ids, int n, float lo, float rcp,
+                                   int res_c, void* stream) {
+  cell_id_check_kernel<<<1024, 256, 0, (cudaStream_t)stream>>>(p, ids, n, lo, rcp, res_c);
   return (int)cudaGetLastError();
 }

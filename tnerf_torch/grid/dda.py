@@ -11,11 +11,16 @@ plane; without one every cell counts as occupied.
 
 Rounding decides cells (a one-ulp change of a crossing depth flips the tie
 rule x before y before z), so the plain version and the CUDA kernel
-(`tnerf_torch/csrc/dda.cu`) round every product, sum and quotient
-separately, in the reference's association, with a true division by the
-cell size: the kernel is bit-equal to the plain version, which is bit-equal
-to the reference kernel.  Every constant that enters a division is a tensor
-on the data's device, as in `grid/tighten.py`.
+(`tnerf_torch/csrc/dda.cu`) round every product and sum separately, in the
+reference's association: the kernel is bit-equal to the plain version,
+which is bit-equal to the reference kernel.  The reference's cell ids
+divide by the cell size, a constant, which its XLA computes as a multiply
+by the float32 reciprocal RN(1 / h); so do both versions here, with the
+reciprocal as a tensor on the data's device (`grid/traversal.py`).
+
+The kernel gives each ray one thread; `block_shape` sizes its blocks from
+the card's SM count so that every SM has one at the intervals training
+batch (4096 rays).
 
 `march_raw` takes the plain version for CPU tensors and launches the kernel
 for CUDA tensors; there is no fallback between the two.
@@ -23,13 +28,14 @@ for CUDA tensors; there is no fallback between the two.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
-from tnerf_torch.grid.tighten import pack_words_rows
-from tnerf_torch.grid.traversal import Intervals, make_coarse_occupancy, ray_aabb
+from tnerf_torch.grid.tighten import _card_slots, pack_words_rows
+from tnerf_torch.grid.traversal import Intervals, cell_size, make_coarse_occupancy, ray_aabb
 from tnerf_torch.kernels import build
 
 EPS = 1e-6  # the walk's re-entry offset
@@ -43,11 +49,26 @@ def pack_coarse_words(occ_coarse: torch.Tensor) -> torch.Tensor:
 
 
 def _grid_constants(grid, coarse_factor: int):
-    """(lo, h, ch) numpy float32 [3]: box corner, fine and coarse cell size."""
+    """(lo, h, ch, rcp) numpy float32 [3]: box corner, fine and coarse cell
+    size, and RN(1 / h)."""
     lo = np.asarray(grid.aabb_min, np.float32)
-    hi = np.asarray(grid.aabb_max, np.float32)
-    h = (hi - lo) / np.float32(grid.resolution)
-    return lo, h, h * np.float32(coarse_factor)
+    h = cell_size(grid, grid.resolution)
+    return lo, h, h * np.float32(coarse_factor), np.float32(1.0) / h
+
+
+MAX_THREADS = 256  # the kernel's launch bound
+
+
+def block_shape(n_rays: int, n_sms: int) -> tuple:
+    """(threads per block, blocks) of the B5 kernel for n_rays rays on a
+    card of n_sms SMs.  A ray is one thread, and at small batches a warp
+    waits on its own walk step after step, so the rays are spread over
+    every SM: the threads per block are n_rays / n_sms rounded down to a
+    multiple of 8 (so that a block's stores start on a 32-byte sector),
+    at least 8 and at most 256.  At 4096 rays on 132 SMs: 24 threads, 171
+    blocks."""
+    threads = min(MAX_THREADS, max(8, 8 * (n_rays // (8 * max(n_sms, 1)))))
+    return threads, -(-n_rays // threads)
 
 
 def _ray_setup(origins, directions, grid):
@@ -61,11 +82,20 @@ def _ray_setup(origins, directions, grid):
     return o, d_safe, (1.0 / d_safe).contiguous(), t_enter, t_exit.contiguous()
 
 
-def _coarse_words(occupancy, res: int, coarse_factor: int):
-    if res % coarse_factor or res // coarse_factor > 32:
+def check_walk(res: int, coarse_factor: int, steps: int, skipping: bool) -> None:
+    """Refuse what the walk does not take: fewer than one step, and for the
+    skipping walk a coarse factor that does not divide the resolution or
+    leaves more than 32^3 coarse cells (the bitfield's 1024 words)."""
+    if skipping and (coarse_factor < 1 or res % coarse_factor or res // coarse_factor > 32):
         raise ValueError(
             f"coarse grid {res}/{coarse_factor}: the factor must divide the resolution and "
             "leave at most 32^3 coarse cells")
+    if steps < 1:
+        raise ValueError(f"the walk needs steps >= 1, got {steps}")
+
+
+def _coarse_words(occupancy, res: int, coarse_factor: int):
+    check_walk(res, coarse_factor, 1, True)
     return pack_coarse_words(make_coarse_occupancy(occupancy.reshape(res, res, res),
                                                    coarse_factor))
 
@@ -75,8 +105,9 @@ def dda_steps_plain(o, d_safe, inv_d, t_enter, t_exit, words, res: int, coarse_f
     """The kernel's arithmetic, step by step on tensors (any device):
     steps-major (t0 [steps, B] f32, cells [steps, B] int32).  words: the
     coarse bitfield, or None for the dense walk."""
+    check_walk(res, coarse_factor, steps, words is not None)
     dev = o.device
-    lo, h, ch = _grid_constants(grid, coarse_factor)
+    lo, h, ch, rcp = _grid_constants(grid, coarse_factor)
     f32 = lambda v: torch.tensor(float(v), dtype=torch.float32, device=dev)
     eps, tiny = f32(EPS), f32(1e-7)
     cres = res // coarse_factor
@@ -86,7 +117,7 @@ def dda_steps_plain(o, d_safe, inv_d, t_enter, t_exit, words, res: int, coarse_f
     sign = [2 * p - 1 for p in pos]
 
     def cell_of(a, t, lo_clip, hi_clip):
-        c = torch.floor((ox[a] + dx[a] * t - f32(lo[a])) / f32(h[a]))
+        c = torch.floor((ox[a] + dx[a] * t - f32(lo[a])) * f32(rcp[a]))
         # clamp before the int conversion: out-of-range floats saturate
         c = torch.clamp(c, float(lo_clip), float(hi_clip)).to(torch.int32)
         return c
@@ -130,11 +161,18 @@ def dda_steps_plain(o, d_safe, inv_d, t_enter, t_exit, words, res: int, coarse_f
     return torch.stack(t0s), torch.stack(cells)
 
 
+@functools.lru_cache(maxsize=None)
+def _grid_floats(grid, coarse_factor: int):
+    """lo, h, ch and 1 / h (xyz each) as the launch function takes them."""
+    return tuple(float(v) for a in _grid_constants(grid, coarse_factor) for v in a)
+
+
 def dda_steps(o, d_safe, inv_d, t_enter, t_exit, words, res: int, coarse_factor: int,
               steps: int, grid):
     """The B5 kernel on prepared CUDA tensors: o, d_safe, inv_d [B, 3],
     t_enter, t_exit [B] f32, words int32 [1024] or None (dense walk) ->
     (t0 [steps, B] f32, cells [steps, B] int32)."""
+    check_walk(res, coarse_factor, steps, words is not None)
     dev = o.device
     if dev.type != "cuda":
         raise ValueError(f"dda_steps: the kernel needs CUDA tensors, got {dev}")
@@ -145,23 +183,18 @@ def dda_steps(o, d_safe, inv_d, t_enter, t_exit, words, res: int, coarse_factor:
         build.check_tensor(name, t, (B,), torch.float32, dev)
     if words is not None:
         build.check_tensor("words", words, (1024,), torch.int32, dev)
-        if res % coarse_factor or res // coarse_factor > 32:
-            raise ValueError(f"dda_steps: coarse grid {res}/{coarse_factor} is not a cubic grid "
-                             "of at most 32^3 cells")
-    if steps < 1:
-        raise ValueError(f"dda_steps: steps={steps} must be >= 1")
     t0 = torch.empty((steps, B), dtype=torch.float32, device=dev)
     cells = torch.empty((steps, B), dtype=torch.int32, device=dev)
     if B == 0:
         return t0, cells
-    lo, h, ch = _grid_constants(grid, coarse_factor)
     lib = build.library()
     with torch.cuda.device(dev):
+        threads, _ = block_shape(B, _card_slots(torch.cuda.current_device())[0])
         err = lib.tnerf_dda_march(
             o.data_ptr(), d_safe.data_ptr(), inv_d.data_ptr(), t_enter.data_ptr(),
             t_exit.data_ptr(), words.data_ptr() if words is not None else None,
             t0.data_ptr(), cells.data_ptr(), B, steps, res, coarse_factor,
-            int(words is not None), *(float(v) for v in (*lo, *h, *ch)),
+            int(words is not None), *_grid_floats(grid, coarse_factor), threads,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(err, "tnerf_dda_march")

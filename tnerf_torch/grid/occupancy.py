@@ -9,6 +9,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from tnerf_torch.grid.traversal import cell_size
+
 
 class OccupancyGridState(NamedTuple):
     density_ema: torch.Tensor  # [res, res, res] f32
@@ -31,10 +33,10 @@ def cell_centers(grid, device="cpu") -> torch.Tensor:
     """[res, res, res, 3] world-space cell centers."""
     res = grid.resolution
     lo = torch.as_tensor(grid.aabb_min, dtype=torch.float32, device=device)
-    hi = torch.as_tensor(grid.aabb_max, dtype=torch.float32, device=device)
+    h = torch.tensor(cell_size(grid, res), device=device)
     idx = torch.arange(res, dtype=torch.float32, device=device) + 0.5
     ii, jj, kk = torch.meshgrid(idx, idx, idx, indexing="ij")
-    return lo + (hi - lo) / res * torch.stack([ii, jj, kk], dim=-1)
+    return lo + h * torch.stack([ii, jj, kk], dim=-1)
 
 
 def ema_threshold_update(density_ema: torch.Tensor, sigma: torch.Tensor, grid) -> tuple:
@@ -56,13 +58,11 @@ def update_occupancy(state: OccupancyGridState, density_fn, grid,
     implementations can be fed the same points)."""
     res = grid.resolution
     dev = state.density_ema.device
-    lo = torch.as_tensor(grid.aabb_min, dtype=torch.float32, device=dev)
-    hi = torch.as_tensor(grid.aabb_max, dtype=torch.float32, device=dev)
     centers = cell_centers(grid, dev)
     if jitter is None:
         jitter = torch.rand(centers.shape, generator=generator, dtype=torch.float32,
                             device=dev) - 0.5
-    points = centers + jitter * ((hi - lo) / res)
+    points = centers + jitter * torch.tensor(cell_size(grid, res), device=dev)
     sigma = density_fn(points.reshape(-1, 3)).reshape(res, res, res)
     ema, bits = ema_threshold_update(state.density_ema, sigma, grid)
     return OccupancyGridState(density_ema=ema, bitfield=bits, step=state.step + 1)

@@ -13,16 +13,12 @@ midpoints of the tightened span.
 The result must be bit-exact with the reference, so the plain version
 and the CUDA kernels (`tnerf_torch/csrc/tighten.cu`, `probe.cuh`) round
 every multiply and add separately, in the reference's association.  The
-probe fraction, step and midpoint spacing multiply by the float32
-reciprocal of the probe or sample count, as the reference's XLA computes
-its division by that constant (`reciprocal`).  Cell ids are floor((p -
-lo) / cell) with a correctly rounded division, as everywhere in the port
-(the kernels multiply by the reciprocal only where that cannot change
-the cell id, `probe.cuh`); the reference's XLA multiplies there too,
-which differs only where the cell size is not a power of two (ROADMAP
-Queue C).  Every constant that enters a division is a tensor on the
-data's device: PyTorch's CUDA division by a Python scalar multiplies by
-its reciprocal, which is not bit-exact.
+reference divides by constants: the probe or sample count and the cell
+size.  XLA computes each such division as a multiply by the constant's
+float32 reciprocal, so the port multiplies by it (`reciprocal`, as a
+tensor on the data's device): the probe fraction, step and midpoint
+spacing by RN(1 / count), the cell ids floor((p - lo) * RN(1 / cell))
+(`cell_ids`; the kernels take the reciprocals from the host).
 
 The kernels give each ray a group of G lanes (`lane_group`), which scan
 the probes in rounds of G from the front to the first occupied probe and
@@ -41,6 +37,7 @@ import functools
 import numpy as np
 import torch
 
+from tnerf_torch.grid.traversal import reciprocal
 from tnerf_torch.kernels import build
 
 WORDS = 1024  # 32^3 bits as 1024 int32 words (the TPU's [8, 128] words, row-major)
@@ -63,39 +60,38 @@ def pack_words_rows(occ_coarse: torch.Tensor) -> torch.Tensor:
 
 def coarse_constants(grid, res_c: int):
     """(lo, cell_c, fine_diag) computed in numpy float32 / Python float
-    exactly as `pallas_dda.tighten_range_pallas` does (:538-542)."""
+    exactly as `pallas_dda.tighten_range_pallas` does (:538-542).  The
+    reference's kernels divide by cell_c, which its XLA computes as a
+    multiply by RN(1 / cell_c); so does the port (`occ_bit`, the kernels)."""
     lo = np.asarray(grid.aabb_min, np.float32)
     hi = np.asarray(grid.aabb_max, np.float32)
-    cell_c = (hi - lo) / res_c
+    cell_c = (hi - lo) / np.float32(res_c)
     fine_diag = float(np.linalg.norm((hi - lo) / grid.resolution))
     return lo, cell_c, fine_diag
 
 
+def cell_ids(p, lo_a: float, rcp_a: float, res_c: int):
+    """clip(floor((p - lo) * rcp), 0, res_c - 1) int32: the coarse cell id
+    of one coordinate (the reference's `(p - lo) / cell` as its XLA
+    computes it)."""
+    lo_t = torch.tensor(lo_a, dtype=torch.float32, device=p.device)
+    rcp_t = torch.tensor(rcp_a, dtype=torch.float32, device=p.device)
+    # clamp before the int conversion: out-of-range floats saturate, as
+    # XLA's conversion does, instead of wrapping
+    c = torch.clamp(torch.floor((p - lo_t) * rcp_t), -1.0, float(res_c))
+    return torch.clamp(c.to(torch.int32), 0, res_c - 1)
+
+
 def occ_bit(x, y, z, words, res_c: int, lo, cell_c):
     """Point test against a pack_words_rows bitfield (the reference's
-    `_occ_bit_rows`, :372): cell id = clip(floor((p - lo) / cell), 0,
-    res_c - 1), flattened (i * res_c + j) * res_c + k."""
-    def cell(p, a):
-        lo_a = torch.tensor(lo[a], dtype=torch.float32, device=p.device)
-        cell_a = torch.tensor(cell_c[a], dtype=torch.float32, device=p.device)
-        # clamp before the int conversion: out-of-range floats saturate,
-        # as XLA's conversion does, instead of wrapping
-        c = torch.clamp(torch.floor((p - lo_a) / cell_a), -1.0, float(res_c))
-        return torch.clamp(c.to(torch.int32), 0, res_c - 1)
-
-    cflat = (cell(x, 0) * res_c + cell(y, 1)) * res_c + cell(z, 2)
+    `_occ_bit_rows`, :372): the cell ids `cell_ids` of the three
+    coordinates by the reciprocals RN(1 / cell_c), flattened (i * res_c +
+    j) * res_c + k."""
+    rcp = np.float32(1.0) / np.asarray(cell_c, np.float32)
+    cflat = (cell_ids(x, lo[0], rcp[0], res_c) * res_c + cell_ids(y, lo[1], rcp[1], res_c)) \
+        * res_c + cell_ids(z, lo[2], rcp[2], res_c)
     w = words[(cflat >> 5).long()]
     return ((w >> (cflat & 31)) & 1) > 0
-
-
-def reciprocal(v, dev) -> torch.Tensor:
-    """1 / v rounded once to float32, as a tensor on dev.  The reference
-    divides by constants (`span / probes`, `(i + 0.5) / probes`, `(t1 -
-    t0) / n_samples`), and XLA's algebraic simplifier turns x / c for a
-    constant c into x * (1 / c), in interpret mode too; so the port
-    multiplies by this.  For a power of two it equals the division."""
-    with np.errstate(divide="ignore"):
-        return torch.tensor(np.float32(1.0) / np.float32(v), dtype=torch.float32, device=dev)
 
 
 def tighten_range_plain(o, d, te, tx, words, res_c: int, grid, probes: int = 256):
@@ -226,12 +222,13 @@ def _check_ray_inputs(o, d, te, tx, words):
 
 @functools.lru_cache(maxsize=None)
 def _coarse_floats(grid, res_c: int):
-    """(lo xyz, cell xyz, fine_diag) as the launch functions take them,
+    """(lo xyz, 1 / cell xyz, fine_diag) as the launch functions take them,
     computed once per (grid, res_c): the wrappers run in every train step
     and view chunk, and the steps are host-bound."""
     lo, cell_c, fine_diag = coarse_constants(grid, res_c)
+    rcp = np.float32(1.0) / cell_c
     f = lambda v: float(np.float32(v))
-    return (f(lo[0]), f(lo[1]), f(lo[2]), f(cell_c[0]), f(cell_c[1]), f(cell_c[2])), f(fine_diag)
+    return (f(lo[0]), f(lo[1]), f(lo[2]), f(rcp[0]), f(rcp[1]), f(rcp[2])), f(fine_diag)
 
 
 @functools.lru_cache(maxsize=None)

@@ -5,12 +5,24 @@ The reference's `*_lookup_matmul` / `*_lookup_fast` are one-hot matrix
 products that stand in for a gather on a machine where gathers are dear;
 here a lookup is the gather through `cell_flat_index`.  The reference's
 `lax.scan` walks have one counterpart, the step walk of `grid/dda.py`,
-which CUDA tensors run as kernel B5."""
+which CUDA tensors run as kernel B5.
+
+Divisions by a constant.  The reference divides by compile-time constants
+(a cell size, a probe or sample count) inside jitted steps and Pallas
+kernels, and XLA's algebraic simplifier rewrites x / c there into x *
+RN(1 / c), the reciprocal rounded once to float32 (under jit, and in
+interpret mode too).  The port multiplies by that reciprocal
+(`reciprocal`), as a tensor on the data's device, so that the CPU and
+the card compute the same: PyTorch divides exactly on the CPU and, by a
+Python scalar, multiplies by the reciprocal on the card.  For a power of
+two the multiply equals the division."""
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -23,6 +35,27 @@ class Intervals(NamedTuple):
     mask: torch.Tensor      # [..., H] bool
     t_enter: torch.Tensor   # [...] f32 entry depth into the grid box
     t_exit: torch.Tensor    # [...] f32 exit depth
+
+
+@functools.lru_cache(maxsize=None)
+def reciprocal(v, dev) -> torch.Tensor:
+    """1 / v rounded once to float32, as a tensor on dev: what the
+    reference's XLA multiplies by where its source divides by the constant
+    v (a cell size, a probe or sample count).  Cached, so that a step does
+    not copy it to the card again; callers only read it."""
+    with np.errstate(divide="ignore"):
+        return torch.tensor(np.float32(1.0) / np.float32(v), dtype=torch.float32, device=dev)
+
+
+@functools.lru_cache(maxsize=None)
+def cell_size(grid, res: int) -> np.ndarray:
+    """[3] float32 (hi - lo) / res, rounded as the reference's constant
+    (read-only: it is cached)."""
+    lo = np.asarray(grid.aabb_min, np.float32)
+    hi = np.asarray(grid.aabb_max, np.float32)
+    h = (hi - lo) / np.float32(res)
+    h.setflags(write=False)
+    return h
 
 
 def ray_aabb(origins, directions, aabb_min, aabb_max):
@@ -50,11 +83,13 @@ def make_coarse_occupancy(occupancy, factor: int):
 
 
 def cell_flat_index(positions, res: int, grid):
-    """(inside, flat) nearest-cell arithmetic: divide by the cell size,
-    floor, clip, flatten as (i * res + j) * res + k."""
-    lo = torch.as_tensor(grid.aabb_min, dtype=torch.float32, device=positions.device)
-    hi = torch.as_tensor(grid.aabb_max, dtype=torch.float32, device=positions.device)
-    ijk = torch.floor((positions - lo) / ((hi - lo) / res)).to(torch.int32)
+    """(inside, flat) nearest-cell arithmetic: multiply by the reciprocal
+    of the cell size (the reference's jitted `(p - lo) / cell`), floor,
+    clip, flatten as (i * res + j) * res + k."""
+    dev = positions.device
+    lo = torch.as_tensor(grid.aabb_min, dtype=torch.float32, device=dev)
+    rcp = torch.as_tensor(np.float32(1.0) / cell_size(grid, res), device=dev)
+    ijk = torch.floor((positions - lo) * rcp).to(torch.int32)
     inside = torch.all((ijk >= 0) & (ijk < res), dim=-1)
     ijk = torch.clamp(ijk, 0, res - 1).long()
     flat = (ijk[..., 0] * res + ijk[..., 1]) * res + ijk[..., 2]
@@ -93,7 +128,7 @@ def march_samples_t(t_enter, t_exit, n_samples: int, jitter: Optional[torch.Tens
     (t [..., S], delta [..., S]); jitter [..., S] in [0, 1) places each
     sample within its stratum, else at its midpoint."""
     span = torch.clamp_min(t_exit - t_enter, 0.0)
-    dt = span / n_samples
+    dt = span * reciprocal(n_samples, span.device)
     frac = torch.arange(n_samples, dtype=torch.float32, device=t_enter.device)
     frac = frac + 0.5 if jitter is None else frac + jitter
     t = t_enter[..., None] + dt[..., None] * frac
@@ -110,16 +145,16 @@ def tightened_range(origins, directions, t_enter, t_exit, occupancy, grid, probe
     bitfield with their own rounding."""
     span = torch.clamp_min(t_exit - t_enter, 0.0)
     dev = origins.device
-    frac = (torch.arange(probes, dtype=torch.float32, device=dev) + 0.5) / probes
+    rcp = reciprocal(probes, dev)
+    frac = (torch.arange(probes, dtype=torch.float32, device=dev) + 0.5) * rcp
     t = t_enter[..., None] + span[..., None] * frac
     pts = origins[..., None, :] + directions[..., None, :] * t[..., None]
     occ = occupancy_lookup(pts, occupancy, grid)
     inf = torch.full_like(t, float("inf"))
     t_first = torch.amin(torch.where(occ, t, inf), dim=-1)
     t_last = torch.amax(torch.where(occ, t, -inf), dim=-1)
-    lo = torch.as_tensor(grid.aabb_min, dtype=torch.float32, device=dev)
-    hi = torch.as_tensor(grid.aabb_max, dtype=torch.float32, device=dev)
-    pad = span / probes + torch.linalg.norm((hi - lo) / grid.resolution)
+    pad = span * rcp + torch.linalg.norm(torch.tensor(cell_size(grid, grid.resolution),
+                                                      device=dev))
     hit = t_last >= t_first
     t0 = torch.where(hit, torch.maximum(t_first - pad, t_enter), t_enter)
     t1 = torch.where(hit, torch.minimum(t_last + pad, t_exit), t_exit)

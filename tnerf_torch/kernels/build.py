@@ -27,30 +27,30 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]  # never --use_fast_math
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 PROTOTYPES = {
-    # o, d, te, tx, words, t0, t1, n, res_c, lo xyz, cell xyz, probes, pad_diag, lanes per
-    # ray, stream
+    # o, d, te, tx, words, t0, t1, n, res_c, lo xyz, 1 / cell xyz, probes, pad_diag, lanes
+    # per ray, stream
     "tnerf_tighten_range": [P] * 7 + [I, I] + [F] * 6 + [I, F, I, P],
-    # o, d, te, tx, words, t0, t1, mask, n, n_samples, res_c, lo xyz, cell xyz, probes,
+    # o, d, te, tx, words, t0, t1, mask, n, n_samples, res_c, lo xyz, 1 / cell xyz, probes,
     # pad_diag, lanes per ray, stream
     "tnerf_tighten_sample_mask": [P] * 8 + [I, I, I] + [F] * 6 + [I, F, I, P],
-    # p, fast, exact, divided, n, lo, cell, res_c, stream: the probe kernels' cell ids by
-    # reciprocal against coarse.cuh's by division
-    "tnerf_cell_id_check": [P] * 4 + [I, F, F, I, P],
+    # p, ids, n, lo, 1 / cell, res_c, stream: coarse.cuh's cell ids of n coordinates
+    "tnerf_cell_id_check": [P, P, I, F, F, I, P],
     # w, bias, gamma, beta, te, dt, o, d, mask, words, out, tchk, shaded (both may be null),
-    # B, S, n_layers, n_ctas, use_coarse, res_c, lo xyz, cell xyz, term_eps, stream
+    # B, S, n_layers, n_ctas, use_coarse, res_c, lo xyz, 1 / cell xyz, term_eps, stream
     "tnerf_fused_forward": [P] * 13 + [I, I, I, I, I, I] + [F] * 7 + [P],
     # tmode -> CTAs the card holds at once (negative: a cudaError_t)
     "tnerf_fused_forward_max_ctas": [I],
     # x, fast, exact, n, stream: the forward's branch-free sine against sinf
     "tnerf_sin_fast_check": [P, P, P, I, P],
     # w, bias, gamma, beta, te, dt, o, d, mask, words, tchk, gout, dW, dB, shaded (may be
-    # null), B, S, n_layers, n_ctas, use_coarse, res_c, lo xyz, cell xyz, term_eps, stream
+    # null), B, S, n_layers, n_ctas, use_coarse, res_c, lo xyz, 1 / cell xyz, term_eps,
+    # stream
     "tnerf_fused_backward": [P] * 15 + [I, I, I, I, I, I] + [F] * 7 + [P],
     # n_layers, tmode -> CTAs the card holds at once (negative: a cudaError_t)
     "tnerf_fused_backward_max_ctas": [I, I],
     # o, d_safe, inv_d, te, tx, words (may be null), t0, cell, n, steps, res, cfactor, use_occ,
-    # lo xyz, cell xyz, coarse cell xyz, stream
-    "tnerf_dda_march": [P] * 8 + [I, I, I, I, I] + [F] * 9 + [P],
+    # lo xyz, cell xyz, coarse cell xyz, 1 / cell xyz, threads per block, stream
+    "tnerf_dda_march": [P] * 8 + [I, I, I, I, I] + [F] * 12 + [I, P],
 }
 # per-sample placement: ts, dts [B, S] in the place of te, dt [B]
 PROTOTYPES["tnerf_fused_forward_tmode"] = PROTOTYPES["tnerf_fused_forward"]

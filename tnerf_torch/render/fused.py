@@ -41,7 +41,7 @@ from tnerf_torch.grid.tighten import (
     tighten_range,
     tighten_sample_mask,
 )
-from tnerf_torch.grid.traversal import make_coarse_occupancy, ray_aabb
+from tnerf_torch.grid.traversal import make_coarse_occupancy, ray_aabb, reciprocal
 from tnerf_torch.kernels import build
 from tnerf_torch.render.composite import RenderResult
 from tnerf_torch.render.fused_common import (
@@ -270,9 +270,8 @@ def _chunk_forward(Wb, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, s0:
     sig = torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))  # jax.nn.softplus
     m = mask[:, s0:s1].float()
     if coarse is not None:
-        res_c, lo, cell_c = coarse
         bit = occ_bit(o[:, None, 0] + t * d[:, None, 0], o[:, None, 1] + t * d[:, None, 1],
-                      o[:, None, 2] + t * d[:, None, 2], words, res_c, lo, cell_c)
+                      o[:, None, 2] + t * d[:, None, 2], words, *coarse)
         m = m * bit.float()
     tau = sig * step * m
     return acts, rgb, sig, t, m, tau, step
@@ -380,12 +379,15 @@ def _check_fused_inputs(what, W, Bias, gamma, beta, te, dt, o, d, mask, words, t
 
 
 def _coarse_args(coarse):
-    """(use_coarse, res_c, lo xyz, cell xyz) as the launch functions take them."""
+    """(use_coarse, res_c, lo xyz, 1 / cell xyz) as the launch functions take them:
+    the kernels multiply by the reciprocal of the cell size, as the
+    reference's XLA computes its division by it."""
     res_c, lo, cell_c = coarse if coarse is not None else (1, np.zeros(3, np.float32),
                                                             np.ones(3, np.float32))
+    rcp = np.float32(1.0) / np.asarray(cell_c, np.float32)
     fl = lambda v: float(np.float32(v))
     return (int(coarse is not None), res_c, fl(lo[0]), fl(lo[1]), fl(lo[2]),
-            fl(cell_c[0]), fl(cell_c[1]), fl(cell_c[2]))
+            fl(rcp[0]), fl(rcp[1]), fl(rcp[2]))
 
 
 def _weights_bf16(W):
@@ -707,8 +709,9 @@ def make_fused_renderer(field_cfg, grid_cfg, sampler_cfg, render_cfg, tighten: b
                     (o, d, tp, te, tx), widx = compact(kmask.any(dim=1), o, d, tp, te, tx)
                 else:
                     te, tx = tighten_range(o, d, te, tx, words, res_c, grid_cfg)
-            # dt divides by the requested S, as the reference does (:1032-1039)
-            dt = ((tx - te) / torch.tensor(float(S), dtype=torch.float32, device=dev)).contiguous()
+            # dt divides by the requested S, as the reference does (:1032-1039):
+            # its XLA multiplies by RN(1 / S)
+            dt = ((tx - te) * reciprocal(S, dev)).contiguous()
             mask = (tx > te)[:, None].expand(-1, S).float().contiguous()
             gamma, beta = encode_gamma_beta(o, d, tp, te, dt, A, C)
         W, Bias = pack_params_f32(params, field_cfg, s_aff, b_aff)

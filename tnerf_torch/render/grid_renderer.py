@@ -31,6 +31,7 @@ from tnerf_torch.grid.traversal import (
     march_samples_t,
     occupancy_lookup,
     ray_aabb,
+    reciprocal,
     tightened_range,
     traverse_grid,
 )
@@ -120,7 +121,8 @@ def cdf_bin_weights(origins, directions, t0, t1, occ_m, dens_m, grid_cfg, sample
     both placements)."""
     P = sampler_cfg.cdf_bins
     span = t1 - t0
-    frac = (torch.arange(P, dtype=torch.float32, device=t0.device) + 0.5) / P
+    rcp = reciprocal(P, t0.device)
+    frac = (torch.arange(P, dtype=torch.float32, device=t0.device) + 0.5) * rcp
     tb = t0[..., None] + frac * span[..., None]
     pts = sample_positions(origins, directions, tb)
     pos_span = (span > 0)[..., None]
@@ -133,7 +135,7 @@ def cdf_bin_weights(origins, directions, t0, t1, occ_m, dens_m, grid_cfg, sample
             )
         sigma = density_lookup(pts, dens_m, grid_cfg)
         support = (sigma > grid_cfg.density_threshold) & pos_span
-        tau = sigma * (torch.clamp_min(span, 0.0)[..., None] / P)
+        tau = sigma * (torch.clamp_min(span, 0.0)[..., None] * rcp)
         trans = torch.exp(-(torch.cumsum(tau, dim=-1) - tau))
         w = torch.where(support, trans * (1.0 - torch.exp(-tau)), torch.zeros_like(tau))
         k = support.sum(dim=-1).to(torch.float32)

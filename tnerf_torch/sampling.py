@@ -6,13 +6,19 @@ per-bin weights (`cdf_ray_samples`).
 Outputs are (t, deltas, mask); positions are formed by the caller as
 o + t d.  Randomness comes from an explicit `torch.Generator` on the
 tensors' device; each function also takes the uniforms as a tensor `u`, so
-that a test can feed the numbers another generator drew."""
+that a test can feed the numbers another generator drew.
+
+Where the reference divides by a sample or bin count, its XLA multiplies
+by the count's float32 reciprocal, and so does the port
+(`grid/traversal.py:reciprocal`)."""
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+
+from tnerf_torch.grid.traversal import reciprocal
 
 
 class RaySamples(NamedTuple):
@@ -84,12 +90,13 @@ def interval_samples(t_starts, t_ends, hit_mask, samples_per_interval: int,
     *batch, H = t_starts.shape
     dev = t_starts.device
     u = _uniforms(mode, (*batch, H, S), dev, generator, u)
-    length = (t_ends - t_starts) / S
+    rcp = reciprocal(S, dev)
+    length = (t_ends - t_starts) * rcp
     steps = torch.arange(S, dtype=torch.float32, device=dev)
     if mode == "regular":
-        frac = ((steps + 0.5) / S).expand(*batch, H, S)
+        frac = ((steps + 0.5) * rcp).expand(*batch, H, S)
     elif mode == "stratified":
-        frac = (steps + u) / S
+        frac = (steps + u) * rcp
     else:
         frac = torch.sort(u, dim=-1).values
     t = t_starts[..., None] + frac * (t_ends - t_starts)[..., None]
@@ -139,7 +146,7 @@ def cdf_ray_samples(t_enter, t_exit, n_samples: int, bin_weights, floor: float =
     dev = t_enter.device
     f32 = lambda v: torch.tensor(float(v), dtype=torch.float32, device=dev)
     P = bin_weights.shape[-1]
-    n_bins, n = f32(P), f32(n_samples)
+    n, rcp_n, rcp_bins = f32(n_samples), reciprocal(n_samples, dev), reciprocal(P, dev)
     span = torch.clamp_min(t_exit - t_enter, 0.0)
     w = bin_weights.to(torch.float32) + f32(floor)
     csum = torch.cumsum(w, dim=-1)
@@ -149,9 +156,9 @@ def cdf_ray_samples(t_enter, t_exit, n_samples: int, bin_weights, floor: float =
 
     s = torch.arange(n_samples, dtype=torch.float32, device=dev)
     if jitter is not None:
-        u_pts = (s + jitter) / n
+        u_pts = (s + jitter) * rcp_n
     else:
-        u_pts = ((s + 0.5) / n).expand(*span.shape, n_samples)
+        u_pts = ((s + 0.5) * rcp_n).expand(*span.shape, n_samples)
 
     # bin index of each query: #{p : cdf[p + 1] < u}, in [0, P - 1]
     idx = torch.searchsorted(cdf[..., 1:-1].contiguous(), u_pts.contiguous(), right=False)
@@ -159,9 +166,11 @@ def cdf_ray_samples(t_enter, t_exit, n_samples: int, bin_weights, floor: float =
     c0 = pick(cdf[..., :-1])
     pmf_s = pick(pmf)
     frac = (u_pts - c0) / torch.clamp_min(pmf_s, 1e-12)
-    x = (idx.to(torch.float32) + frac) / n_bins
-    t = t_enter[..., None] + x * span[..., None]
-    deltas = (span[..., None] / n_bins) / (pmf_s * n)
+    # the reference's t_enter + (idx + frac) / P * span: its XLA multiplies by
+    # RN(1 / P) and moves that constant onto span
+    bin_len = span[..., None] * rcp_bins
+    t = t_enter[..., None] + (idx.to(torch.float32) + frac) * bin_len
+    deltas = bin_len / (pmf_s * n)
     support = bin_weights.to(torch.float32) > 0 if bin_support is None else bin_support
     mask = (span > 0)[..., None] & pick(support)
     return RaySamples(t=t, deltas=deltas, mask=mask)
