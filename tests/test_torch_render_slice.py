@@ -86,18 +86,27 @@ def test_cli_render_orbit_on_cpu(capsys, tmp_path):
     assert img.max() > img.min()
 
 
-@pytest.mark.parametrize("override", [
-    "field_.encoding=triplane", "scene.kind=llff",
-    "field_.view_encoding=sh", "field_.encoding=hashgrid", "scene.kind=nerf_synthetic",
-    "scene.ndc=true",
+# The prims config renders through the fused pipeline: the table encodings
+# and the SH view encoding are ported, and there the port refuses them with
+# the reference's own ValueError (`tnerf/train_loop.py:124-139`); the
+# scene kinds and NDC are not yet ported.
+_FUSED_REFUSES = (ValueError, "render.pipeline=fused bakes the frequency")
+_NOT_PORTED = (NotImplementedError, "not yet ported")
+
+
+@pytest.mark.parametrize("override,refusal", [
+    pytest.param(ov, refusal, id=ov) for ov, refusal in (
+        ("field_.encoding=triplane", _FUSED_REFUSES), ("scene.kind=llff", _NOT_PORTED),
+        ("field_.view_encoding=sh", _FUSED_REFUSES), ("field_.encoding=hashgrid", _FUSED_REFUSES),
+        ("scene.kind=nerf_synthetic", _NOT_PORTED), ("scene.ndc=true", _NOT_PORTED))
 ])
-def test_unported_options_are_refused(override):
+def test_unported_options_are_refused(override, refusal):
     from tnerf_torch.config import Config
     from tnerf_torch.train_loop import build_renderer
 
     cfg = Config.from_json_file(os.path.join(RUN, "config.json")).apply_overrides(
         ["render.ray_compact=false", override])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(refusal[0], match=refusal[1]):
         build_renderer(cfg)
 
 

@@ -61,6 +61,14 @@ def viewdirs_to_thetaphi(directions: torch.Tensor) -> torch.Tensor:
     return torch.stack([theta, phi], dim=-1)
 
 
+def thetaphi_to_unit(tp: torch.Tensor) -> torch.Tensor:
+    """Inverse of `viewdirs_to_thetaphi`: (theta, phi) [..., 2] -> unit
+    directions [..., 3] (`tnerf/cameras.py:92`)."""
+    theta, phi = tp[..., 0], tp[..., 1]
+    st = torch.sin(theta)
+    return torch.stack([st * torch.cos(phi), st * torch.sin(phi), torch.cos(theta)], dim=-1)
+
+
 def camera_rays(pose, width: int, height: int, focal_px, scene_scale: float = 1.0,
                 device=None) -> Rays:
     """All W*H rays of one camera; pose is a [4, 4] camera-to-world

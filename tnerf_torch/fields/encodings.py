@@ -1,5 +1,7 @@
-"""Input encodings (counterpart of `tnerf/fields/encodings.py:23`; the
-frequency encoding only, which is what the fused frequency-MLP model uses)."""
+"""Input encodings (counterpart of `tnerf/fields/encodings.py`): the
+frequency encoding (:23) and the real spherical-harmonics basis of view
+directions (:71).  The table-backed position encodings are in
+`fields/hashgrid.py` and `fields/triplane.py`."""
 
 from __future__ import annotations
 
@@ -25,3 +27,48 @@ def frequency_encoding(x: torch.Tensor, n_frequencies: int, include_input: bool 
 
 def frequency_encoding_dim(in_dim: int, n_frequencies: int, include_input: bool = True) -> int:
     return in_dim * 2 * n_frequencies + (in_dim if include_input else 0)
+
+
+# Real SH constants of bands l = 0..3 (tcnn SphericalHarmonics semantics).
+_SH_C0 = 0.28209479177387814
+_SH_C1 = 0.48860251190291987
+
+
+def sh_encoding(dirs: torch.Tensor, degree: int = 4) -> torch.Tensor:
+    """Real spherical-harmonics basis of view directions [..., 3] ->
+    [..., degree**2] (bands l = 0..degree-1), as
+    `tnerf/fields/encodings.py:71` computes it: the closed forms in the
+    components of dirs * rsqrt(|dirs|^2 + 1e-20), term by term in the same
+    order, so any nonzero vector may be passed."""
+    if not 1 <= degree <= 4:
+        raise ValueError(f"sh degree must be in 1..4, got {degree}")
+    d = dirs * torch.rsqrt(torch.sum(dirs * dirs, dim=-1, keepdim=True) + 1e-20)
+    x, y, z = d[..., 0], d[..., 1], d[..., 2]
+    out = [torch.full_like(x, _SH_C0)]
+    if degree > 1:
+        out += [-_SH_C1 * y, _SH_C1 * z, -_SH_C1 * x]
+    if degree > 2:
+        xy, yz, xz = x * y, y * z, x * z
+        x2, y2, z2 = x * x, y * y, z * z
+        out += [
+            1.0925484305920792 * xy,
+            -1.0925484305920792 * yz,
+            0.94617469575755997 * z2 - 0.31539156525251999,
+            -1.0925484305920792 * xz,
+            0.54627421529603959 * (x2 - y2),
+        ]
+    if degree > 3:  # the l = 3 forms use x^2 + y^2 = 1 - z^2 (unit input)
+        out += [
+            0.59004358992664352 * y * (-3.0 * x2 + y2),
+            2.8906114426405538 * xy * z,
+            0.45704579946446572 * y * (1.0 - 5.0 * z2),
+            0.37317633259011546 * z * (5.0 * z2 - 3.0),
+            0.45704579946446572 * x * (1.0 - 5.0 * z2),
+            1.4453057213202769 * z * (x2 - y2),
+            0.59004358992664352 * x * (-x2 + 3.0 * y2),
+        ]
+    return torch.stack(out, dim=-1)
+
+
+def sh_encoding_dim(degree: int) -> int:
+    return degree * degree

@@ -1,0 +1,203 @@
+"""Multiresolution hash-grid encoding (Instant-NGP; counterpart of
+`tnerf/fields/hashgrid.py`).
+
+All L level tables live in one [L*T, F] float32 table; a sample's lookup
+at level l reads rows l*T + index.  Levels whose dense vertex grid fits
+the table ((res+1)^3 <= T) index it linearly, the others through the NGP
+spatial hash (primes 1, 2654435761, 805459861).  The reference hashes in
+uint32 with wraparound; here the vertex coordinates are int64 (at most
+hash_max_resolution + 1, so a product stays far below 2^63) and only the
+index's low log2(T) bits are kept: they are the low bits of the uint32
+result, whatever wrapped above them.
+
+Formulation: the gather form of `apply_hashgrid_gather` (:193), eight
+corners accumulated in the reference's order.  The reference's "onehot"
+form (:210, `fields/onehot.py`) is a matrix product that exists only to
+dodge the TPU's gather; what it computes differently is its rounding: it
+reads table values rounded to field_.compute_dtype and scatters each
+corner's cotangent rounded to it.  `hash_gather_mode="onehot"` computes
+exactly that, by a lookup (`rounded_lookup`).  "auto" resolves as the
+reference resolves it off a TPU: "gather", float32 lookups.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from tnerf_torch.fields.mlp import rounding_dtype
+
+_PRIMES = (1, 2654435761, 805459861)
+
+
+def level_resolutions(cfg) -> np.ndarray:
+    """Per-level grid resolution N_l = floor(N0 * b^l) with b = exp((ln Nmax
+    - ln N0) / (L - 1)), in numpy float64 as the reference computes it."""
+    return _level_resolutions(cfg.hash_levels, cfg.hash_base_resolution,
+                              cfg.hash_max_resolution)
+
+
+def _level_resolutions(L: int, n0: int, nmax: int) -> np.ndarray:
+    if L == 1:
+        return np.array([n0], np.int64)
+    b = float(np.exp((np.log(nmax) - np.log(n0)) / (L - 1)))
+    return np.floor(n0 * b ** np.arange(L)).astype(np.int64)
+
+
+def hashgrid_num_params(cfg) -> int:
+    return cfg.hash_levels * (1 << cfg.hash_log2_table_size) * cfg.hash_features_per_level
+
+
+def init_hashgrid(cfg, generator: torch.Generator) -> torch.Tensor:
+    """[L*T, F] float32 table, uniform(-1e-4, 1e-4) (the NGP scale)."""
+    L, F = cfg.hash_levels, cfg.hash_features_per_level
+    T = 1 << cfg.hash_log2_table_size
+    return torch.rand((L * T, F), generator=generator, dtype=torch.float32) * 2e-4 - 1e-4
+
+
+def resolve_gather_mode(cfg) -> str:
+    """"gather" or "onehot" (`tnerf/fields/hashgrid.py:110`): "auto" is what
+    the reference picks off a TPU, "gather"."""
+    mode = cfg.hash_gather_mode
+    if mode == "pallas":
+        raise ValueError(
+            "hash_gather_mode='pallas' was removed from the reference package after its "
+            "round-4 measurement (docs/KERNEL_NOTES.md); use 'gather' (or 'auto')")
+    if mode not in ("auto", "gather", "onehot"):
+        raise ValueError(f"hash_gather_mode must be auto, gather or onehot, got {mode!r}")
+    return "gather" if mode == "auto" else mode
+
+
+class _RoundedLookup(torch.autograd.Function):
+    """embedding(idx, table) with the table's values rounded to `dtype`
+    (read back as float32), and, in the backward, the incoming cotangent
+    rounded to `dtype` before it is summed (in float32) into the table's
+    gradient: the numerics of the reference's one-hot lookup and its
+    transpose (`tnerf/fields/onehot.py:65`, `:96`)."""
+
+    @staticmethod
+    def forward(ctx, table, idx, dtype):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        ctx.dtype = dtype
+        return torch.nn.functional.embedding(idx, table.to(dtype)).float()
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        g = grad.to(ctx.dtype).float()
+        return torch.ops.aten.embedding_dense_backward(g, idx, ctx.rows, -1, False), None, None
+
+
+def rounded_lookup(table: torch.Tensor, idx: torch.Tensor, dtype) -> torch.Tensor:
+    """Rows idx of table ([M, F] -> [..., F] float32); with dtype float32 the
+    plain lookup, else the one-hot form's rounding (`_RoundedLookup`).
+
+    A lookup is `torch.nn.functional.embedding`, whose backward sums a
+    row's cotangents after sorting by index, in partial segments of a few
+    rows: deterministic, and quick where one row takes thousands of them
+    (the coarse levels, where samples crowd a few vertices).  Advanced
+    indexing's backward (`index_put_` with accumulate) walks each row's
+    cotangents one after another, and `index_add_` sums them by atomics,
+    in no fixed order (tools/torch_field_steps.py, PERF.md)."""
+    if dtype == torch.float32:
+        return torch.nn.functional.embedding(idx, table)
+    return _RoundedLookup.apply(table, idx, dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _level_constants(L: int, T: int, n0: int, nmax: int, device: str):
+    """(res [L] f32, upper clip res - 1e-4 [L] f32, dense_fits [L] bool, n1
+    [L] int64, level offset [L] int64) on device, made once (read-only)."""
+    res = _level_resolutions(L, n0, nmax)
+    res32 = res.astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return (t(res32), t(res32 - np.float32(1e-4)), t((res + 1) ** 3 <= T), t(res + 1),
+            t(np.arange(L, dtype=np.int64) * T))
+
+
+def _constants(cfg, device):
+    return _level_constants(cfg.hash_levels, 1 << cfg.hash_log2_table_size,
+                            cfg.hash_base_resolution, cfg.hash_max_resolution, str(device))
+
+
+def _level_geometry(x01: torch.Tensor, cfg):
+    """(i0 [..., L, 3] int64 base corner, frac [..., L, 3] f32) of x01 [...,
+    3] at every level (`tnerf/fields/hashgrid.py:57`): scale by the level's
+    resolution, clip to [0, res - 1e-4], floor."""
+    res, upper, _, _, _ = _constants(cfg, x01.device)
+    pos = x01[..., None, :] * res[:, None]
+    pos = torch.minimum(torch.clamp_min(pos, 0.0), upper[:, None])
+    i0f = torch.floor(pos)
+    return i0f.to(torch.int64), pos - i0f
+
+
+def _index_of(x_, y_, z_, dense_fits, n1, T: int):
+    """Within-level table index [..., L] in [0, T) of integer vertex
+    coordinates: linear where the level's dense grid fits, else the spatial
+    hash; the mask keeps the low bits of the reference's uint32 result."""
+    linear = x_ + n1 * (y_ + n1 * z_)
+    hashed = x_ ^ y_ * _PRIMES[1] ^ z_ * _PRIMES[2]
+    return torch.where(dense_fits, linear, hashed) & (T - 1)
+
+
+def _corner_index_weight(c: int, i0, frac, dense_fits, n1, T: int):
+    """Corner c (0..7) of the trilinear cube: table index [..., L] and weight
+    [..., L] f32 (`tnerf/fields/hashgrid.py:87`)."""
+    off = ((c >> 2) & 1, (c >> 1) & 1, c & 1)
+    idx = _index_of(i0[..., 0] + off[0], i0[..., 1] + off[1], i0[..., 2] + off[2],
+                    dense_fits, n1, T)
+    w = ((frac[..., 0] if off[0] else 1.0 - frac[..., 0])
+         * (frac[..., 1] if off[1] else 1.0 - frac[..., 1])
+         * (frac[..., 2] if off[2] else 1.0 - frac[..., 2]))
+    return idx, w
+
+
+def _nearest_index(i0, frac, dense_fits, n1, T: int):
+    """Nearest-vertex table index [..., L] (tcnn's 'Nearest' interpolation)."""
+    ix = i0 + (frac >= 0.5).to(torch.int64)
+    return _index_of(ix[..., 0], ix[..., 1], ix[..., 2], dense_fits, n1, T)
+
+
+def apply_hashgrid(tables: torch.Tensor, x01: torch.Tensor, cfg) -> torch.Tensor:
+    """x01 [..., 3] in [0, 1]^3 -> [..., L*F] features of the [L*T, F] table,
+    in the mode `resolve_gather_mode` picks (`tnerf/fields/hashgrid.py:156`)."""
+    if not 0 <= cfg.hash_nearest_levels <= cfg.hash_levels:
+        raise ValueError(f"hash_nearest_levels={cfg.hash_nearest_levels} must be in "
+                         f"[0, hash_levels={cfg.hash_levels}]")
+    if resolve_gather_mode(cfg) == "onehot":
+        T = 1 << cfg.hash_log2_table_size
+        if T % 128 != 0 or T > (1 << 15):
+            raise ValueError(f"onehot gather mode needs 128 | T <= 2^15, got "
+                             f"T=2^{cfg.hash_log2_table_size}")
+        return apply_hashgrid_gather(tables, x01, cfg, lookup_dtype=rounding_dtype(cfg))
+    return apply_hashgrid_gather(tables, x01, cfg)
+
+
+def apply_hashgrid_gather(tables: torch.Tensor, x01: torch.Tensor, cfg,
+                          lookup_dtype=torch.float32) -> torch.Tensor:
+    """The gather form (`tnerf/fields/hashgrid.py:193`): the first K =
+    hash_nearest_levels levels read their nearest vertex (weight 1), the
+    others sum w * table[idx] over the eight corners in the reference's
+    order, starting from zero.  lookup_dtype rounds the table values and
+    their cotangents as the one-hot form does (`rounded_lookup`)."""
+    L, F = cfg.hash_levels, cfg.hash_features_per_level
+    K = cfg.hash_nearest_levels
+    T = 1 << cfg.hash_log2_table_size
+    _, _, dense_fits, n1, level_off = _constants(cfg, x01.device)
+    i0, frac = _level_geometry(x01, cfg)
+    parts = []
+    if K:
+        idxn = _nearest_index(i0[..., :K, :], frac[..., :K, :], dense_fits[:K], n1[:K], T)
+        parts.append(rounded_lookup(tables, idxn + level_off[:K], lookup_dtype))
+    if K < L:
+        lin = torch.zeros((*x01.shape[:-1], L - K, F), dtype=torch.float32, device=x01.device)
+        geom = (i0[..., K:, :], frac[..., K:, :], dense_fits[K:], n1[K:])
+        for c in range(8):
+            idx, w = _corner_index_weight(c, *geom, T)
+            lin = lin + w[..., None] * rounded_lookup(tables, idx + level_off[K:], lookup_dtype)
+        parts.append(lin)
+    out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
+    return out.reshape(*x01.shape[:-1], L * F)

@@ -18,6 +18,11 @@ from torch import nn
 from tnerf_torch.device import full_f32_matmul
 
 
+def rounding_dtype(field_cfg) -> torch.dtype:
+    """The rounding type of field_.compute_dtype ("bfloat16" or float32)."""
+    return torch.bfloat16 if field_cfg.compute_dtype == "bfloat16" else torch.float32
+
+
 class MLP(nn.Module):
     """`hidden_layers` hidden matmuls: [in -> w] + (hidden_layers - 1) x
     [w -> w] + [w -> out].  Weights are [in, out], He-normal from the

@@ -60,7 +60,8 @@ def compacted_shade(params, field_cfg, grid_cfg, positions, viewdirs, t, deltas,
     is all the field sees; later ones are dropped, and a ray all of whose
     samples were masked or dropped composites to the background.  Nothing
     waits for the device to learn how many were kept: slots beyond the kept
-    count hold a stand-in sample whose density is set to 0.
+    count hold the masked samples, in order, as stand-ins whose density is
+    set to 0.
 
     The field's outputs go back to their [B, S] places (zeros elsewhere)
     and `composite` runs there, so each ray's transmittance is its own
@@ -75,20 +76,30 @@ def compacted_shade(params, field_cfg, grid_cfg, positions, viewdirs, t, deltas,
     dev = mask.device
     flat_mask = mask.reshape(N)
     rank = torch.cumsum(flat_mask, dim=0) - 1
+    total = rank[-1] + 1                            # kept samples, on the device
     kept = flat_mask & (rank < capacity)
-    slot = torch.where(kept, rank, capacity)        # [N]; `capacity` is a sacrificial slot
+    # Slots past the kept ones take the masked samples in order, as the
+    # reference's stable sort puts them (distinct rows: a table lookup's
+    # backward is slow where one row takes many cotangents).
+    standin = total + torch.cumsum(~flat_mask, dim=0) - 1
+    fill = torch.where(flat_mask, rank, standin).clamp_max(capacity)  # `capacity`: sacrificial
     src = torch.zeros((capacity + 1,), dtype=torch.int64, device=dev)
-    src.index_put_((slot,), torch.arange(N, device=dev))
+    src.index_put_((fill,), torch.arange(N, device=dev))
     src = src[:capacity]                            # [K] source sample of each buffer slot
-    valid = torch.arange(capacity, device=dev) < rank[-1] + 1
+    slot = torch.where(kept, rank, capacity)        # [N] each kept sample's slot
+    valid = torch.arange(capacity, device=dev) < total
 
     rgb_c, sigma_c = apply_field(params, field_cfg, grid_cfg, positions.reshape(N, 3)[src],
                                  viewdirs[src // S])
     sigma_c = torch.where(valid, sigma_c.float(), torch.zeros_like(sigma_c, dtype=torch.float32))
-    # back to [B, S]: a dropped sample reads the zero row appended at `capacity`
-    back = lambda a: torch.cat([a, torch.zeros_like(a[:1])])[slot]
-    res = composite(back(rgb_c.float()).reshape(B, S, 3), back(sigma_c).reshape(B, S), deltas,
-                    t_mid=t, mask=kept.reshape(B, S), white_background=white_background)
+    # back to [B, S]: a dropped sample reads the zero row appended at
+    # `capacity`, which takes no gradient (an embedding's padding row: an
+    # indexing backward would sum the cotangents of every dropped sample
+    # into that one row, one after another)
+    back = lambda a: torch.nn.functional.embedding(
+        slot, torch.cat([a, torch.zeros_like(a[:1])]), padding_idx=capacity)
+    res = composite(back(rgb_c.float()).reshape(B, S, 3), back(sigma_c[:, None]).reshape(B, S),
+                    deltas, t_mid=t, mask=kept.reshape(B, S), white_background=white_background)
     return _without_samples(res.rgb, res.acc, res.depth)
 
 

@@ -39,22 +39,31 @@ def make_uniform_renderer(field_cfg, grid_cfg, sampler_cfg, render_cfg,
 @torch.no_grad()
 def render_image(renderer, params, rays: Rays, chunk_size: int = 65536,
                  occupancy=None) -> RenderResult:
-    """Render an [H, W] ray grid in chunks of at most chunk_size rays.
+    """Render an [H, W] ray grid in chunks of chunk_size rays
+    (`tnerf/render/renderer.py:101`).
 
-    Rays interleave across chunks as in the reference (ray j * n_chunks + i
-    goes to chunk i), so every chunk sees about the image's overall
-    object fraction; each ray's result does not depend on its chunk."""
+    As in the reference, the rays are padded with zero rays to a whole
+    number of chunks and interleave across them (ray j * n_chunks + i goes
+    to chunk i), so every chunk sees about the image's overall object
+    fraction, and each chunk's padding comes after its real rays.  The
+    renderers size their compaction buffers from the rays they are given,
+    so this is what makes a view smaller than a chunk get the reference's
+    capacity (render.ray_compact_fraction / compact_fraction of a whole
+    chunk) with its real rays first; each ray's result does not depend on
+    its chunk."""
     h, w = rays.origins.shape[:2]
     n = h * w
-    flat = Rays(*(a.reshape(n, a.shape[-1]) for a in rays))
     n_chunks = max(1, -(-n // chunk_size))
+    pad = n_chunks * chunk_size - n
+    flat = Rays(*(torch.cat([a.reshape(n, a.shape[-1]), a.new_zeros((pad, a.shape[-1]))])
+                  for a in rays))
     outs = [renderer(params, Rays(*(a[i::n_chunks] for a in flat)), occupancy)
             for i in range(n_chunks)]
     fields = []
     for k in range(len(RenderResult._fields)):
         first = outs[0][k]
-        full = torch.empty((n, *first.shape[1:]), dtype=first.dtype, device=first.device)
+        full = torch.empty((n + pad, *first.shape[1:]), dtype=first.dtype, device=first.device)
         for i, res in enumerate(outs):
             full[i::n_chunks] = res[k]
-        fields.append(full.reshape(h, w, *first.shape[1:]))
+        fields.append(full[:n].reshape(h, w, *first.shape[1:]))
     return RenderResult(*fields)

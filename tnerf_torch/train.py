@@ -17,6 +17,8 @@ import torch
 
 from tnerf_torch.cameras import Rays, pixel_rays
 from tnerf_torch.data.dataset import ImageDataset
+from tnerf_torch.fields.nerf_field import TABLE_ENCODINGS
+from tnerf_torch.fields.triplane import triplane_tv
 
 MAX_CONSECUTIVE_ERRORS = 1000  # non-finite steps in a row after which an update is let through
 
@@ -39,15 +41,23 @@ class Optimizer:
     updates `params` in place and makes no host synchronization."""
 
     def __init__(self, cfg, params: Dict[str, torch.Tensor]):
-        if cfg.grad_accum_steps > 1 or cfg.table_lr_mult != 1.0 or cfg.pose_lr_mult != 1.0:
+        if cfg.grad_accum_steps > 1 or cfg.pose_lr_mult != 1.0:
             raise NotImplementedError(
-                "train.grad_accum_steps > 1 / table_lr_mult / pose_lr_mult are not yet ported "
-                "to tnerf_torch, see ROADMAP.md")
+                "train.grad_accum_steps > 1 / pose_lr_mult are not yet ported to tnerf_torch, "
+                "see ROADMAP.md")
         self.cfg = cfg
         self.names = list(params)
         self.params = [params[k] for k in self.names]
         dev = self.params[0].device
         self.sizes = [p.numel() for p in self.params]
+        # train.table_lr_mult scales the final update of the feature tables
+        # (`tnerf/train.py:111`: a masked post-Adam scale, an LR multiplier)
+        self.table_scale = None
+        if cfg.table_lr_mult != 1.0:
+            self.table_scale = torch.cat([
+                torch.full((n,), cfg.table_lr_mult if k.split(".")[0] in TABLE_ENCODINGS else 1.0,
+                           dtype=torch.float32, device=dev)
+                for k, n in zip(self.names, self.sizes)])
         i32 = dict(dtype=torch.int32, device=dev)
         self.mu = torch.zeros(sum(self.sizes), dtype=torch.float32, device=dev)
         self.nu = torch.zeros_like(self.mu)
@@ -98,6 +108,8 @@ class Optimizer:
             update = update + cfg.weight_decay * torch.cat([p.reshape(-1) for p in self.params])
         lr = self.learning_rate(self.sched_count) if self.scheduled else cfg.lr
         update = -lr * update
+        if self.table_scale is not None:
+            update = update * self.table_scale
         if self.skip_nonfinite:
             notfinite = torch.where(finite, torch.zeros_like(self.notfinite_count),
                                     self.notfinite_count + 1)
@@ -241,12 +253,25 @@ def init_train_state(field, train_cfg) -> TrainState:
     return TrainState(field, create_optimizer(train_cfg, field.params()), 0)
 
 
+def table_l1(params: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """TensoRF's sparsity prior on the feature tables (`tnerf/train.py:383`):
+    the mean |entry| of each table leaf, summed in the reference's leaf
+    order (0 for a field without tables)."""
+    total = 0
+    for k in sorted(k for k in params if k.split(".")[0] in TABLE_ENCODINGS):
+        total = total + torch.abs(params[k]).mean()
+    return total
+
+
 def make_train_step(renderer: Callable, loss: str = "l2", huber_delta: float = 0.1,
-                    distortion: float = 0.0) -> Callable:
+                    distortion: float = 0.0, table_l1_weight: float = 0.0,
+                    table_tv_weight: float = 0.0) -> Callable:
     """train_step(state, batch, occupancy, generator=None) -> aux:
     photometric loss through the renderer (plus `distortion` times the
     rays' mean distortion term, where > 0: the caller has divided the
-    weight by the sampled range), gradients onto the field's parameters,
+    weight by the sampled range; plus table_l1_weight times `table_l1` and
+    table_tv_weight times the triplane's `triplane_tv`, where > 0),
+    gradients onto the field's parameters,
     one optimizer update, `state.step` advanced; aux = {"loss", "psnr"
     (always from the MSE), "acc_mean"} and, with the regularizer on,
     "distortion", as device scalars nobody has waited for.  `generator` (on the batch's device) is the renderer's
@@ -261,6 +286,11 @@ def make_train_step(renderer: Callable, loss: str = "l2", huber_delta: float = 0
         err = res.rgb - batch.gt_rgb
         mse = torch.mean(torch.square(err))
         obj = mse if loss == "l2" else photometric_loss(err, loss, huber_delta)
+        if table_l1_weight > 0.0:
+            obj = obj + table_l1_weight * table_l1(params)
+        if table_tv_weight > 0.0:
+            obj = obj + table_tv_weight * triplane_tv(params["triplane.planes"],
+                                                      params["triplane.lines"])
         if distortion > 0.0:
             dist = torch.mean(res.distortion)
             obj = obj + distortion * dist

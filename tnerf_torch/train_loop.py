@@ -5,6 +5,7 @@
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import time
 from typing import Dict, Optional
@@ -21,7 +22,9 @@ from tnerf_torch.data.dataset import (
 )
 from tnerf_torch.device import resolve_device
 from tnerf_torch.eval import evaluate
-from tnerf_torch.fields.nerf_field import NeRFField
+from tnerf_torch.fields.hashgrid import resolve_gather_mode
+from tnerf_torch.fields.nerf_field import TABLE_ENCODINGS, NeRFField
+from tnerf_torch.fields.triplane import resolve_cp_mode, resolve_tri_mode, upsample_triplane
 from tnerf_torch.grid.occupancy import (
     init_occupancy,
     occupancy_fraction,
@@ -31,9 +34,10 @@ from tnerf_torch.grid.occupancy import (
 from tnerf_torch.render.fused import MAX_BWD_LAYERS, make_fused_renderer
 from tnerf_torch.render.grid_renderer import cdf_occupied_sample_fraction, make_grid_renderer
 from tnerf_torch.render.renderer import make_uniform_renderer
-from tnerf_torch.train import PixelSampler, init_train_state, make_train_step
+from tnerf_torch.train import Optimizer, PixelSampler, init_train_state, make_train_step
 from tnerf_torch.utils.checkpoint import (
     latest_checkpoint,
+    load_jax_checkpoint,
     load_train_checkpoint,
     save_checkpoint,
 )
@@ -51,12 +55,36 @@ def validate_ported(cfg: Config, for_eval: bool = True) -> None:
     """Refuse every option this port does not run, rather than running
     another path in its place.  for_eval=False checks a training run."""
     p = cfg.render.pipeline
+    f = cfg.field_
     if p not in PIPELINES:
         raise ValueError(f"unknown render pipeline {p!r}")
-    if cfg.field_.encoding != "frequency":
-        raise _not_ported(f"field_.encoding={cfg.field_.encoding!r} (frequency only)")
-    if cfg.field_.view_encoding != "frequency":
-        raise _not_ported(f"field_.view_encoding={cfg.field_.view_encoding!r} (frequency only)")
+    if f.encoding not in ("frequency",) + TABLE_ENCODINGS:
+        raise ValueError(f"unknown encoding {f.encoding!r}")
+    if f.view_encoding not in ("frequency", "sh"):
+        raise ValueError(f"unknown view_encoding {f.view_encoding!r}")
+    if f.view_encoding == "frequency" and f.view_param != "thetaphi":
+        raise _not_ported(f"field_.view_param={f.view_param!r} (the frequency view encoding of "
+                          "(theta, phi) only)")
+    if f.encoding == "hashgrid":  # the lookup modes: "pallas" and unknown ones raise
+        resolve_gather_mode(f)
+    elif f.encoding == "triplane":
+        resolve_tri_mode(f)
+    elif f.encoding == "cp":
+        resolve_cp_mode(f)
+    if p == "fused" and f.encoding != "frequency":
+        raise ValueError(
+            "render.pipeline=fused bakes the frequency encoding into "
+            f"the kernel; field_.encoding={f.encoding!r} needs "
+            "render.pipeline=grid_march (hashgrid runs as MXU one-hot "
+            "matmuls there — see configs/procedural_hard_hashgrid.json)"
+        )
+    if p == "fused" and f.view_encoding != "frequency":
+        raise ValueError(
+            "render.pipeline=fused bakes the frequency VIEW encoding "
+            "into the kernel (gamma/beta algebra); "
+            f"field_.view_encoding={f.view_encoding!r} needs "
+            "render.pipeline=grid_march"
+        )
     if cfg.scene.kind != "procedural":
         raise _not_ported(f"scene.kind={cfg.scene.kind!r} (procedural scenes only)")
     if cfg.scene.ndc:
@@ -92,9 +120,7 @@ def validate_ported(cfg: Config, for_eval: bool = True) -> None:
         "train.random_background=true": t.random_background,
         "train.optimize_poses=true": t.optimize_poses,
         "train.keep_best=true": t.keep_best,
-        "train.table_lr_mult / pose_lr_mult != 1": t.table_lr_mult != 1.0 or t.pose_lr_mult != 1.0,
-        "train.table_l1_weight / table_tv_weight > 0":
-            t.table_l1_weight > 0 or t.table_tv_weight > 0,
+        "train.pose_lr_mult != 1": t.pose_lr_mult != 1.0,
         "train.freq_anneal_steps > 0": t.freq_anneal_steps > 0,
         "train.remat=true": t.remat,
         "grid.mesh_path": bool(cfg.grid.mesh_path),
@@ -114,6 +140,14 @@ def validate_ported(cfg: Config, for_eval: bool = True) -> None:
             f"of a tile in shared memory, which holds {MAX_BWD_LAYERS} layers); a deeper model "
             "is served on the fused path and trains on grid_march or grid_intervals"
         )
+    if t.table_tv_weight > 0.0 and f.encoding != "triplane":
+        raise ValueError(
+            "train.table_tv_weight is the triplane family's smoothness "
+            "prior (hash tables have no spatial adjacency); "
+            f"field_.encoding={f.encoding!r}"
+        )
+    if f.tri_upsample_steps:
+        _tri_stage_plan(cfg)
     if t.shuffle not in ("random", "epoch"):
         raise ValueError(f"train.shuffle must be random or epoch, got {t.shuffle!r}")
     if t.distortion_weight > 0.0:
@@ -206,15 +240,145 @@ def _eval(cfg, renderer, state, occ, datasets, step, log, metrics, device,
 
 def run_training(cfg: Config, datasets: Optional[Dict[str, ImageDataset]] = None,
                  device="cuda") -> Dict[str, float]:
-    """Train a field per `cfg` on `device`; returns the final metrics.
+    """Train a field per `cfg` on `device`; returns the final metrics.  With
+    field_.tri_upsample_steps the triplane trains in stages
+    (`_run_progressive`), each of them a run of `_run_training_single`."""
+    if cfg.field_.tri_upsample_steps:
+        return _run_progressive(cfg, datasets, device)
+    return _run_training_single(cfg, datasets, device)
+
+
+def _tri_stage_plan(cfg: Config):
+    """[(end_step, resolution)] of the progressive triplane's stages
+    (`tnerf/train_loop.py:260`): a log-linear ladder of resolutions from
+    tri_init_resolution to tri_resolution, strictly increasing."""
+    ms = cfg.field_.tri_upsample_steps
+    r0, rf = cfg.field_.tri_init_resolution, cfg.field_.tri_resolution
+    if cfg.field_.encoding != "triplane":
+        raise ValueError(
+            "field_.tri_upsample_steps is the triplane family's "
+            f"progressive schedule; field_.encoding={cfg.field_.encoding!r}"
+        )
+    if not (0 < r0 < rf):
+        raise ValueError(
+            "progressive triplane needs 0 < tri_init_resolution < "
+            f"tri_resolution, got {r0} vs {rf}"
+        )
+    if list(ms) != sorted(set(ms)) or ms[0] <= 0 or ms[-1] >= cfg.train.steps:
+        raise ValueError(
+            f"tri_upsample_steps must be strictly increasing within "
+            f"(0, train.steps={cfg.train.steps}), got {ms}"
+        )
+    n = len(ms)
+    if rf - r0 < n:
+        raise ValueError(
+            f"{n + 1} progressive stages need {n + 1} distinct "
+            f"resolutions in [{r0}, {rf}] — fewer milestones or a wider "
+            "resolution range"
+        )
+    res = [max(2, round(math.exp(math.log(r0) + (math.log(rf) - math.log(r0)) * k / n)))
+           for k in range(n)] + [rf]
+    for k in range(1, n):
+        res[k] = max(res[k], res[k - 1] + 1)
+    for k in range(n - 1, -1, -1):
+        res[k] = min(res[k], res[k + 1] - 1)
+    return list(zip(list(ms) + [cfg.train.steps], res))
+
+
+def _run_progressive(cfg: Config, datasets, device) -> Dict[str, float]:
+    """The progressive triplane (`tnerf/train_loop.py:314`): stage k trains
+    steps [end_{k-1}, end_k) at its resolution, resuming the run's
+    checkpoint; between stages the checkpoint is rewritten in place with the
+    planes and lines upsampled and a fresh optimizer (TensoRF resets it, and
+    each stage's schedule spans the stage).  The acceptance gate applies to
+    the last stage only."""
+    validate_ported(cfg, for_eval=False)
+    log = get_logger(level=cfg.logging.level)
+    plan = _tri_stage_plan(cfg)
+    out_dir = cfg.logging.out_dir
+    os.makedirs(out_dir, exist_ok=True)
+    prov = os.path.join(out_dir, "config.json")
+    if not (cfg.train.resume and os.path.exists(prov)):
+        with open(prov, "w") as fh:
+            fh.write(cfg.apply_overrides(["train.resume=false"]).to_json())
+    ckpt_dir = os.path.join(out_dir, "checkpoints")
+    prev_ends = [0] + [end for end, _ in plan[:-1]]
+
+    def stage_cfg(k: int) -> Config:
+        end, res = plan[k]
+        last = k == len(plan) - 1
+        field_ = dataclasses.replace(cfg.field_, tri_resolution=res, tri_upsample_steps=(),
+                                     tri_init_resolution=0)
+        train = dataclasses.replace(
+            cfg.train, steps=end, resume=True, schedule_total_steps=end - prev_ends[k],
+            assert_test_psnr_min=cfg.train.assert_test_psnr_min if last else 0.0)
+        return dataclasses.replace(cfg, field_=field_, train=train)
+
+    try:
+        step_got, _ = latest_checkpoint(ckpt_dir)
+    except FileNotFoundError:
+        step_got = None
+    start_k = 0
+    if step_got is not None and not cfg.train.resume:
+        raise ValueError(
+            f"{ckpt_dir} already has checkpoints: progressive training "
+            "resumes via the checkpoint stream — pass train.resume=true "
+            "to continue that run, or use a fresh out_dir"
+        )
+    if step_got is not None:
+        # the tables' resolution, not the step, decides the stage: a run
+        # stopped between a stage's last save and the rewrite holds the old
+        # resolution at the milestone step
+        _, params, _ = load_jax_checkpoint(ckpt_dir, device="cpu")
+        got = params["triplane.lines"].shape[1]
+        matched = [k for k, (_, res) in enumerate(plan) if res == got]
+        if not matched:
+            raise ValueError(f"the checkpoint in {ckpt_dir} (R={got}) matches no progressive "
+                             "stage of this config")
+        start_k = matched[0]
+        if step_got >= plan[start_k][0] and start_k < len(plan) - 1:
+            _upsample_checkpoint(stage_cfg(start_k + 1), ckpt_dir, log)
+            start_k += 1
+        log.info("progressive resume: stage %d/%d", start_k + 1, len(plan))
+    final_metrics: Dict[str, float] = {}
+    for k in range(start_k, len(plan)):
+        log.info("progressive stage %d/%d: R=%d until step %d", k + 1, len(plan), plan[k][1],
+                 plan[k][0])
+        final_metrics = _run_training_single(stage_cfg(k), datasets, device)
+        if k < len(plan) - 1:
+            _upsample_checkpoint(stage_cfg(k + 1), ckpt_dir, log)
+    return final_metrics
+
+
+def _upsample_checkpoint(scfg_new: Config, ckpt_dir: str, log) -> None:
+    """Rewrite the newest checkpoint at the next stage's resolution
+    (`tnerf/train_loop.py:425`): planes and lines upsampled, a fresh
+    optimizer state under the next stage's schedule, the occupancy and the
+    step carried over."""
+    step, params, _, occ = load_train_checkpoint(ckpt_dir, device="cpu")
+    r_old = params["triplane.lines"].shape[1]
+    r_new = scfg_new.field_.tri_resolution
+    params = dict(params)
+    params["triplane.planes"], params["triplane.lines"] = upsample_triplane(
+        params["triplane.planes"], params["triplane.lines"], r_new)
+    fresh = Optimizer(scfg_new.train, params)
+    save_checkpoint(ckpt_dir, step, params, fresh.state, occ, scfg_new.train)
+    log.info("upsampled triplane %d -> %d at step %d (optimizer reset)", r_old, r_new, step)
+
+
+def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]] = None,
+                         device="cuda") -> Dict[str, float]:
+    """Train a field per `cfg` on `device` (one resolution stage); returns
+    the final metrics.
 
     procedural scene -> PixelSampler -> the renderer of render.pipeline
     (fused: B3 tighten, or under occupancy-CDF placement B4 and jittered
     inverse-CDF samples, B1 forward, B2 backward; grid_intervals: the B5
     walk, per-interval samples, field, composite; grid_march and uniform:
     jittered samples, field, composite) -> photometric loss (+
-    train.distortion_weight / (far - near) times the mean distortion) ->
-    Adam; every grid.update_every steps after grid.warmup_steps the
+    train.distortion_weight / (far - near) times the mean distortion, +
+    the table priors) -> Adam (train.table_lr_mult scaling the tables'
+    updates); every grid.update_every steps after grid.warmup_steps the
     occupancy grid is refreshed from the field's density (the uniform
     pipeline keeps none).  grid_march with render.compact trains and evals
     densely until the grid has pruned and then on the occupied samples
@@ -259,7 +423,7 @@ def run_training(cfg: Config, datasets: Optional[Dict[str, ImageDataset]] = None
     renderer = renderer_dense
     state = init_train_state(field, cfg.train)
     n_params = sum(p.numel() for p in field.parameters())
-    log.info("field=%s params=%.2fM pipeline=%s device=%s", cfg.field_.encoding,
+    log.info("field=%s/%s params=%.2fM pipeline=%s device=%s", cfg.field_.encoding, field.arch,
              n_params / 1e6, cfg.render.pipeline, dev)
     use_grid = cfg.render.pipeline != "uniform"
     occ = init_occupancy(cfg.grid, dev) if use_grid else None
@@ -285,7 +449,9 @@ def run_training(cfg: Config, datasets: Optional[Dict[str, ImageDataset]] = None
     # span-normalized: raw-t distortion scales with the sampled range
     loss_kw = dict(loss=cfg.train.loss, huber_delta=cfg.train.huber_delta,
                    distortion=cfg.train.distortion_weight
-                   / max(cfg.sampler.far - cfg.sampler.near, 1e-6))
+                   / max(cfg.sampler.far - cfg.sampler.near, 1e-6),
+                   table_l1_weight=cfg.train.table_l1_weight,
+                   table_tv_weight=cfg.train.table_tv_weight)
     step_dense = make_train_step(renderer_dense, **loss_kw)
     step_compact = make_train_step(renderer_compact, **loss_kw) if switching else step_dense
     train_step = step_dense

@@ -4,27 +4,32 @@ The reference writes `step_<N>.npz` (one array per pytree leaf,
 `leaf_<i>` in `jax.tree_util` flatten order) plus `treedef.json` (the
 treedef string, the leaf count and the last step) — see
 `tnerf/utils/checkpoint.py:26-69`.  Flatten order sorts dict keys and
-keeps NamedTuple fields in declaration order, so for the fused
-frequency-MLP model the saved `(TrainState, OccupancyGridState)` is, with
-L layers:
+keeps NamedTuple fields in declaration order, so the saved
+`(TrainState, OccupancyGridState)` is:
 
-- leaves `0..L-1`: `params['trunk']['b']` (one bias per layer),
-- leaves `L..2L-1`: `params['trunk']['w']` (`[in, out]` per layer),
+- the params, group by group in sorted order: the frequency-MLP field has
+  `trunk` alone, biases first (`params['trunk']['b']`, one per layer), then
+  weights (`[in, out]` per layer); a twobranch field `color` (likewise),
+  then its encoding's tables (`cp` {lines}, `hashgrid` {tables} or
+  `triplane` {lines, planes}), then `trunk`;
 - the optimizer state: the non-finite skip's three counters (int32, bool,
   int32; only with `train.skip_nonfinite`), Adam's `count`, `mu` and `nu`
   (each laid out like the params), the schedule's `count` (only when the
-  learning rate is scheduled),
+  learning rate is scheduled; `train.table_lr_mult` adds a masked scale,
+  which holds no leaf),
 - `TrainState.step`, and `TrainState.ema` (must be `None`),
 - the last three: `OccupancyGridState(density_ema, bitfield, step)`; the
   uniform pipeline keeps no occupancy grid and saves the `TrainState` alone.
 
 `save_checkpoint` writes exactly this, so the reference's
 `restore_checkpoint` reads the port's checkpoints and the port resumes the
-reference's.  Anything else (a weight EMA, pose deltas, another field) is refused rather than guessed at.
+reference's.  Anything else (a weight EMA, pose deltas, another field) is
+refused rather than guessed at.
 """
 
 from __future__ import annotations
 
+import ast
 import json
 import os
 import re
@@ -35,13 +40,6 @@ import torch
 
 from tnerf_torch.device import resolve_device
 from tnerf_torch.grid.occupancy import OccupancyGridState
-
-_STATE = "CustomNode(namedtuple[TrainState], [{{'trunk': {{'b': [{b}], 'w': [{w}]}}}}, "
-_HEAD = "PyTreeDef((" + _STATE                   # (TrainState, OccupancyGridState)
-_TAIL = ", *, None]), CustomNode(namedtuple[OccupancyGridState], [*, *, *])))"
-_HEAD_ALONE = "PyTreeDef(" + _STATE               # a TrainState alone
-_TAIL_ALONE = ", *, None]))"
-
 
 def latest_checkpoint(ckpt_dir: str) -> Tuple[int, str]:
     """(step, path) of the newest `step_<N>.npz` in ckpt_dir; raises
@@ -57,64 +55,184 @@ def latest_checkpoint(ckpt_dir: str) -> Tuple[int, str]:
     return best
 
 
-def params_from_jax(np_params: dict) -> Dict[str, torch.Tensor]:
-    """The reference's `TrainState.params` pytree ({'trunk': {'w': [...],
-    'b': [...]}} of arrays) -> flat {"trunk.w.<l>", "trunk.b.<l>"} float32
-    CPU tensors, values unchanged."""
-    if set(np_params) != {"trunk"} or set(np_params["trunk"]) != {"w", "b"}:
+# Top-level parameter groups of the reference's field (`tnerf/fields/
+# nerf_field.py:211`): MLPs {'b': [...], 'w': [...]} and the table leaves
+# of each table-backed encoding, by their sorted names.
+_MLPS = ("color", "trunk")
+_TABLES = {"cp": ("lines",), "hashgrid": ("tables",), "triplane": ("lines", "planes")}
+
+
+def _layout(groups: dict) -> Dict[str, object]:
+    """{group: layer count (an MLP) or leaf names (a table)}, checked: a
+    trunk alone (the fused5d field), or a trunk, a colour head and one
+    encoding's tables (twobranch)."""
+    tables = [g for g in groups if g in _TABLES]
+    unknown = sorted(set(groups) - set(_MLPS) - set(_TABLES))
+    twobranch = "color" in groups
+    if unknown or "trunk" not in groups or twobranch != bool(tables) or len(tables) > 1:
         raise ValueError(
-            f"expected params {{'trunk': {{'w', 'b'}}}}, got keys {sorted(np_params)}: "
-            "only the frequency-MLP trunk is ported"
-        )
-    ws, bs = np_params["trunk"]["w"], np_params["trunk"]["b"]
+            f"parameter groups {sorted(groups)}: only a frequency-MLP trunk, or a trunk, a "
+            "colour head and one of the hashgrid / triplane / cp tables, is ported")
+    return {g: groups[g] for g in sorted(groups)}
+
+
+def layout_of(params: Dict[str, torch.Tensor]) -> Dict[str, object]:
+    """The layout (`_layout`) of a flat parameter dict."""
+    groups: Dict[str, object] = {}
+    for k in params:
+        g = k.split(".")[0]
+        if g in _TABLES:
+            groups[g] = _TABLES[g]
+        else:
+            groups[g] = sum(1 for n in params if n.startswith(f"{g}.w."))
+    return _layout(groups)
+
+
+def leaf_names(layout: Dict[str, object]) -> list:
+    """Flat parameter names in the reference's flatten order: groups sorted,
+    an MLP's biases before its weights, a table's leaves sorted."""
+    out = []
+    for g, v in layout.items():
+        if g in _TABLES:
+            out += [f"{g}.{leaf}" for leaf in v]
+        else:
+            out += [f"{g}.b.{l}" for l in range(v)] + [f"{g}.w.{l}" for l in range(v)]
+    return out
+
+
+def _tree(layout: Dict[str, object]) -> str:
+    """The params part of the reference's treedef string."""
+    parts = []
+    for g, v in layout.items():
+        if g in _TABLES:
+            parts.append(f"'{g}': {{" + ", ".join(f"'{leaf}': *" for leaf in v) + "}")
+        else:
+            stars = ", ".join(["*"] * v)
+            parts.append(f"'{g}': {{'b': [{stars}], 'w': [{stars}]}}")
+    return "{" + ", ".join(parts) + "}"
+
+
+def _layout_of_tree(tree: str) -> Dict[str, object]:
+    """The layout of a treedef's params part, e.g. "{'trunk': {'b': [*],
+    'w': [*]}}"."""
+    try:
+        nested = ast.literal_eval(tree.replace("*", "0"))
+    except (ValueError, SyntaxError) as e:
+        raise ValueError(f"unreadable params tree {tree[:120]}...") from e
+    if not isinstance(nested, dict):
+        raise ValueError(f"params tree {tree[:120]}... is not a dict")
+    groups: Dict[str, object] = {}
+    for g, v in nested.items():
+        if g in _TABLES and v == {leaf: 0 for leaf in _TABLES[g]}:
+            groups[g] = _TABLES[g]
+        elif isinstance(v, dict) and set(v) == {"b", "w"} and len(v["b"]) == len(v["w"]) \
+                and v["w"] and v["b"] == v["w"] == [0] * len(v["w"]):
+            groups[g] = len(v["w"])
+        else:
+            raise ValueError(f"parameter group {g!r} of layout {v!r} is not ported")
+    return _layout(groups)
+
+
+def _mlp_from_jax(name: str, tree: dict, out: Dict[str, torch.Tensor]) -> None:
+    if set(tree) != {"w", "b"}:
+        raise ValueError(f"params[{name!r}] has keys {sorted(tree)}, expected w and b")
+    ws, bs = tree["w"], tree["b"]
     if len(ws) != len(bs) or not ws:
-        raise ValueError(f"{len(ws)} weights but {len(bs)} biases")
-    out = {}
+        raise ValueError(f"{name}: {len(ws)} weights but {len(bs)} biases")
     for l, (w, b) in enumerate(zip(ws, bs)):
         w = np.asarray(w)
         b = np.asarray(b)
         if w.dtype != np.float32 or b.dtype != np.float32:
-            raise ValueError(f"layer {l}: expected float32 leaves, got {w.dtype} / {b.dtype}")
+            raise ValueError(f"{name} layer {l}: expected float32 leaves, got {w.dtype} / "
+                             f"{b.dtype}")
         if w.ndim != 2 or b.shape != (w.shape[1],):
-            raise ValueError(f"layer {l}: weight {w.shape} / bias {b.shape}")
-        if l and w.shape[0] != ws[l - 1].shape[1]:
-            raise ValueError(f"layer {l} input width {w.shape[0]} != layer {l - 1} output")
-        out[f"trunk.w.{l}"] = torch.from_numpy(w.copy())
-        out[f"trunk.b.{l}"] = torch.from_numpy(b.copy())
+            raise ValueError(f"{name} layer {l}: weight {w.shape} / bias {b.shape}")
+        if l and w.shape[0] != np.shape(ws[l - 1])[1]:
+            raise ValueError(f"{name} layer {l} input width {w.shape[0]} != layer {l - 1} output")
+        out[f"{name}.w.{l}"] = torch.from_numpy(w.copy())
+        out[f"{name}.b.{l}"] = torch.from_numpy(b.copy())
+
+
+def params_from_jax(np_params: dict) -> Dict[str, torch.Tensor]:
+    """The reference's `TrainState.params` pytree -> flat float32 CPU
+    tensors, values unchanged: {'trunk': {'w': [...], 'b': [...]}} ->
+    "trunk.w.<l>" / "trunk.b.<l>"; a twobranch field adds 'color' (->
+    "color.w.<l>" / "color.b.<l>") and one of {'hashgrid': {'tables'}}
+    (-> "hashgrid.tables" [L*T, F]), {'triplane': {'lines', 'planes'}}
+    (-> "triplane.lines" [3, R, F], "triplane.planes" [3, R*R, F]),
+    {'cp': {'lines'}} (-> "cp.lines" [3, R, F])."""
+    _layout({g: None for g in np_params})
+    out: Dict[str, torch.Tensor] = {}
+    for g in sorted(np_params):
+        if g in _MLPS:
+            _mlp_from_jax(g, np_params[g], out)
+            continue
+        if set(np_params[g]) != set(_TABLES[g]):
+            raise ValueError(f"params[{g!r}] has keys {sorted(np_params[g])}, expected "
+                             f"{list(_TABLES[g])}")
+        for leaf in _TABLES[g]:
+            a = np.asarray(np_params[g][leaf])
+            if a.dtype != np.float32 or a.ndim != (2 if g == "hashgrid" else 3):
+                raise ValueError(f"{g}.{leaf}: {a.dtype} {a.shape}")
+            out[f"{g}.{leaf}"] = torch.from_numpy(a.copy())
+    if "triplane" in np_params:
+        p, l = out["triplane.planes"].shape, out["triplane.lines"].shape
+        if p[0] != 3 or l[0] != 3 or p[1] != l[1] ** 2 or p[2] != l[2]:
+            raise ValueError(f"triplane planes {tuple(p)} / lines {tuple(l)}")
+    return out
+
+
+def _nested(layout: Dict[str, object], leaves) -> dict:
+    """The params pytree of `layout` from its leaves in flatten order."""
+    it = iter(leaves)
+    out = {}
+    for g, v in layout.items():
+        if g in _TABLES:
+            out[g] = {leaf: next(it) for leaf in v}
+        else:
+            b = [next(it) for _ in range(v)]
+            out[g] = {"b": b, "w": [next(it) for _ in range(v)]}
     return out
 
 
 def n_layers(params: Dict[str, torch.Tensor]) -> int:
+    """Layers of the trunk."""
     return sum(1 for k in params if k.startswith("trunk.w."))
 
 
+_STATE = "CustomNode(namedtuple[TrainState], ["
+_TAIL = ", *, None]), CustomNode(namedtuple[OccupancyGridState], [*, *, *])))"
+_TAIL_ALONE = ", *, None]))"
+
+
 def _read_leaves(ckpt_dir: str):
-    """(step, L, treedef, leaves, has_occupancy) of the newest checkpoint,
-    its layout checked."""
+    """(step, layout, treedef, leaves, has_occupancy) of the newest
+    checkpoint, its layout checked."""
     step, path = latest_checkpoint(ckpt_dir)
     with open(os.path.join(ckpt_dir, "treedef.json")) as fh:
         meta = json.load(fh)
     treedef, n = meta["treedef"], int(meta["n_leaves"])
     if treedef.count("*") != n:
         raise ValueError(f"treedef has {treedef.count('*')} leaves, n_leaves says {n}")
-    m = re.match(r"PyTreeDef\(\(?CustomNode\(namedtuple\[TrainState\], \[\{'trunk': \{'b': \[([*, ]*)\]",
-                 treedef)
-    L = m.group(1).count("*") if m else 0
-    stars = ", ".join(["*"] * L)
-    pair = treedef.startswith(_HEAD.format(b=stars, w=stars)) and treedef.endswith(_TAIL)
-    alone = treedef.startswith(_HEAD_ALONE.format(b=stars, w=stars)) \
-        and treedef.endswith(_TAIL_ALONE) and "OccupancyGridState" not in treedef
-    if L == 0 or not (pair or alone):
+    pair = treedef.startswith("PyTreeDef((" + _STATE) and treedef.endswith(_TAIL)
+    alone = treedef.startswith("PyTreeDef(" + _STATE) and treedef.endswith(_TAIL_ALONE) \
+        and "OccupancyGridState" not in treedef
+    if not (pair or alone):
         raise ValueError(
-            f"{ckpt_dir}: unsupported checkpoint layout (only a TrainState of "
-            "params.trunk with no weight EMA, with or without an OccupancyGridState, is "
-            f"ported): {treedef[:160]}..."
-        )
+            f"{ckpt_dir}: unsupported checkpoint layout (only a TrainState with no weight EMA, "
+            f"with or without an OccupancyGridState, is ported): {treedef[:160]}...")
+    start = treedef.index(_STATE) + len(_STATE)
+    depth = 0
+    for end in range(start, len(treedef)):
+        depth += {"{": 1, "}": -1}.get(treedef[end], 0)
+        if depth == 0:
+            break
+    layout = _layout_of_tree(treedef[start:end + 1])
     with np.load(path) as data:
         if sorted(data.files) != sorted(f"leaf_{i}" for i in range(n)):
             raise ValueError(f"{path} holds {len(data.files)} leaves; treedef.json says {n}")
         leaves = [data[f"leaf_{i}"] for i in range(n)]
-    return step, L, treedef, leaves, pair
+    return step, layout, treedef, leaves, pair
 
 
 def _occupancy_from_leaves(leaves, dev, has_occupancy: bool) -> Optional[OccupancyGridState]:
@@ -140,8 +258,8 @@ def load_jax_checkpoint(ckpt_dir: str, device="cuda"):
     OccupancyGridState whose bitfield is the saved [res]^3 bool grid, or
     None where the checkpoint holds none (the uniform pipeline's)."""
     dev = resolve_device(device)
-    step, L, _, leaves, has_occ = _read_leaves(ckpt_dir)
-    params = params_from_jax({"trunk": {"b": leaves[:L], "w": leaves[L:2 * L]}})
+    step, layout, _, leaves, has_occ = _read_leaves(ckpt_dir)
+    params = params_from_jax(_nested(layout, leaves))
     return (step, {k: v.to(dev) for k, v in params.items()},
             _occupancy_from_leaves(leaves, dev, has_occ))
 
@@ -152,41 +270,42 @@ def load_train_checkpoint(ckpt_dir: str, device="cuda"):
     `train.Optimizer.state`: which of the non-finite counters and the
     schedule's count it holds follows from the leaf count."""
     dev = resolve_device(device)
-    step, L, treedef, leaves, has_occ = _read_leaves(ckpt_dir)
-    names = [f"trunk.b.{l}" for l in range(L)] + [f"trunk.w.{l}" for l in range(L)]
-    params = params_from_jax({"trunk": {"b": leaves[:L], "w": leaves[L:2 * L]}})
+    step, layout, treedef, leaves, has_occ = _read_leaves(ckpt_dir)
+    names = leaf_names(layout)
+    P = len(names)
+    params = params_from_jax(_nested(layout, leaves))
     i_step = -4 if has_occ else -1
-    opt = leaves[2 * L:i_step]  # between the params and (step, occupancy x 3); ema=None is no leaf
-    extra = len(opt) - (1 + 4 * L)
+    opt = leaves[P:i_step]  # between the params and (step, occupancy x 3); ema=None is no leaf
+    extra = len(opt) - (1 + 2 * P)
     if extra not in (0, 1, 3, 4) \
             or ("ApplyIfFiniteState" in treedef) != (extra >= 3) \
             or ("ScaleByScheduleState" in treedef) != (extra in (1, 4)):
-        raise ValueError(f"{ckpt_dir}: optimizer state of {len(opt)} leaves for {L} layers is "
-                         "not an Adam state this port knows")
+        raise ValueError(f"{ckpt_dir}: optimizer state of {len(opt)} leaves for {P} parameters "
+                         "is not an Adam state this port knows")
     t = lambda a: torch.from_numpy(np.array(a)).to(dev)
     state = {}
     if extra >= 3:
         state.update(notfinite_count=t(opt[0]), last_finite=t(opt[1]), total_notfinite=t(opt[2]))
         opt = opt[3:]
     state["count"] = t(opt[0])
-    state["mu"] = {k: t(a) for k, a in zip(names, opt[1:1 + 2 * L])}
-    state["nu"] = {k: t(a) for k, a in zip(names, opt[1 + 2 * L:1 + 4 * L])}
+    state["mu"] = {k: t(a) for k, a in zip(names, opt[1:1 + P])}
+    state["nu"] = {k: t(a) for k, a in zip(names, opt[1 + P:1 + 2 * P])}
     if extra in (1, 4):
-        state["sched_count"] = t(opt[1 + 4 * L])
+        state["sched_count"] = t(opt[1 + 2 * P])
     if int(leaves[i_step]) != step:
         raise ValueError(f"{ckpt_dir}: TrainState.step {int(leaves[i_step])} in step_{step} file")
     return (step, {k: v.to(dev) for k, v in params.items()}, state,
             _occupancy_from_leaves(leaves, dev, has_occ))
 
 
-def checkpoint_treedef(L: int, train_cfg, with_occupancy: bool = True) -> str:
+def checkpoint_treedef(layout: Dict[str, object], train_cfg, with_occupancy: bool = True) -> str:
     """The treedef string the reference writes for `(TrainState,
-    OccupancyGridState)`, or for the `TrainState` alone, of an L-layer
-    trunk under `train_cfg`'s optimizer
-    (`str(jax.tree_util.tree_structure(...))`; informative: its reader
-    checks only the leaf count, this port's reader the parts it names)."""
-    stars = ", ".join(["*"] * L)
-    tree = f"{{'trunk': {{'b': [{stars}], 'w': [{stars}]}}}}"
+    OccupancyGridState)`, or for the `TrainState` alone, of a field of
+    `layout` (`layout_of`) under `train_cfg`'s optimizer
+    (`str(jax.tree_util.tree_structure(...))`, `tnerf/train.py:66`;
+    informative: its reader checks only the leaf count, this port's reader
+    the parts it names)."""
+    tree = _tree(layout)
     empty = "CustomNode(namedtuple[EmptyState], [])"
     scheduled = train_cfg.lr_final_fraction != 1.0 or train_cfg.lr_warmup_steps > 0
     parts = [f"CustomNode(namedtuple[ScaleByAdamState], [*, {tree}, {tree}])"]
@@ -196,11 +315,13 @@ def checkpoint_treedef(L: int, train_cfg, with_occupancy: bool = True) -> str:
     opt = "(" + ", ".join(parts) + ")"
     if train_cfg.grad_clip > 0.0:
         opt = f"({empty}, {opt})"
+    if train_cfg.table_lr_mult != 1.0:
+        opt = f"({opt}, CustomNode(namedtuple[MaskedState], [{empty}]))"
     if train_cfg.skip_nonfinite:
         opt = f"CustomNode(namedtuple[ApplyIfFiniteState], [*, *, *, {opt}])"
     if not with_occupancy:
-        return _HEAD_ALONE.format(b=stars, w=stars) + opt + _TAIL_ALONE
-    return _HEAD.format(b=stars, w=stars) + opt + _TAIL
+        return f"PyTreeDef({_STATE}{tree}, {opt}{_TAIL_ALONE}"
+    return f"PyTreeDef(({_STATE}{tree}, {opt}{_TAIL}"
 
 
 def save_checkpoint(ckpt_dir: str, step: int, params: Dict[str, torch.Tensor], opt_state: dict,
@@ -209,8 +330,8 @@ def save_checkpoint(ckpt_dir: str, step: int, params: Dict[str, torch.Tensor], o
     (module docstring).  opt_state: `train.Optimizer.state`; occupancy:
     None for a run that keeps no grid."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    L = n_layers(params)
-    names = [f"trunk.b.{l}" for l in range(L)] + [f"trunk.w.{l}" for l in range(L)]
+    layout = layout_of(params)
+    names = leaf_names(layout)
     host = lambda t: t.detach().cpu().numpy()
     leaves = [host(params[k]) for k in names]
     for k in ("notfinite_count", "last_finite", "total_notfinite"):
@@ -224,7 +345,7 @@ def save_checkpoint(ckpt_dir: str, step: int, params: Dict[str, torch.Tensor], o
     leaves.append(np.asarray(step, np.int32))
     if occupancy is not None:
         leaves += [host(occupancy.density_ema), host(occupancy.bitfield), host(occupancy.step)]
-    treedef = checkpoint_treedef(L, train_cfg, with_occupancy=occupancy is not None)
+    treedef = checkpoint_treedef(layout, train_cfg, with_occupancy=occupancy is not None)
     if treedef.count("*") != len(leaves):
         raise ValueError(f"{len(leaves)} leaves to write, but the optimizer of this config "
                          f"has a state of {treedef.count('*')}")
