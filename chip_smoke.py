@@ -66,10 +66,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
      density-CDF placement, each with and without ray and sample
      compaction: B4 launched, test PSNR within MARCH_SERVE_TOL_DB of the
      fused eval's, one view equal across the compaction variants; then
-     `cli train` of configs/procedural_hard_30db.json as committed (5000
-     steps): test PSNR within TRAIN_PSNR_MARGIN_DB of the reference's
-     record and over the config's gate, B4 launched by its evals; 20 steps
-     under torch.profiler;
+     `cli train` of configs/procedural_hard_30db.json, its first 2500 of
+     5000 steps under the full schedule (MARCH_TRAIN_OVERRIDES, for the
+     time limit): its eval at step 2499 within TRAIN_PSNR_MARGIN_DB of the
+     reference's at that step, the final eval over the config's gate, B4
+     launched by its evals; 20 steps under torch.profiler;
   9. `intervals`: `cli train` of runs/hard_r4_intervals16/config.json
      (2500 steps, train.seed=3: see INTERVALS_OVERRIDES): B5 at least once
      per step and per eval chunk,
@@ -86,9 +87,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
      gate, B4 launched by the evals; the hash grid's `cli eval` (the run's
      own PSNR); 20 steps of each under torch.profiler, with the position
      encoding's forward and backward timed alone at a step's own samples
-     and two backward passes there compared bit for bit (printed, not a
-     gate);
- 11. print the kernels' JSON line, then the status line.
+     and two backward passes there bit-equal; the segment-sum kernel (the
+     lookups' table gradient, csrc/segment_sum.cu) bit-equal to its plain
+     version on the step's first lookup, two launches bit-equal, timed
+     beside `index_add_` (its row in the kernels' line is the hash grid's);
+ 11. `scenes`: scenes read from disk, NDC and pose refinement through the
+     entry points.  (a) `cli train` of the LLFF capture data/llff/prims_ff
+     in world space with tools/llff_rehearsal.py's overrides (grid_march,
+     2500 steps): the loader's splits and focal the reference's, test
+     PSNR within TRAIN_PSNR_MARGIN_DB of its record and over 30 dB, B4
+     launched by the evals and bit-equal to its plain version on a
+     480x360 view's rays; (b) `cli train` of runs/colmap_rehearsal/
+     config.json as committed (COLMAP text model, NDC, 2500 steps; the
+     data root set to the checkout's): the same gates, B4 bit-equal on the
+     NDC rays of a test view, `cli render` of a test view and `--path` of
+     three poses, `--orbit 1` refused; (c) the prims model's `cli eval`
+     from a NeRF-synthetic export of its 400x400 ground truth: within
+     SYNTHETIC_TOL_DB of the procedural eval; (d) the corrupted-pose
+     dataset of tests/test_pose_opt.py (48x48, 3 x 64 MLP) trained 800
+     steps without and with train.optimize_poses: each within
+     TRAIN_PSNR_MARGIN_DB of the reference's record, refinement better by
+     more than 0.5 dB, `cli render --split train --refined-poses` of the
+     refined checkpoint;
+ 12. print the kernels' JSON line, then the status line.
 In the `kernels` phase B5 (the grid walk) is held bit-equal to its plain
 version, dense at 16^3 and 128^3, with occupancy at 64^3 (the prims
 model's bitfield, coarse factor 4) and 32^3 (a random 8% bitfield, factor
@@ -99,13 +120,15 @@ it is timed at the intervals training shape (4096 rays, 16^3, 49 steps),
 an intervals eval chunk (a 128 x 128 view) and at 640,000 rays, 128^3,
 dense, 384 steps; B4 is held bit-equal at the march eval's shape (16^3
 pooling, 64 probes, 96 midpoints).
-`--phases kernels,serve,train,resume,cdf,march,intervals,fields` runs a subset (for development;
+Each phase prints its seconds.
+`--phases kernels,serve,train,resume,cdf,march,intervals,fields,scenes` runs a subset (for development;
 the kernels' line then lists what ran).  Files go under chiprun_out/
 (git-ignored).
 """
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import os
@@ -136,6 +159,12 @@ JAX_CDF_PSNR_TEST = 38.95965774441899
 # (runs/hard_r3_march/metrics.jsonl) and of the intervals config
 # (runs/hard_r4_intervals16/metrics.jsonl), last lines.
 JAX_MARCH_PSNR_TEST = 39.177740514541384
+# The march config trains its first 2500 of 5000 steps, under the
+# schedule of all 5000 (so the run is the first half of the full one), to
+# keep the script inside its time limit; it is held to the reference's
+# own eval at that step (the same run, 2 test views, step 2499).
+MARCH_TRAIN_OVERRIDES = ["train.steps=2500", "train.schedule_total_steps=5000"]
+JAX_MARCH_PSNR_TEST_2499 = 36.886449828787946
 JAX_INTERVALS_PSNR_TEST = 33.336694779861396
 # The reference's final test PSNRs of the table-field runs (each run's
 # metrics.jsonl, last line): TPU runs whose lookups were rounded to bf16
@@ -193,6 +222,35 @@ MARCH_COMPACT_ATOL = 1e-3
 # threshold a tile stops once all of its rays are opaque, and compaction
 # changes a ray's neighbours in its tile.
 COMPACT_ATOL_EPS0, COMPACT_ATOL = 1e-5, 2e-3
+# Scenes and poses (phase `scenes`): the reference's records of the
+# committed captures.  LLFF, world space (tools/llff_rehearsal.py, its
+# overrides in LLFF_OVERRIDES; runs/llff_rehearsal/summary.json): the
+# loader's splits and 44.34 dB.  COLMAP in NDC as committed
+# (runs/colmap_rehearsal/config.json, summary.json): 39.81 dB.  The
+# pose-refinement pair (runs/pose_refinement_{opt,no_opt}/metrics.jsonl):
+# 18.03 dB with train.optimize_poses against 16.20 without, 800 steps on
+# the corrupted-pose dataset of tests/test_pose_opt.py, and the
+# reference's own gate there: refinement wins by more than 0.5 dB.
+LLFF_ROOT = os.path.join(REPO, "data", "llff")
+COLMAP_ROOT = os.path.join(REPO, "data", "colmap")
+CONFIG_COLMAP = os.path.join(REPO, "runs", "colmap_rehearsal", "config.json")
+JAX_LLFF_PSNR_TEST = 44.342881402053365
+JAX_LLFF_LOADER = {"train": (22, [360, 480, 4]), "test": (4, [360, 480, 4]),
+                   "focal": 666.6666187162609}
+JAX_COLMAP_PSNR_TEST = 39.812801577821745
+JAX_POSE_OPT_PSNR_TEST, JAX_POSE_NO_OPT_PSNR_TEST = 18.03, 16.20
+POSE_OPT_MIN_GAIN_DB = 0.5
+SCENE_PSNR_FLOOR_DB = 30.0
+LLFF_OVERRIDES = ["scene.kind=llff", "scene.name=prims_ff", f"scene.root={LLFF_ROOT}",
+                  "scene.white_background=true", "render.white_background=true",
+                  "scene.scene_scale=1.0", "sampler.near=2.0", "sampler.far=5.5",
+                  "render.pipeline=grid_march", "render.compact=false",
+                  "render.ray_compact=false", "train.steps=2500", "train.eval_every=2500",
+                  "train.checkpoint_every=2500"]
+# The prims model's eval from 8-bit PNGs of its own ground truth against
+# its procedural eval: PNG rounding adds noise of 1 / (255 sqrt(12)) RMS to
+# the targets, 0.3% of the model's MSE at 34.4 dB, about 0.015 dB.
+SYNTHETIC_TOL_DB = 0.05
 # B1 tolerance: bf16 activations rounded in another order than the plain
 # version's (f32 sums in another order flip single bf16 roundings); depth
 # is a sum of w * t with t up to sampler.far = 5.5, so its bound scales.
@@ -212,7 +270,8 @@ TRAIN_PSNR_MARGIN_DB = 1.5
 # moments would send the first updates far off.  Written before the run.
 RESUME_LOSS_MAX = 3e-4
 RESUME_STEPS = 50
-ALL_PHASES = ("kernels", "serve", "train", "resume", "cdf", "march", "intervals", "fields")
+ALL_PHASES = ("kernels", "serve", "train", "resume", "cdf", "march", "intervals", "fields",
+              "scenes")
 # Published H100 SXM peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -301,11 +360,13 @@ def run_cli(argv, with_stderr=False):
 
 def kernel_counters():
     """name of a kernels-line row -> (wrapper, name of its launch count)."""
+    from tnerf_torch.fields.hashgrid import segment_sum_rows
     from tnerf_torch.grid.dda import march_raw
     from tnerf_torch.grid.tighten import tighten_range, tighten_sample_mask
     from tnerf_torch.render.fused import fused_backward, fused_forward
 
-    return {"dda_march": (march_raw, "launches"),
+    return {"segment_sum": (segment_sum_rows, "launches"),
+            "dda_march": (march_raw, "launches"),
             "tighten_range": (tighten_range, "launches"),
             "tighten_sample_mask": (tighten_sample_mask, "launches"),
             "fused_forward": (fused_forward, "launches"),
@@ -1245,11 +1306,13 @@ def last_window(metrics_path):
     return logged[-1], [r["loss"] for r in logged], final
 
 
-def train_from_scratch(config, out_name, steps, per_step, reference_psnr, overrides=()):
+def train_from_scratch(config, out_name, steps, per_step, reference_psnr, overrides=(),
+                       gate_step=None):
     """A training run through the entry point, all `steps` steps of
     `config` (with `overrides`): every kernel named in per_step at least
     once per step, no step skipped, test PSNR within TRAIN_PSNR_MARGIN_DB
-    of the reference's.
+    of the reference's (the final eval's, or with gate_step the eval
+    the run logged at that step).
     Returns (launch counts, final metrics, output directory)."""
     import shutil
 
@@ -1263,6 +1326,10 @@ def train_from_scratch(config, out_name, steps, per_step, reference_psnr, overri
     train_s = time.perf_counter() - t0
     final = json.loads(text)
     last, losses, _ = last_window(os.path.join(out_dir, "metrics.jsonl"))
+    gated = final
+    if gate_step is not None:
+        gated = [r for r in map(json.loads, open(os.path.join(out_dir, "metrics.jsonl")))
+                 if r["step"] == gate_step and "psnr_test" in r][0]
     log(f"{out_name} ({train_s:.1f} s): {json.dumps(final)}; last window {json.dumps(last)}; "
         f"launches {launches}")
     if min([launches[k] for k in per_step], default=steps) < steps:
@@ -1275,8 +1342,12 @@ def train_from_scratch(config, out_name, steps, per_step, reference_psnr, overri
           f"{final['ssim_test']:.4f}, last window {last['step_seconds'] * 1e3:.3f} ms/step, "
           f"{last['rays_per_sec']:.0f} rays/s, loss {last['loss']:.3e}, whole run {train_s:.1f} s",
           flush=True)
-    if abs(final["psnr_test"] - reference_psnr) > TRAIN_PSNR_MARGIN_DB:
-        raise AssertionError(f"{out_name}: trained test PSNR {final['psnr_test']} is not within "
+    if gate_step is not None:
+        print(f"{out_name}: its eval at step {gate_step}: psnr_test {gated['psnr_test']:.4f} dB "
+              f"on {gated['n_views_test']:.0f} views (the reference's at that step "
+              f"{reference_psnr:.4f})", flush=True)
+    if abs(gated["psnr_test"] - reference_psnr) > TRAIN_PSNR_MARGIN_DB:
+        raise AssertionError(f"{out_name}: trained test PSNR {gated['psnr_test']} is not within "
                              f"{TRAIN_PSNR_MARGIN_DB} dB of the reference's {reference_psnr}")
     return launches, final, out_dir
 
@@ -1360,6 +1431,73 @@ def table_gradient_repeats(params, field_cfg, grid_cfg, positions):
     return equal, diff
 
 
+SEGMENT_ROWS = []  # the segment-sum kernel's rows, one per table-field config
+
+
+def check_segment_sum(params, field_cfg, grid_cfg, positions, tag):
+    """The segment-sum kernel (the table gradient of every lookup) against
+    its plain version (on the CPU) on the first lookup of the encode's
+    backward at a train step's own samples, bit for bit (the two add in one
+    order), two launches bit-equal; timed with the plain version on the
+    card and `index_add_`
+    (the one PyTorch call that sums the same rows, by atomics).  Appends
+    its row to SEGMENT_ROWS."""
+    import torch
+
+    from tnerf_torch.fields import hashgrid
+    from tnerf_torch.fields.nerf_field import TABLE_ENCODINGS, encode_positions
+
+    seen, wrapper = [], hashgrid.segment_sum_rows
+
+    def capture(values, idx, rows):
+        if not seen:
+            seen.append((values.reshape(idx.numel(), -1).contiguous(), idx.reshape(-1), rows))
+        return wrapper(values, idx, rows)
+
+    capture.launches = 0  # the wrapper counts its launches under its module name
+
+    tables = [v for k, v in params.items() if k.split(".")[0] in TABLE_ENCODINGS]
+    out = encode_positions(params, field_cfg, grid_cfg, positions)
+    hashgrid.segment_sum_rows = capture
+    try:
+        torch.autograd.grad(out, tables, torch.randn_like(out))
+    finally:
+        hashgrid.segment_sum_rows = wrapper
+    values, idx, rows = seen[0]
+    n, F = values.shape
+    got = [hashgrid.segment_sum_rows(values, idx, rows) for _ in range(2)]
+    # the plain version on the CPU, whose segment_reduce adds in order
+    plain = hashgrid.segment_sum_rows_plain(values.cpu(), idx.cpu(), rows)
+    on_card = hashgrid.segment_sum_rows_plain(values, idx, rows)
+    torch.cuda.synchronize()
+    err = float((got[0].cpu() - plain).abs().max())
+    FT, E, per_block = hashgrid.segment_shape(n, rows, F)
+    print(f"segment sum at the {tag} step's first lookup ({n} values x {F} into {rows} rows, "
+          f"{E} x {FT} lanes a row): max |kernel - plain| {err:.3e}, two launches "
+          f"{'bit-equal' if torch.equal(*got) else 'NOT bit-equal'}; the plain version on the "
+          f"card {float((on_card.cpu() - plain).abs().max()):.3e} from it on the CPU",
+          flush=True)
+    if err != 0 or not torch.equal(*got):
+        raise AssertionError(f"the segment-sum kernel at the {tag} step differs from its plain "
+                             f"version ({err}) or from itself")
+    run = lambda: hashgrid.segment_sum_rows(values, idx, rows)
+    ms, wrap = device_ms(run, "segment_sum_kernel"), wrapper_ms(run)
+    plain_ms = cuda_ms(lambda: hashgrid.segment_sum_rows_plain(values, idx, rows), 3)
+    library_ms = cuda_ms(lambda: torch.zeros((rows, F), device=values.device).index_add_(
+        0, idx, values), 20)
+    row = bound_row("segment_sum", "tnerf_torch/csrc/segment_sum.cu",
+                    "none (no Pallas kernel; the transpose of the gathers at "
+                    "tnerf/fields/hashgrid.py:193, tnerf/fields/triplane.py:191, :385)",
+                    err, ms, plain_ms, n * F * 4 + n * 8 + (rows + 1) * 8 + rows * F * 4, n * F,
+                    PEAK_F32, wrap)
+    row["library_ms"] = library_ms
+    row["shape"] = f"{tag}: {n} x {F} into {rows} rows"
+    print(f"segment sum at the {tag} step: {ms:.4f} ms device, {wrap:.4f} ms wrapper (sort "
+          f"included), bound {row['bound_ms']:.4f}, plain {plain_ms:.3f}, index_add_ "
+          f"{library_ms:.4f}", flush=True)
+    SEGMENT_ROWS.append(row)
+
+
 def profile_train_steps(config, ckpt_dir, tag, n_steps=20, encode=False):
     """Where a train step's time goes, late in training (the weights,
     moments and occupancy of the checkpoint in ckpt_dir): device time by
@@ -1420,6 +1558,7 @@ def profile_train_steps(config, ckpt_dir, tag, n_steps=20, encode=False):
         n = inputs[3].shape[0]
         fwd_ms, bwd_ms = encode_times(*inputs)
         equal, diff = table_gradient_repeats(*inputs)
+        check_segment_sum(*inputs, tag)
         step_ms = device_ms / n_steps
         result.update(encode_samples=n, encode_fwd_ms=fwd_ms, encode_bwd_ms=bwd_ms,
                       encode_fwd_share=fwd_ms / step_ms, encode_bwd_share=bwd_ms / step_ms,
@@ -1430,6 +1569,9 @@ def profile_train_steps(config, ckpt_dir, tag, n_steps=20, encode=False):
         print(f"{cfg.field_.encoding} table gradient, two backward passes at the step's {n} "
               f"samples: {'bit-equal' if equal else 'NOT bit-equal'} (max |diff| {diff:.3e})",
               flush=True)
+        if not equal:
+            raise AssertionError(f"{tag}: two backward passes of the {cfg.field_.encoding} "
+                                 f"encoding gave other table gradients (max |diff| {diff})")
     with open(os.path.join(OUT, f"profile_{tag}.json"), "w") as fh:
         json.dump(result, fh, indent=1)
     log(f"profile of {tag} steps:", json.dumps(result))
@@ -1440,19 +1582,28 @@ def profile_train_steps(config, ckpt_dir, tag, n_steps=20, encode=False):
     return result
 
 
+@functools.lru_cache(maxsize=None)
+def _prims_test_split():
+    """The committed prims config's test split (ground truth rendered once)."""
+    from tnerf_torch.config import Config
+    from tnerf_torch.data.dataset import load_data, scene_proc_kwargs
+
+    cfg = Config.from_json_file(CONFIG)
+    return load_data("procedural", cfg.scene.name, splits=("test",),
+                     proc=scene_proc_kwargs(cfg.scene))["test"]
+
+
 def prims_view_renderer(overrides=()):
     """(view() -> rgb [H, W, 3] numpy of test view 0 of the prims model, cfg)
     under the committed config with `overrides`."""
     from tnerf_torch.config import Config
-    from tnerf_torch.data.dataset import load_data, scene_proc_kwargs
     from tnerf_torch.eval import render_dataset_view
     from tnerf_torch.grid.occupancy import renderer_payload
     from tnerf_torch.train_loop import build_renderer
     from tnerf_torch.utils.checkpoint import load_jax_checkpoint
 
     cfg = Config.from_json_file(CONFIG).apply_overrides(list(overrides))
-    ds = load_data("procedural", cfg.scene.name, splits=("test",),
-                   proc=scene_proc_kwargs(cfg.scene))["test"]
+    ds = _prims_test_split()
     _, params, occ = load_jax_checkpoint(CKPT)
     renderer = build_renderer(cfg)
     payload = renderer_payload(occ, cfg.sampler, cfg.grid)
@@ -1526,6 +1677,9 @@ def orbit_frame(config, ckpt, name):
     return json.loads(text.strip().splitlines()[-1])["ms_per_frame"]
 
 
+SERVED_PSNR_TEST = []  # the serve phase's procedural eval of the prims model
+
+
 def serve_prims():
     """Phase 4: the serving path, through the entry point a user calls,
     with the config as committed (ray compaction on)."""
@@ -1536,6 +1690,7 @@ def serve_prims():
     from tnerf_torch.utils.checkpoint import load_jax_checkpoint
 
     m, served, _ = eval_cli(CONFIG, CKPT, "eval")
+    SERVED_PSNR_TEST.append(m["psnr_test"])
     if served["fused_forward"] < 1 or served["tighten_sample_mask"] < 1:
         raise AssertionError(f"the serving path did not launch its kernels: {served}")
     if abs(m["psnr_test"] - JAX_PSNR_TEST) > PSNR_TOL_DB:
@@ -1651,9 +1806,10 @@ def serve_and_train_march():
             raise AssertionError(f"compaction changed the march view ({placement}): {diffs} "
                                  f"(bound {MARCH_COMPACT_ATOL})")
 
-    cfg = Config.from_json_file(CONFIG_MARCH)
+    cfg = Config.from_json_file(CONFIG_MARCH).apply_overrides(MARCH_TRAIN_OVERRIDES)
     trained, final, out_dir = train_from_scratch(CONFIG_MARCH, "train_march", cfg.train.steps, (),
-                                                 JAX_MARCH_PSNR_TEST)
+                                                 JAX_MARCH_PSNR_TEST_2499, MARCH_TRAIN_OVERRIDES,
+                                                 gate_step=cfg.train.steps - 1)
     check_trained("train_march", cfg, final)
     if trained["tighten_sample_mask"] < 1:
         raise AssertionError(f"the march run's evals did not launch B4: {trained}")
@@ -1730,6 +1886,256 @@ def train_and_serve_fields():
     return launches
 
 
+def b4_on_view(tag, config, ckpt, split, overrides=()):
+    """B4 held bit-equal to its plain version on every ray of view 0 of
+    `split`, as the march eval gives it those rays (the NDC warp where the
+    config has it), with the trained occupancy of ckpt pooled as the eval
+    pools it; then timed there.  Returns the launch's record."""
+    import torch
+
+    from tnerf_torch.cameras import camera_rays, ndc_warp
+    from tnerf_torch.config import Config
+    from tnerf_torch.grid import tighten as tg
+    from tnerf_torch.grid.traversal import make_coarse_occupancy
+    from tnerf_torch.train_loop import load_datasets, ndc_near_or_none, resolve_near_far
+    from tnerf_torch.utils.checkpoint import load_jax_checkpoint
+
+    dev = torch.device("cuda")
+    cfg = Config.from_json_file(config).apply_overrides(list(overrides))
+    ds = load_datasets(cfg, splits=(split,), device=dev)[split]
+    cfg = resolve_near_far(cfg, ds)
+    rays = camera_rays(ds.poses[0], ds.width, ds.height, ds.camera, cfg.scene.scene_scale,
+                       device=dev)
+    if ndc_near_or_none(cfg) is not None:
+        rays = ndc_warp(rays, ds.width, ds.height, ds.camera, cfg.scene.ndc_near, eager=True)
+    _, _, occ = load_jax_checkpoint(ckpt, device=dev)
+    res, t_res = cfg.grid.resolution, cfg.sampler.tighten_res
+    pooled = make_coarse_occupancy(occ.bitfield.reshape(res, res, res), res // t_res)
+    o, d, te, tx = probe_rays(rays.origins.reshape(-1, 3), rays.directions.reshape(-1, 3),
+                              cfg.grid, cfg.sampler.near)
+    n, probes = cfg.sampler.samples_per_ray, cfg.sampler.tighten_probes
+    plain = tg.tighten_sample_mask_plain(o, d, te, tx, pooled, n, cfg.grid, probes)
+    kernel = tg.tighten_sample_mask(o, d, te, tx, pooled, n, cfg.grid, probes)
+    torch.cuda.synchronize()
+    bad = [int((a != b).sum()) for a, b in zip(kernel, plain)]
+    live = int((tx > te).sum())
+    print(f"B4 on the {tag} ({o.shape[0]} rays, {live} with a span, |d| in "
+          f"[{float(d.norm(dim=1).min()):.4f}, {float(d.norm(dim=1).max()):.4f}], te from "
+          f"{float(te.min()):.3e}): t0, t1, mask differ from the plain version in {bad} "
+          f"elements", flush=True)
+    if any(bad):
+        raise AssertionError(f"B4 on the {tag} differs from its plain version: {bad}")
+    return probe_shape(tag, o, d, te, tx, tg.pack_words_rows(pooled), t_res, cfg.grid, probes,
+                       n, pooled)
+
+
+def scene_run(config, name, reference, per_step=(), overrides=()):
+    """A scene trained through `cli train` (train_from_scratch) and held
+    over SCENE_PSNR_FLOOR_DB; the run's step and view times printed."""
+    cfg = load_config(config, overrides)
+    launches, final, out_dir = train_from_scratch(config, name, cfg.train.steps, per_step,
+                                                  reference, overrides)
+    if final["psnr_test"] <= SCENE_PSNR_FLOOR_DB:
+        raise AssertionError(f"{name}: test PSNR {final['psnr_test']} is not over "
+                             f"{SCENE_PSNR_FLOOR_DB} dB")
+    print(f"{name}: render_ms_test {final['render_ms_test']:.2f} per "
+          f"{cfg.scene.kind} test view", flush=True)
+    return launches, final, out_dir
+
+
+def load_config(config, overrides=()):
+    from tnerf_torch.config import Config
+
+    return Config.from_json_file(config).apply_overrides(list(overrides))
+
+
+def cli_status(argv):
+    """(exit code, standard error) of the entry point, which may fail."""
+    from tnerf_torch.cli import main
+
+    err = _Tee(sys.stderr)
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
+        try:
+            rc = main(argv)
+        except SystemExit as e:
+            rc = e.code
+    return rc, err.getvalue()
+
+
+def train_and_serve_scenes():
+    """Phase 11: scenes read from disk and pose refinement, through the
+    entry points.  (a) LLFF in world space, (b) COLMAP in NDC, each trained
+    2500 steps at full width and depth on grid_march, B4 launched by their
+    evals and held bit-equal on a view's rays; (c) the prims model served
+    from a NeRF-synthetic export of its own ground truth; (d) the
+    corrupted-pose dataset trained without and with train.optimize_poses,
+    then `cli render --refined-poses`."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from tnerf_torch.cameras import se3_exp
+    from tnerf_torch.config import Config
+    from tnerf_torch.data.dataset import load_data, scene_proc_kwargs
+    from tnerf_torch.data.procedural import (
+        export_nerf_synthetic_format,
+        generate_procedural_scene,
+    )
+    from tnerf_torch.train_loop import load_datasets, run_training
+
+    launches = {k: 0 for k in kernel_counters()}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] += n
+
+    # (a) LLFF, world space
+    t0 = time.perf_counter()
+    llff = load_data("llff", "prims_ff", root=LLFF_ROOT, device="cuda")
+    loader_s = time.perf_counter() - t0
+    got = {sp: (len(d), [d.height, d.width, d.channels]) for sp, d in llff.items()}
+    print(f"LLFF loader: {got}, focal {llff['train'].focal!r}, {loader_s:.3f} s", flush=True)
+    want = {sp: JAX_LLFF_LOADER[sp] for sp in ("train", "test")}
+    if got != want or llff["train"].focal != JAX_LLFF_LOADER["focal"]:
+        raise AssertionError(f"the LLFF loader's splits {got} / focal {llff['train'].focal} are "
+                             f"not the reference's {JAX_LLFF_LOADER}")
+    config_llff = os.path.join(OUT, "llff_config.json")
+    with open(config_llff, "w") as fh:
+        fh.write(Config().apply_overrides(LLFF_OVERRIDES).to_json())
+    trained, final, out_dir = scene_run(config_llff, "train_llff", JAX_LLFF_PSNR_TEST)
+    if trained["tighten_sample_mask"] < 1:
+        raise AssertionError(f"the LLFF run's evals did not launch B4: {trained}")
+    add(trained)
+    b4_on_view("LLFF world-space 480x360 test view", config_llff,
+               os.path.join(out_dir, "checkpoints"), "test")
+    shutil.rmtree(os.path.join(out_dir, "checkpoints"))
+
+    # (b) COLMAP in NDC, as committed but for the data's root
+    t0 = time.perf_counter()
+    cm = load_datasets(load_config(CONFIG_COLMAP, [f"scene.root={COLMAP_ROOT}"]), device="cuda")
+    print(f"COLMAP loader (recentred, bd_rescale 0.75): "
+          f"{ {sp: (len(d), [d.height, d.width, d.channels]) for sp, d in cm.items()} }, "
+          f"intrinsics {cm['train'].intrinsics}, {time.perf_counter() - t0:.3f} s", flush=True)
+    root = [f"scene.root={COLMAP_ROOT}"]
+    trained, final, out_dir = scene_run(CONFIG_COLMAP, "train_colmap", JAX_COLMAP_PSNR_TEST,
+                                        overrides=root)
+    if trained["tighten_sample_mask"] < 1:
+        raise AssertionError(f"the COLMAP run's evals did not launch B4 on NDC rays: {trained}")
+    add(trained)
+    ckpt = os.path.join(out_dir, "checkpoints")
+    b4_on_view("COLMAP NDC 480x360 test view", CONFIG_COLMAP, ckpt, "test", root)
+    base = ["--config", CONFIG_COLMAP, "--checkpoint", ckpt, "-o", root[0]]
+    served, n = counted(lambda: run_cli(["render"] + base + [
+        "--split", "test", "--out", os.path.join(OUT, "colmap_test_000.png")]))
+    add(n)
+    path_json = os.path.join(OUT, "colmap_path.json")
+    with open(path_json, "w") as fh:
+        json.dump({"poses": [p.tolist() for p in cm["test"].poses[:3]]}, fh)
+    text, n = counted(lambda: run_cli(["render"] + base + [
+        "--path", path_json, "--out", os.path.join(OUT, "colmap_path")]))
+    add(n)
+    frames = json.loads(text.strip().splitlines()[-1])
+    print(f"COLMAP render --path: {frames['frames']} frames {frames['width']}x"
+          f"{frames['height']}, {frames['ms_per_frame']:.2f} ms/frame", flush=True)
+    if frames["frames"] != 3:
+        raise AssertionError(f"render --path wrote {frames}")
+    rc, err = cli_status(["render"] + base + ["--orbit", "1",
+                                              "--out", os.path.join(OUT, "colmap_orbit")])
+    if rc == 0 or "--orbit renders a full turntable, but scene.ndc" not in err:
+        raise AssertionError(f"render --orbit under scene.ndc exited {rc}: {err[-300:]}")
+    print("COLMAP render --orbit 1 under scene.ndc: refused as the reference refuses it",
+          flush=True)
+    shutil.rmtree(ckpt)
+
+    # (c) NeRF-synthetic: the prims model on its own ground truth, read from PNGs
+    cfg = Config.from_json_file(CONFIG)
+    gt = load_data("procedural", cfg.scene.name, splits=("val", "test"),
+                   proc=scene_proc_kwargs(cfg.scene), device="cuda")
+    syn_root = os.path.join(OUT, "nerf_synthetic")
+    shutil.rmtree(syn_root, ignore_errors=True)
+    export_nerf_synthetic_format(gt, os.path.join(syn_root, cfg.scene.name))
+    if not SERVED_PSNR_TEST:
+        m, n, _ = eval_cli(CONFIG, CKPT, "eval")
+        add(n)
+        SERVED_PSNR_TEST.append(m["psnr_test"])
+    m, n, _ = eval_cli(CONFIG, CKPT, "eval_nerf_synthetic",
+                       ["scene.kind=nerf_synthetic", f"scene.root={syn_root}"])
+    if n["fused_forward"] < 1 or n["tighten_sample_mask"] < 1:
+        raise AssertionError(f"the NeRF-synthetic eval did not launch B4 and B1: {n}")
+    add(n)
+    print(f"prims from its NeRF-synthetic export: psnr_test {m['psnr_test']:.4f} dB (procedural "
+          f"eval {SERVED_PSNR_TEST[0]:.4f}), render_ms_test {m['render_ms_test']:.2f}", flush=True)
+    if abs(m["psnr_test"] - SERVED_PSNR_TEST[0]) > SYNTHETIC_TOL_DB:
+        raise AssertionError(f"the NeRF-synthetic eval {m['psnr_test']} dB is not within "
+                             f"{SYNTHETIC_TOL_DB} dB of the procedural eval "
+                             f"{SERVED_PSNR_TEST[0]}")
+    shutil.rmtree(syn_root)
+
+    # (d) pose refinement on the corrupted-pose dataset of tests/test_pose_opt.py
+    n_train = 8
+    scene = generate_procedural_scene(width=48, height=48, n_train=n_train, n_val=1, n_test=2,
+                                      n_samples=96, device="cuda")
+    rng = np.random.RandomState(3)
+    true_d = np.zeros((n_train, 6), np.float32)
+    true_d[:, :3] = rng.randn(n_train, 3) * 0.05
+    true_d[:, 3:] = rng.randn(n_train, 3) * 0.08
+    pert = se3_exp(torch.from_numpy(true_d)).numpy()
+    tr = scene["train"]
+    corrupted = dict(scene, train=dataclasses.replace(
+        tr, poses=np.einsum("nij,njk->nik", pert, tr.poses).astype(np.float32)))
+    base = [
+        "scene.kind=procedural", "scene.name=prims", "scene.scene_scale=1.0",
+        "scene.proc_width=48", "scene.proc_height=48", f"scene.proc_n_train={n_train}",
+        "scene.proc_n_val=1", "scene.proc_n_test=2", "scene.proc_n_samples=96",
+        "render.pipeline=grid_march", "grid.resolution=16", "grid.warmup_steps=20",
+        "grid.update_every=10", "sampler.samples_per_ray=48", "sampler.near=2.0",
+        "sampler.far=5.5", "field_.n_frequencies=6", "field_.hidden_width=64",
+        "field_.hidden_layers=3", "train.batch_size=1024", "train.steps=800",
+        "train.eval_every=0", "train.checkpoint_every=800", "train.log_every=400",
+        "render.chunk_size=4096",
+    ]
+    psnrs = {}
+    for tag, extra, reference in (("no_opt", [], JAX_POSE_NO_OPT_PSNR_TEST),
+                                  ("opt", ["train.optimize_poses=true"], JAX_POSE_OPT_PSNR_TEST)):
+        out_dir = os.path.join(OUT, f"pose_{tag}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        t0 = time.perf_counter()
+        final, n = counted(lambda: run_training(
+            Config().apply_overrides(base + extra + [f"logging.out_dir={out_dir}"]),
+            datasets=dict(corrupted), device="cuda"))
+        add(n)
+        last, _, _ = last_window(os.path.join(out_dir, "metrics.jsonl"))
+        psnrs[tag] = final["psnr_test"]
+        print(f"pose refinement {tag}: psnr_test {final['psnr_test']:.4f} dB (reference "
+              f"{reference:.2f}), {last['step_seconds'] * 1e3:.3f} ms/step, pose_delta_norm "
+              f"{last.get('pose_delta_norm', 0.0):.4f}, {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        if abs(final["psnr_test"] - reference) > TRAIN_PSNR_MARGIN_DB:
+            raise AssertionError(f"pose refinement {tag}: test PSNR {final['psnr_test']} is not "
+                                 f"within {TRAIN_PSNR_MARGIN_DB} dB of the reference's {reference}")
+    gain = psnrs["opt"] - psnrs["no_opt"]
+    print(f"pose refinement gains {gain:.4f} dB (the reference's gate: more than "
+          f"{POSE_OPT_MIN_GAIN_DB}; its record 1.83)", flush=True)
+    if gain <= POSE_OPT_MIN_GAIN_DB:
+        raise AssertionError(f"pose refinement gained {gain} dB, not more than "
+                             f"{POSE_OPT_MIN_GAIN_DB}")
+    # the refined checkpoint through the CLI, on the corrupted views read from disk
+    pose_root = os.path.join(OUT, "pose_scene")
+    shutil.rmtree(pose_root, ignore_errors=True)
+    export_nerf_synthetic_format(corrupted, os.path.join(pose_root, "prims"))
+    out_dir = os.path.join(OUT, "pose_opt")
+    _, n = counted(lambda: run_cli([
+        "render", "--config", os.path.join(out_dir, "config.json"), "--split", "train",
+        "--refined-poses", "--pose-index", "1", "-o", "scene.kind=nerf_synthetic",
+        "-o", f"scene.root={pose_root}", "--out", os.path.join(OUT, "pose_refined_train_001.png")]))
+    add(n)
+    print("cli render --split train --refined-poses of the refined checkpoint: written",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1759,6 +2165,13 @@ def main() -> int:
     build.library()
 
     rows = {}
+    phase_t0 = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        print(f"phase {name}: {now - phase_t0[0]:.1f} s", flush=True)
+        phase_t0[0] = now
+
     if "kernels" in phases:
         check_sin_fast_path()
         check_probe_kernels()
@@ -1766,6 +2179,7 @@ def main() -> int:
             rows[r["name"]] = r
         with open(os.path.join(OUT, "probe_kernels.json"), "w") as fh:
             json.dump(PROBE_TIMES, fh, indent=1)
+        phase_done("kernels")
     launches = {k: 0 for k in kernel_counters()}
 
     def add(counts):
@@ -1774,27 +2188,38 @@ def main() -> int:
 
     if "serve" in phases:
         add(serve_prims())
+        phase_done("serve")
     if "train" in phases:
         add(train_from_scratch(CONFIG, "train", 1500,
                                ("tighten_range", "fused_forward", "fused_backward"),
                                JAX_PSNR_TEST)[0])
+        phase_done("train")
     if "resume" in phases:
         add(resume_reference_checkpoint())
         profile_train_steps(CONFIG, CKPT, "train")
+        phase_done("resume")
     if "cdf" in phases:
         add(train_and_serve_cdf())
+        phase_done("cdf")
     if "march" in phases:
         add(serve_and_train_march())
+        phase_done("march")
     if "intervals" in phases:
         add(train_and_serve_intervals())
+        phase_done("intervals")
     if "fields" in phases:
         add(train_and_serve_fields())
+        rows["segment_sum"] = SEGMENT_ROWS[0]  # the hash grid's: the most rows and values
+        phase_done("fields")
+    if "scenes" in phases:
+        add(train_and_serve_scenes())
+        phase_done("scenes")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "wrapper_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, r in rows.items():
         r["launches"] = launches[name]
-    if phases >= set(ALL_PHASES) and (len(rows) != 7
+    if phases >= set(ALL_PHASES) and (len(rows) != 8
                                       or min(r["launches"] for r in rows.values()) < 1):
         raise AssertionError(f"a kernel of the main paths was not launched: {launches}")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}), flush=True)

@@ -88,26 +88,40 @@ def test_cli_render_orbit_on_cpu(capsys, tmp_path):
 
 # The prims config renders through the fused pipeline: the table encodings
 # and the SH view encoding are ported, and there the port refuses them with
-# the reference's own ValueError (`tnerf/train_loop.py:124-139`); the
-# scene kinds and NDC are not yet ported.
+# the reference's own ValueError (`tnerf/train_loop.py:124-139`).  The
+# scene kinds are ported: the renderer builds, and loading the prims name
+# from disk fails with the reference loader's own error, as no such
+# capture is on disk (`None`); NDC on prims is refused by the reference's
+# `validate_ndc` (prims samples [2, 6] in world units, not NDC's [0, 1]).
 _FUSED_REFUSES = (ValueError, "render.pipeline=fused bakes the frequency")
-_NOT_PORTED = (NotImplementedError, "not yet ported")
+_NDC_REFUSES = (ValueError, r"under scene.ndc the warped ray runs over t in \[0, 1\]")
 
 
 @pytest.mark.parametrize("override,refusal", [
     pytest.param(ov, refusal, id=ov) for ov, refusal in (
-        ("field_.encoding=triplane", _FUSED_REFUSES), ("scene.kind=llff", _NOT_PORTED),
+        ("field_.encoding=triplane", _FUSED_REFUSES), ("scene.kind=llff", None),
         ("field_.view_encoding=sh", _FUSED_REFUSES), ("field_.encoding=hashgrid", _FUSED_REFUSES),
-        ("scene.kind=nerf_synthetic", _NOT_PORTED), ("scene.ndc=true", _NOT_PORTED))
+        ("scene.kind=nerf_synthetic", None), ("scene.ndc=true", _NDC_REFUSES))
 ])
-def test_unported_options_are_refused(override, refusal):
+def test_unported_options_are_refused(override, refusal, tmp_path):
+    from tnerf.config import Config as JConfig
+    from tnerf.train_loop import _load_datasets
     from tnerf_torch.config import Config
-    from tnerf_torch.train_loop import build_renderer
+    from tnerf_torch.train_loop import build_renderer, load_datasets
 
-    cfg = Config.from_json_file(os.path.join(RUN, "config.json")).apply_overrides(
-        ["render.ray_compact=false", override])
-    with pytest.raises(refusal[0], match=refusal[1]):
-        build_renderer(cfg)
+    path = os.path.join(RUN, "config.json")
+    ov = ["render.ray_compact=false", override, f"scene.root={tmp_path}"]
+    cfg = Config.from_json_file(path).apply_overrides(ov)
+    if refusal is not None:
+        with pytest.raises(refusal[0], match=refusal[1]):
+            build_renderer(cfg)
+        return
+    assert callable(build_renderer(cfg))
+    with pytest.raises(Exception) as want:
+        _load_datasets(JConfig.from_json_file(path).apply_overrides(ov))
+    with pytest.raises(type(want.value)) as got:
+        load_datasets(cfg, device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 def test_cuda_without_a_card_raises():

@@ -288,11 +288,17 @@ def test_training_options_this_slice_does_not_run_are_refused():
     validate_ported(cfg, for_eval=False)
     validate_ported(cfg.apply_overrides(["render.ray_compact=true"]), for_eval=False)
     for ov in ("train.grad_accum_steps=2", "train.param_ema=0.99", "train.random_background=true",
-               "train.optimize_poses=true", "train.keep_best=true", "grid.mesh_path=mesh.obj",
+               "train.keep_best=true", "grid.mesh_path=mesh.obj",
                "parallel.data_parallel=2", "parallel.sample_parallel=2",
                "parallel.table_parallel=2", "logging.profile=true"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             validate_ported(cfg.apply_overrides([ov]), for_eval=False)
+    # pose refinement is ported: refused on the fused pipeline with the
+    # reference's own error (the kernel's VJP has no ray-geometry gradient)
+    poses = cfg.apply_overrides(["train.optimize_poses=true", "train.pose_lr_mult=0.5"])
+    with pytest.raises(ValueError, match="train.optimize_poses needs ray-geometry gradients"):
+        validate_ported(poses, for_eval=False)
+    validate_ported(poses.apply_overrides(["render.pipeline=grid_march"]), for_eval=False)
 
 
 def test_fused_training_deeper_than_the_backward_kernel_holds_is_refused_at_config_time():

@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -20,7 +21,7 @@ class Rays(NamedTuple):
     """A bundle of rays. Leading dims are arbitrary batch dims."""
 
     origins: torch.Tensor      # [..., 3]
-    directions: torch.Tensor   # [..., 3] unit vectors
+    directions: torch.Tensor   # [..., 3] unit vectors (not under the NDC warp)
     viewdirs_tp: torch.Tensor  # [..., 2] (theta, phi)
 
 
@@ -109,3 +110,106 @@ def pixel_rays(poses: torch.Tensor, pix_xy: torch.Tensor, width: int, height: in
         directions=dirs_world,
         viewdirs_tp=viewdirs_to_thetaphi(dirs_world),
     )
+
+
+def _divider(dev, eager: bool):
+    """x -> x / c for a constant c, as the reference computes it at that
+    site: jitted (its training step), XLA multiplies by RN(1 / c)
+    (`grid/traversal.py:reciprocal`); eager (its eval), the divisor is an
+    argument and the division is exact.  Both as tensors on dev, so the
+    CPU and the card agree (PyTorch divides exactly by a Python scalar on
+    the CPU and multiplies by its reciprocal on the card)."""
+    from tnerf_torch.grid.traversal import reciprocal
+
+    if eager:
+        return lambda x, c: x / torch.tensor(c, dtype=torch.float32, device=dev)
+    return lambda x, c: x * reciprocal(c, dev)
+
+
+def _ndc_origin(o, f: float, near: float, shift: float, half: float, eager: bool, div):
+    """(f o / near + shift) / half, an NDC origin term.  Eager, as written.
+    Jitted, the reference's XLA also folds the constant factors of a
+    product chain, x * c1 * c2 -> x * RN(c1 c2): o * RN(f * RN(1 / near)),
+    and where shift rounds to 0 (the add is dropped) RN(1 / half) joins
+    the same constant (a centred principal point: LLFF, and COLMAP's
+    PINHOLE with cx = W/2)."""
+    if eager:
+        return div(div(f * o, near) + shift, half)
+    one = np.float32(1.0)
+    c = np.float32(f) * (one / np.float32(near))
+    if np.float32(shift) == 0:
+        return o * torch.tensor(c * (one / np.float32(half)), device=o.device)
+    return div(o * torch.tensor(c, device=o.device) + shift, half)
+
+
+def ndc_warp(rays: Rays, width: int, height: int, focal_px, near: float = 1.0,
+             eager: bool = False) -> Rays:
+    """Warp forward-facing world rays into NDC space (`tnerf/cameras.py:164`):
+    the frustum beyond the z = -near plane of a camera at the origin
+    looking down -z maps onto [-1, 1]^3, the grid's box; warped t runs over
+    [0, 1] (near plane to infinity).  Full (fx, fy, cx, cy) intrinsics: the
+    principal point shifts the origin terms (with + in x, - in y, as pixel
+    rows run down) and cancels in the directions.  Directions are not unit
+    vectors; viewdirs_tp stays the world direction.  Rays with d_z >= 0 are
+    clamped to a slope of -1e-8.
+
+    The divisions by the constants near, W/2 and H/2 follow the site the
+    reference runs the warp from (`_divider`): eager=False as its jitted
+    training step (`tnerf/train.py:256`, `:360`), eager=True as its eval
+    and CLI (`tnerf/eval.py:85`, `tnerf/cli.py:389`, `:515`)."""
+    fx, fy, cx, cy = resolve_intrinsics(width, height, focal_px)
+    wx, wy = 0.5 * width, 0.5 * height
+    o, d = rays.origins, rays.directions
+    div = _divider(o.device, eager)
+    dz = torch.clamp_max(d[..., 2], -1e-8)
+    # slide the origins onto the near plane: o_z + t_n d_z == -near
+    t_n = -(near + o[..., 2]) / dz
+    o = o + t_n[..., None] * d
+    ox, oy = o[..., 0], o[..., 1]
+    dx, dy = d[..., 0], d[..., 1]
+    o0 = _ndc_origin(ox, fx, near, cx - wx, wx, eager, div)
+    o1 = _ndc_origin(oy, fy, near, -(cy - wy), wy, eager, div)
+    d0 = -(fx / wx) * (dx / dz + div(ox, near))
+    d1 = -(fy / wy) * (dy / dz + div(oy, near))
+    return Rays(
+        origins=torch.stack([o0, o1, torch.full_like(ox, -1.0)], dim=-1),
+        directions=torch.stack([d0, d1, torch.full_like(ox, 2.0)], dim=-1),
+        viewdirs_tp=rays.viewdirs_tp,
+    )
+
+
+def se3_exp(delta: torch.Tensor) -> torch.Tensor:
+    """SE(3) exponential map (`tnerf/cameras.py:232`): delta [..., 6] = (w
+    rotation, v translation) -> [..., 4, 4].  Closed-form Rodrigues whose
+    coefficients switch to their Taylor series below theta^2 = 1e-8, with
+    a safe denominator in the other branch, so that the gradient at delta
+    = 0 (where pose refinement starts) is finite."""
+    w, v = delta[..., :3], delta[..., 3:]
+    t2 = torch.sum(w * w, dim=-1)[..., None, None]
+    small = t2 < 1e-8
+    t2s = torch.where(small, torch.ones_like(t2), t2)
+    t = torch.sqrt(t2s)
+    A = torch.where(small, 1.0 - t2 / 6.0, torch.sin(t) / t)
+    B = torch.where(small, 0.5 - t2 / 24.0, (1.0 - torch.cos(t)) / t2s)
+    C = torch.where(small, 1.0 / 6.0 - t2 / 120.0, (t - torch.sin(t)) / (t2s * t))
+    zeros = torch.zeros_like(w[..., 0])
+    W = torch.stack([
+        torch.stack([zeros, -w[..., 2], w[..., 1]], dim=-1),
+        torch.stack([w[..., 2], zeros, -w[..., 0]], dim=-1),
+        torch.stack([-w[..., 1], w[..., 0], zeros], dim=-1),
+    ], dim=-2)
+    eye = torch.eye(3, dtype=delta.dtype, device=delta.device).expand(W.shape)
+    # float32 broadcast-and-sum products, as the reference's geometry
+    W2 = torch.sum(W[..., :, :, None] * W[..., None, :, :], dim=-2)
+    R = eye + A * W + B * W2
+    V = eye + B * W + C * W2
+    tr = torch.sum(V * v[..., None, :], dim=-1)
+    top = torch.cat([R, tr[..., :, None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=delta.dtype, device=delta.device) \
+        .expand(*delta.shape[:-1], 1, 4)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def compose_pose(t_world: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
+    """t_world @ pose as a float32 broadcast-and-sum (`tnerf/cameras.py:272`)."""
+    return torch.sum(t_world[..., :, :, None] * pose[..., None, :, :], dim=-2)

@@ -1,16 +1,21 @@
 """Command line of the port: `python -m tnerf_torch.cli train|eval|render`.
 
-Trains the frequency-MLP model through the pipeline its config names
-(`render.pipeline`: fused, grid_march, grid_intervals or uniform), and
-serves a checkpoint written by this port or by the reference package
-(`tnerf.cli train`), on the card (`--device cuda`, the default) or through
-the plain PyTorch versions on the CPU (`--device cpu`).  Configs are the reference's JSON files; options
-this port does not run yet are refused (`train_loop.validate_ported`).
+Trains a field through the pipeline its config names (`render.pipeline`:
+fused, grid_march, grid_intervals or uniform) on the scene it names
+(`scene.kind`: procedural, nerf_synthetic, llff or colmap; `scene.ndc`
+warps forward-facing rays into NDC; `train.optimize_poses` refines the
+training poses), and serves a checkpoint written by this port or by the
+reference package (`tnerf.cli train`), on the card (`--device cuda`, the
+default) or through the plain PyTorch versions on the CPU (`--device
+cpu`).  Configs are the reference's JSON files; options this port does not
+run yet are refused (`train_loop.validate_ported`).
 
     python -m tnerf_torch.cli train --config runs/suite_rehearsal/prims/config.json \\
         --out runs/prims_torch
     python -m tnerf_torch.cli eval --config runs/suite_rehearsal/prims/config.json \\
         --checkpoint runs/suite_rehearsal/prims/checkpoints
+    python -m tnerf_torch.cli train --config runs/colmap_rehearsal/config.json \\
+        -o scene.root=data/colmap --out runs/colmap_torch
 """
 
 from __future__ import annotations
@@ -108,9 +113,16 @@ def _parser() -> argparse.ArgumentParser:
     sp.add_argument("--pose-index", type=int, default=0)
     sp.add_argument("--split", default="test")
     sp.add_argument("--out", default="render.png",
-                    help="output PNG; with --orbit, a directory of orbit_###.png frames")
+                    help="output PNG; with --orbit / --path, a directory of orbit_###.png / "
+                    "path_###.png frames")
     sp.add_argument("--orbit", type=int, default=0, metavar="N",
                     help="render N novel views on a circular orbit instead of a dataset pose")
+    sp.add_argument("--path", default=None, metavar="POSES_JSON",
+                    help="render a camera path: a JSON list of 4x4 (or 3x4) camera-to-world "
+                    "matrices, or {\"poses\": [...]} (not with --orbit)")
+    sp.add_argument("--refined-poses", action="store_true",
+                    help="apply the checkpoint's learned pose delta of --pose-index "
+                    "(train.optimize_poses checkpoints, --split train only)")
     sp.add_argument("--orbit-elevation", type=float, default=None, metavar="RAD",
                     help="orbit elevation in radians (default: the split cameras' mean)")
     sp.add_argument("--channels", default="rgb", metavar="LIST",
@@ -149,14 +161,18 @@ def main(argv=None) -> int:
         print(json.dumps(run_training(cfg, device=args.device), indent=2))
         return 0
 
-    from tnerf_torch.data.dataset import load_data, scene_proc_kwargs, validate_scene_background
     from tnerf_torch.device import resolve_device
     from tnerf_torch.grid.occupancy import renderer_payload
-    from tnerf_torch.train_loop import build_renderer, resolve_near_far, validate_ported
+    from tnerf_torch.train_loop import (
+        build_renderer,
+        load_datasets,
+        ndc_near_or_none,
+        resolve_near_far,
+        validate_ported,
+    )
     from tnerf_torch.utils.checkpoint import load_jax_checkpoint
 
     validate_ported(cfg)
-    validate_scene_background(cfg.scene.kind, cfg.scene.name, cfg.scene.white_background)
     dev = resolve_device(args.device)
     channels = []
     if args.cmd == "render":
@@ -166,13 +182,29 @@ def main(argv=None) -> int:
             print(f"error: unknown --channels {bad or args.channels!r} "
                   "(choose from rgb, depth, acc)", file=sys.stderr)
             return 1
+        if args.orbit > 0 and args.path:
+            print("error: --orbit and --path are mutually exclusive", file=sys.stderr)
+            return 1
+        if args.orbit > 0 and cfg.scene.ndc:
+            print("error: --orbit renders a full turntable, but scene.ndc "
+                  "only covers the forward-facing frustum — render a "
+                  "forward-facing sequence with --path poses.json instead", file=sys.stderr)
+            return 1
+    seq_poses = None
+    if args.cmd == "render" and args.path:
+        seq_poses = _read_path(args.path)
+        if isinstance(seq_poses, str):
+            print(f"error: {seq_poses}", file=sys.stderr)
+            return 1
     splits = ("val", "test") if args.cmd == "eval" else (args.split,)
-    datasets = load_data(cfg.scene.kind, cfg.scene.name, splits=splits,
-                         proc=scene_proc_kwargs(cfg.scene), device=dev)
-    if not datasets:
+    datasets = load_datasets(cfg, splits=splits, device=dev)
+    if not any(sp in datasets for sp in splits):
         print(f"error: the scene has none of the splits {splits}", file=sys.stderr)
         return 1
+    # sampler.near/far = -1 (auto) resolves from the depth bounds of the
+    # first split the loader returns, as the reference's CLI does
     cfg = resolve_near_far(cfg, next(iter(datasets.values())))
+    ndc = ndc_near_or_none(cfg)
     ckpt_dir = args.checkpoint or os.path.join(cfg.logging.out_dir, "checkpoints")
     step, params, occ = load_jax_checkpoint(ckpt_dir, device=dev)
     print(f"restored step {step} from {ckpt_dir}", file=sys.stderr)
@@ -188,11 +220,13 @@ def main(argv=None) -> int:
     cdf_guard = (trained_grid and cfg.sampler.placement in ("occupancy_cdf", "density_cdf")
                  and cfg.render.compact and cfg.render.pipeline == "grid_march")
     if guard_on or cdf_guard:
-        from tnerf_torch.cameras import camera_rays
+        from tnerf_torch.cameras import camera_rays, ndc_warp
 
         ds0 = next(iter(datasets.values()))
         probe_rays = camera_rays(ds0.poses[0], ds0.width, ds0.height, ds0.camera,
                                  cfg.scene.scene_scale, device=dev)
+        if ndc is not None:
+            probe_rays = ndc_warp(probe_rays, ds0.width, ds0.height, ds0.camera, ndc, eager=True)
     kf = 1.0
     if guard_on:
         kf = ray_keep_fraction(probe_rays, occ.bitfield, cfg, guard_pool, guard_mid)
@@ -230,6 +264,7 @@ def main(argv=None) -> int:
                     renderer, params, datasets[split], cfg.scene.scene_scale,
                     white_background=cfg.scene.white_background, save_dir=args.save_renders,
                     chunk_size=cfg.render.chunk_size, occupancy=payload, device=dev,
+                    ndc_near=ndc,
                 ))
         text = json.dumps(out, indent=2)
         print(text)
@@ -241,7 +276,11 @@ def main(argv=None) -> int:
     from tnerf_torch.data.png_io import write_png, write_png_batch
     from tnerf_torch.eval import hit_depths, render_pose_result
 
+    if args.split not in datasets:
+        print(f"error: the scene has no {args.split!r} split", file=sys.stderr)
+        return 1
     ds = datasets[args.split]
+    seq_tag = "path"
     if args.orbit > 0:
         from tnerf_torch.data.procedural import orbit_poses
 
@@ -252,15 +291,16 @@ def main(argv=None) -> int:
         radius = float(norms.mean())
         elev = (args.orbit_elevation if args.orbit_elevation is not None else
                 float(np.arcsin(np.clip(eyes[:, 2] / np.maximum(norms, 1e-9), -1, 1)).mean()))
-        poses = list(orbit_poses(args.orbit, radius, elev))
+        seq_poses, seq_tag = list(orbit_poses(args.orbit, radius, elev)), "orbit"
+    if seq_poses is not None:
         os.makedirs(args.out, exist_ok=True)
         results, ms = [], []
-        for pose in poses:
+        for pose in seq_poses:
             _sync(dev)
             t0 = time.perf_counter()
             results.append(render_pose_result(
                 renderer, params, pose, ds.width, ds.height, ds.camera, cfg.scene.scene_scale,
-                chunk_size=cfg.render.chunk_size, occupancy=payload, device=dev))
+                chunk_size=cfg.render.chunk_size, occupancy=payload, device=dev, ndc_near=ndc))
             _sync(dev)
             ms.append((time.perf_counter() - t0) * 1e3)
         depth_range = (None, None)
@@ -275,24 +315,68 @@ def main(argv=None) -> int:
                            if spans else (0.0, 1.0))
         for ch in channels:
             suffix = "" if ch == "rgb" or len(channels) == 1 else f"_{ch}"
-            write_png_batch([os.path.join(args.out, f"orbit_{i:03d}{suffix}.png")
-                             for i in range(len(poses))],
+            write_png_batch([os.path.join(args.out, f"{seq_tag}_{i:03d}{suffix}.png")
+                             for i in range(len(seq_poses))],
                             [_channel_image(r, ch, depth_range) for r in results])
-        print(f"wrote {len(poses)} orbit frames ({','.join(channels)}) to {args.out}/")
-        print(json.dumps({"frames": len(poses), "width": ds.width, "height": ds.height,
+        print(f"wrote {len(seq_poses)} {seq_tag} frames ({','.join(channels)}) to {args.out}/")
+        print(json.dumps({"frames": len(seq_poses), "width": ds.width, "height": ds.height,
                           "device": str(dev), "ms_per_frame": float(np.mean(ms)),
                           "ms": ms}))
         return 0
 
+    pose_delta = None
+    if args.refined_poses:
+        if "pose_deltas" not in params:
+            print("error: --refined-poses needs a train.optimize_poses checkpoint (no "
+                  "pose_deltas leaf restored)", file=sys.stderr)
+            return 1
+        if args.split != "train":
+            print(f"error: --refined-poses applies per-TRAIN-image deltas; --split "
+                  f"{args.split} poses were never refined", file=sys.stderr)
+            return 1
+        if params["pose_deltas"].shape[0] != len(ds):
+            print(f"error: the checkpoint holds {params['pose_deltas'].shape[0]} pose deltas "
+                  f"for {len(ds)} training views", file=sys.stderr)
+            return 1
+        pose_delta = params["pose_deltas"][args.pose_index]
     res = render_pose_result(renderer, params, ds.poses[args.pose_index], ds.width, ds.height,
                              ds.camera, cfg.scene.scene_scale,
-                             chunk_size=cfg.render.chunk_size, occupancy=payload, device=dev)
+                             chunk_size=cfg.render.chunk_size, occupancy=payload, device=dev,
+                             ndc_near=ndc, pose_delta=pose_delta)
     base, ext = os.path.splitext(args.out)
     for ch in channels:
         path = args.out if ch == "rgb" or len(channels) == 1 else f"{base}_{ch}{ext or '.png'}"
         write_png(path, _channel_image(res, ch))
         print(f"wrote {path}")
     return 0
+
+
+def _read_path(path: str):
+    """The camera path of `render --path` (`tnerf/cli.py:500`): a JSON list
+    of 4x4 or 3x4 camera-to-world matrices, or {"poses": [...]} -> a list
+    of [4, 4] float32 arrays; an error message (a str) otherwise."""
+    try:
+        with open(path) as fh:
+            d = json.load(fh)
+    except (OSError, ValueError) as e:
+        return f"cannot read poses from {path}: {e}"
+    pose_list = d.get("poses") if isinstance(d, dict) else d
+    if not isinstance(pose_list, list):
+        return f'{path} must be a JSON list of poses or {{"poses": [...]}}'
+    poses = []
+    for i, p in enumerate(pose_list):
+        try:
+            m = np.asarray(p, np.float32)
+        except (ValueError, TypeError):
+            m = np.zeros((0,), np.float32)  # ragged: the shape error below
+        if m.shape == (3, 4):
+            m = np.concatenate([m, np.asarray([[0, 0, 0, 1]], np.float32)])
+        if m.shape != (4, 4):
+            return f"pose {i} in {path} has shape {m.shape}; expected 4x4 or 3x4 c2w"
+        poses.append(m)
+    if not poses:
+        return f"{path} contains no poses"
+    return poses
 
 
 if __name__ == "__main__":

@@ -11,6 +11,8 @@ same views.
 
 from __future__ import annotations
 
+import json
+import os
 from functools import partial
 from typing import Dict, Sequence
 
@@ -257,3 +259,137 @@ def generate_procedural_scene(
             poses=poses, focal=focal, width=width, height=height, channels=3, split=split,
         )
     return out
+
+
+def frontal_poses(n: int, radius: float = 3.5, seed: int = 0, azimuth_half_width: float = 0.35,
+                  elevation_range=(0.25, 0.6)) -> np.ndarray:
+    """n forward-facing poses on a narrow frontal arc looking at the origin,
+    the LLFF capture geometry (`tnerf/data/procedural.py:362`). [n, 4, 4]."""
+    rng = np.random.default_rng(seed)
+    azim = rng.uniform(-azimuth_half_width, azimuth_half_width, size=n)
+    elev = rng.uniform(*elevation_range, size=n)
+    up = np.array([0, 0, 1.0], np.float32)
+    poses = [
+        _look_at_pose(radius * np.array([np.cos(a) * np.cos(e), np.sin(a) * np.cos(e), np.sin(e)],
+                                        dtype=np.float32), np.zeros(3, np.float32), up)
+        for a, e in zip(azim, elev)
+    ]
+    return np.stack(poses)
+
+
+def generate_llff_pool(name: str = "prims", width: int = 320, height: int = 240,
+                       n_views: int = 24, n_samples: int = 384, near: float = 2.0,
+                       far: float = 5.5, radius: float = 3.5, seed: int = 40,
+                       device="cuda") -> ImageDataset:
+    """One pool of forward-facing, non-square views of a procedural field
+    (`tnerf/data/procedural.py:387`), the LLFF capture shape: a single
+    image set whose test views are held out by index."""
+    if name not in FIELDS:
+        raise ValueError(f"unknown procedural scene {name!r}; have {sorted(FIELDS)}")
+    device = resolve_device(device)
+    focal = focal_from_angle(width, CAMERA_ANGLE_X)
+    poses = frontal_poses(n_views, radius=radius, seed=seed)
+    imgs = [render_gt_image(poses[i], width, height, focal, near, far, n_samples,
+                            scene_background(name), field_name=name, device=device).cpu().numpy()
+            for i in range(n_views)]
+    return ImageDataset(images=np.clip(np.stack(imgs), 0.0, 1.0).astype(np.float32), poses=poses,
+                        focal=focal, width=width, height=height, channels=3, split="all")
+
+
+def export_llff_format(ds: ImageDataset, scene_dir: str, near: float, far: float) -> None:
+    """An image pool on disk in LLFF layout, poses_bounds.npy + images/
+    (`tnerf/data/procedural.py:426`): each row the flattened [3, 5] matrix
+    in LLFF's [down, right, backwards] axes | [H, W, focal], then [near,
+    far]; the exact inverse of `data/llff.py`'s conversion."""
+    from tnerf_torch.data.png_io import write_png_batch
+
+    img_dir = os.path.join(scene_dir, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    n = len(ds)
+    write_png_batch([os.path.join(img_dir, f"image{i:03d}.png") for i in range(n)], ds.images)
+    pb = np.zeros((n, 17), np.float64)
+    for i in range(n):
+        c2w = ds.poses[i]
+        raw = np.zeros((3, 5), np.float64)
+        raw[:, 0] = -c2w[:3, 1]  # down  = -up
+        raw[:, 1] = c2w[:3, 0]   # right
+        raw[:, 2] = c2w[:3, 2]   # backwards
+        raw[:, 3] = c2w[:3, 3]   # translation
+        raw[:, 4] = (ds.height, ds.width, ds.focal)
+        pb[i, :15] = raw.reshape(-1)
+        pb[i, 15:] = (near, far)
+    np.save(os.path.join(scene_dir, "poses_bounds.npy"), pb)
+
+
+def export_colmap_format(ds: ImageDataset, scene_dir: str, n_points: int = 512, seed: int = 7,
+                         field_name: str = "prims", sigma_threshold: float = 1.0) -> None:
+    """An image pool on disk as a COLMAP text model, sparse/0/{cameras,
+    images,points3D}.txt + images/ (`tnerf/data/procedural.py:461`): poses
+    as world-to-camera quaternions in COLMAP's y-down, z-forward axes (the
+    inverse of `data/colmap.py`'s conversion), and a sparse cloud of
+    n_points sampled where the field's density (on a 48^3 probe grid,
+    evaluated on the CPU) exceeds sigma_threshold, so that the reader's
+    per-image depth bounds follow the scene's content."""
+    from tnerf_torch.data.colmap import rotmat_to_qvec
+    from tnerf_torch.data.png_io import write_png_batch
+
+    sparse = os.path.join(scene_dir, "sparse", "0")
+    img_dir = os.path.join(scene_dir, "images")
+    os.makedirs(sparse, exist_ok=True)
+    os.makedirs(img_dir, exist_ok=True)
+    n = len(ds)
+    names = [f"frame_{i:03d}.png" for i in range(n)]
+    write_png_batch([os.path.join(img_dir, nm) for nm in names], ds.images)
+
+    lin = np.linspace(-1.1, 1.1, 48, dtype=np.float32)
+    X = np.stack(np.meshgrid(lin, lin, lin, indexing="ij"), -1).reshape(-1, 3)
+    with torch.no_grad():
+        _, sigma = FIELDS[field_name](torch.from_numpy(X))
+    occ = X[sigma.numpy() > sigma_threshold]
+    if occ.shape[0] == 0:
+        raise ValueError(f"procedural field {field_name!r} has no density above "
+                         f"{sigma_threshold} on the probe grid")
+    rng = np.random.default_rng(seed)
+    sel = rng.choice(occ.shape[0], min(n_points, occ.shape[0]), replace=False)
+    pts = occ[sel] + rng.normal(0.0, 0.005, (sel.size, 3)).astype(np.float32)
+
+    cx, cy = ds.width / 2.0, ds.height / 2.0
+    with open(os.path.join(sparse, "cameras.txt"), "w") as fh:
+        fh.write("# Camera list: CAMERA_ID MODEL W H fx fy cx cy\n")
+        fh.write(f"1 PINHOLE {ds.width} {ds.height} "
+                 f"{ds.focal:.17g} {ds.focal:.17g} {cx:.17g} {cy:.17g}\n")
+    with open(os.path.join(sparse, "images.txt"), "w") as fh:
+        fh.write("# IMAGE_ID qw qx qy qz tx ty tz CAMERA_ID NAME\n")
+        for i in range(n):
+            c = np.array(ds.poses[i], np.float64)
+            c[:3, 1] *= -1.0  # NeRF (y up, z back) -> COLMAP (y down, z forward)
+            c[:3, 2] *= -1.0
+            R = c[:3, :3].T
+            t = -R @ c[:3, 3]
+            q = rotmat_to_qvec(R)
+            fh.write(f"{i + 1} " + " ".join(f"{v:.17g}" for v in q) + " "
+                     + " ".join(f"{v:.17g}" for v in t) + f" 1 {names[i]}\n")
+            # every view observes every point (the reader uses only the ids)
+            fh.write(" ".join(f"0.0 0.0 {pid + 1}" for pid in range(len(pts))) + "\n")
+    with open(os.path.join(sparse, "points3D.txt"), "w") as fh:
+        fh.write("# POINT3D_ID x y z r g b error TRACK\n")
+        for pid, xyz in enumerate(pts):
+            fh.write(f"{pid + 1} " + " ".join(f"{v:.17g}" for v in xyz)
+                     + " 128 128 128 0.5 1 0\n")
+
+
+def export_nerf_synthetic_format(datasets: Dict[str, ImageDataset], scene_dir: str) -> None:
+    """Splits on disk in NeRF-synthetic layout, transforms_{split}.json +
+    {split}/r_{i}.png (`tnerf/data/procedural.py:543`), as
+    `dataset.load_synthetic_scene` reads them back."""
+    from tnerf_torch.data.png_io import write_png_batch
+
+    os.makedirs(scene_dir, exist_ok=True)
+    for split, ds in datasets.items():
+        os.makedirs(os.path.join(scene_dir, split), exist_ok=True)
+        write_png_batch([os.path.join(scene_dir, f"{split}/r_{i}.png") for i in range(len(ds))],
+                        ds.images)
+        frames = [{"file_path": f"./{split}/r_{i}", "transform_matrix": ds.poses[i].tolist()}
+                  for i in range(len(ds))]
+        with open(os.path.join(scene_dir, f"transforms_{split}.json"), "w") as fh:
+            json.dump({"camera_angle_x": CAMERA_ANGLE_X, "frames": frames}, fh)

@@ -70,41 +70,121 @@ def resolve_gather_mode(cfg) -> str:
     return "gather" if mode == "auto" else mode
 
 
-class _RoundedLookup(torch.autograd.Function):
+def segment_shape(n: int, rows: int, F: int):
+    """(FT, E, rows_per_block) of the segment sum of n values [n, F] into
+    `rows` rows: a row's group of E x FT threads, FT = min(F, 256) feature
+    lanes and E entry lanes, E the rows' mean length rounded up to a power
+    of two, at most 1024 // FT (csrc/segment_sum.cu); as many rows per
+    block as fill 256 threads.  The summation order depends on E, so the
+    plain version and the kernel take it from here."""
+    FT = min(F, 256)
+    mean = max(1, -(-n // max(rows, 1)))
+    E = min(1 << (mean - 1).bit_length(), max(1, 1024 // FT))
+    return FT, E, max(1, 256 // (E * FT))
+
+
+def _sorted_rows(idx: torch.Tensor, rows: int):
+    """(order, offsets): the stable sort of idx and each row's start in it
+    ([rows + 1] int64, by searchsorted: no host synchronisation)."""
+    sorted_idx, order = torch.sort(idx, stable=True)
+    offsets = torch.searchsorted(sorted_idx, torch.arange(rows + 1, device=idx.device))
+    return sorted_idx, order, offsets
+
+
+def segment_sum_rows_plain(values: torch.Tensor, idx: torch.Tensor, rows: int) -> torch.Tensor:
+    """The plain PyTorch version of `segment_sum_rows`, in the kernel's
+    order: the values of a row in lookup order, entry j of the row into
+    partial sum j mod E, each partial summed one value after another
+    (`torch.segment_reduce`), then the E partials by the kernel's pairwise
+    tree."""
+    n, F = values.shape
+    _, E, _ = segment_shape(n, rows, F)
+    dev = idx.device
+    sorted_idx, order, offsets = _sorted_rows(idx, rows)
+    pos = torch.arange(n, device=dev) - offsets[sorted_idx]
+    lane_key, lane_order = torch.sort(sorted_idx * E + pos % E, stable=True)
+    lane_offsets = torch.searchsorted(lane_key, torch.arange(rows * E + 1, device=dev))
+    part = torch.segment_reduce(values[order[lane_order]], "sum", offsets=lane_offsets, axis=0,
+                                unsafe=True).reshape(rows, E, F)
+    while E > 1:
+        E //= 2
+        part = part[:, :E] + part[:, E:2 * E]
+    return part[:, 0]
+
+
+def segment_sum_rows(values: torch.Tensor, idx: torch.Tensor, rows: int) -> torch.Tensor:
+    """out[r] = the sum of values[i] over every i with idx[i] == r, [rows,
+    F] float32, in a fixed order (a row's values in lookup order, in E
+    strided partial sums, then a fixed tree: `segment_sum_rows_plain`), so
+    two calls give the same bits and the CPU and the card agree.  CPU
+    tensors take the plain version; CUDA tensors the segment-sum kernel
+    (csrc/segment_sum.cu) after a stable sort."""
+    idx = idx.reshape(-1)
+    values = values.reshape(idx.shape[0], -1).to(torch.float32).contiguous()
+    if values.device.type == "cpu":
+        return segment_sum_rows_plain(values, idx, rows)
+    if values.device.type != "cuda":
+        raise ValueError(f"segment_sum_rows: unsupported device {values.device}")
+    from tnerf_torch.kernels import build
+
+    n, F = values.shape
+    dev = values.device
+    _, order, offsets = _sorted_rows(idx.to(dev), rows)
+    out = torch.empty((rows, F), dtype=torch.float32, device=dev)
+    if rows == 0 or F == 0:
+        return out
+    FT, E, per_block = segment_shape(n, rows, F)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        err = lib.tnerf_segment_sum(values.data_ptr(), order.data_ptr(), offsets.data_ptr(),
+                                    out.data_ptr(), rows, F, FT, E, per_block,
+                                    torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "tnerf_segment_sum")
+    segment_sum_rows.launches += 1
+    return out
+
+
+segment_sum_rows.launches = 0
+
+
+class _Lookup(torch.autograd.Function):
     """embedding(idx, table) with the table's values rounded to `dtype`
-    (read back as float32), and, in the backward, the incoming cotangent
-    rounded to `dtype` before it is summed (in float32) into the table's
-    gradient: the numerics of the reference's one-hot lookup and its
-    transpose (`tnerf/fields/onehot.py:65`, `:96`)."""
+    (read back as float32, a no-op for float32), and a backward that rounds
+    the incoming cotangent to `dtype` and sums it into the table's gradient
+    by `segment_sum_rows`, in a fixed order: bit-reproducible on the card,
+    as the reference's scatter-add is.  With dtype bfloat16 this is the
+    numerics of the reference's one-hot lookup and its transpose
+    (`tnerf/fields/onehot.py:65`, `:96`)."""
 
     @staticmethod
     def forward(ctx, table, idx, dtype):
         ctx.save_for_backward(idx)
         ctx.rows = table.shape[0]
         ctx.dtype = dtype
+        if dtype == torch.float32:
+            return torch.nn.functional.embedding(idx, table)
         return torch.nn.functional.embedding(idx, table.to(dtype)).float()
 
     @staticmethod
     def backward(ctx, grad):
         (idx,) = ctx.saved_tensors
-        g = grad.to(ctx.dtype).float()
-        return torch.ops.aten.embedding_dense_backward(g, idx, ctx.rows, -1, False), None, None
+        g = grad if ctx.dtype == torch.float32 else grad.to(ctx.dtype).float()
+        return segment_sum_rows(g, idx, ctx.rows), None, None
 
 
 def rounded_lookup(table: torch.Tensor, idx: torch.Tensor, dtype) -> torch.Tensor:
     """Rows idx of table ([M, F] -> [..., F] float32); with dtype float32 the
-    plain lookup, else the one-hot form's rounding (`_RoundedLookup`).
+    plain lookup, else the one-hot form's rounding (`_Lookup`).
 
-    A lookup is `torch.nn.functional.embedding`, whose backward sums a
-    row's cotangents after sorting by index, in partial segments of a few
-    rows: deterministic, and quick where one row takes thousands of them
-    (the coarse levels, where samples crowd a few vertices).  Advanced
-    indexing's backward (`index_put_` with accumulate) walks each row's
-    cotangents one after another, and `index_add_` sums them by atomics,
-    in no fixed order (tools/torch_field_steps.py, PERF.md)."""
-    if dtype == torch.float32:
-        return torch.nn.functional.embedding(idx, table)
-    return _RoundedLookup.apply(table, idx, dtype)
+    Every table lookup of the port goes through here.  The backward is a
+    fixed-order sorted segment sum (`segment_sum_rows`, a CUDA kernel on
+    the card): `embedding`'s own
+    backward sums a row's cotangents in partial segments, in no fixed
+    order on the card; advanced indexing's backward (`index_put_` with
+    accumulate) repeats but walks a row's cotangents one after another;
+    `index_add_` sums them by atomics (tools/torch_field_steps.py,
+    PERF.md)."""
+    return _Lookup.apply(table, idx, dtype)
 
 
 @functools.lru_cache(maxsize=None)

@@ -15,7 +15,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
-from tnerf_torch.cameras import Rays, pixel_rays
+from tnerf_torch.cameras import Rays, compose_pose, ndc_warp, pixel_rays, se3_exp
 from tnerf_torch.data.dataset import ImageDataset
 from tnerf_torch.fields.nerf_field import TABLE_ENCODINGS
 from tnerf_torch.fields.triplane import triplane_tv
@@ -25,6 +25,16 @@ MAX_CONSECUTIVE_ERRORS = 1000  # non-finite steps in a row after which an update
 
 class RayBatch(NamedTuple):
     rays: Rays
+    gt_rgb: torch.Tensor  # [B, 3]
+
+
+class PoseBatch(NamedTuple):
+    """A batch before its rays (`tnerf/train.py:56`), for pose refinement:
+    the train step makes the rays from the refined poses itself, so that
+    the loss reaches the per-image pose deltas."""
+
+    img: torch.Tensor     # [B] int64 training-image index
+    pix: torch.Tensor     # [B, 2] f32 pixel (x, y)
     gt_rgb: torch.Tensor  # [B, 3]
 
 
@@ -41,22 +51,26 @@ class Optimizer:
     updates `params` in place and makes no host synchronization."""
 
     def __init__(self, cfg, params: Dict[str, torch.Tensor]):
-        if cfg.grad_accum_steps > 1 or cfg.pose_lr_mult != 1.0:
+        if cfg.grad_accum_steps > 1:
             raise NotImplementedError(
-                "train.grad_accum_steps > 1 / pose_lr_mult are not yet ported to tnerf_torch, "
-                "see ROADMAP.md")
+                "train.grad_accum_steps > 1 is not yet ported to tnerf_torch, see ROADMAP.md")
         self.cfg = cfg
         self.names = list(params)
         self.params = [params[k] for k in self.names]
         dev = self.params[0].device
         self.sizes = [p.numel() for p in self.params]
-        # train.table_lr_mult scales the final update of the feature tables
-        # (`tnerf/train.py:111`: a masked post-Adam scale, an LR multiplier)
+        # train.table_lr_mult scales the final update of the feature tables,
+        # train.pose_lr_mult that of the pose deltas (`tnerf/train.py:111`,
+        # `:132`: masked post-Adam scales, learning-rate multipliers)
         self.table_scale = None
-        if cfg.table_lr_mult != 1.0:
+        if cfg.table_lr_mult != 1.0 or cfg.pose_lr_mult != 1.0:
+            def mult(k):
+                if k.split(".")[0] in TABLE_ENCODINGS:
+                    return cfg.table_lr_mult
+                return cfg.pose_lr_mult if k == "pose_deltas" else 1.0
+
             self.table_scale = torch.cat([
-                torch.full((n,), cfg.table_lr_mult if k.split(".")[0] in TABLE_ENCODINGS else 1.0,
-                           dtype=torch.float32, device=dev)
+                torch.full((n,), mult(k), dtype=torch.float32, device=dev)
                 for k, n in zip(self.names, self.sizes)])
         i32 = dict(dtype=torch.int32, device=dev)
         self.mu = torch.zeros(sum(self.sizes), dtype=torch.float32, device=dev)
@@ -174,10 +188,12 @@ def create_optimizer(cfg, params: Dict[str, torch.Tensor]) -> Optimizer:
 class PixelSampler:
     """Draws random (image, pixel) ray batches on the device
     (`tnerf/train.py:155`): the training images and poses live there, and
-    a draw is three randints, a gather and the rays' arithmetic."""
+    a draw is three randints, a gather and the rays' arithmetic, warped
+    into NDC where ndc_near is set (scene.ndc).  meta=True draws a
+    PoseBatch instead (pose refinement: the step makes the rays)."""
 
     def __init__(self, dataset: ImageDataset, scene_scale: float, white_background: bool,
-                 device="cuda"):
+                 device="cuda", ndc_near: Optional[float] = None):
         self.device = torch.device(device)
         self.images = torch.as_tensor(dataset.composited(white_background),
                                       dtype=torch.float32).to(self.device)  # [N, H, W, 3]
@@ -186,17 +202,20 @@ class PixelSampler:
         self.height = dataset.height
         self.camera = dataset.camera
         self.scene_scale = float(scene_scale)
+        self.ndc_near = None if ndc_near is None else float(ndc_near)
         self._perm_seed: Optional[int] = None
         self._perm: Optional[torch.Tensor] = None
 
-    def sample(self, generator: torch.Generator, batch_size: int) -> RayBatch:
+    def sample(self, generator: torch.Generator, batch_size: int, meta: bool = False):
         """IID pixel draw with replacement; `generator` lives on the
         sampler's device."""
         draw = lambda high: torch.randint(0, high, (batch_size,), generator=generator,
                                           device=self.device)
-        return self._gather(draw(self.images.shape[0]), draw(self.width), draw(self.height))
+        return self._gather(draw(self.images.shape[0]), draw(self.width), draw(self.height),
+                            meta)
 
-    def sample_epoch(self, epoch_seed: int, step_in_epoch: int, batch_size: int) -> RayBatch:
+    def sample_epoch(self, epoch_seed: int, step_in_epoch: int, batch_size: int,
+                     meta: bool = False):
         """Epoch-shuffled batching without replacement: one permutation of
         all pixels per epoch (cached on the epoch's seed), sliced per step;
         batches wrap around the permutation."""
@@ -211,13 +230,27 @@ class PixelSampler:
         idx = self._perm[(start + torch.arange(batch_size, device=self.device)) % total]
         hw = self.height * self.width
         rem = idx % hw
-        return self._gather(idx // hw, rem % self.width, rem // self.width)
+        return self._gather(idx // hw, rem % self.width, rem // self.width, meta)
 
-    def _gather(self, img, x, y) -> RayBatch:
+    def _gather(self, img, x, y, meta: bool = False):
         pix = torch.stack([x.to(torch.float32), y.to(torch.float32)], dim=-1)
-        rays = pixel_rays(self.poses[img], pix, self.width, self.height, self.camera,
-                          self.scene_scale)
-        return RayBatch(rays=rays, gt_rgb=self.images[img, y, x])
+        gt = self.images[img, y, x]
+        if meta:
+            return PoseBatch(img=img, pix=pix, gt_rgb=gt)
+        return RayBatch(rays=self.rays(self.poses[img], pix), gt_rgb=gt)
+
+    def rays(self, poses: torch.Tensor, pix: torch.Tensor) -> Rays:
+        """Rays of per-ray poses [B, 4, 4] and pixels [B, 2], NDC-warped
+        when the sampler warps (the reference's jitted step, `_divider`)."""
+        rays = pixel_rays(poses, pix, self.width, self.height, self.camera, self.scene_scale)
+        if self.ndc_near is not None:
+            rays = ndc_warp(rays, self.width, self.height, self.camera, self.ndc_near)
+        return rays
+
+    def regen_rays(self, batch: PoseBatch) -> Rays:
+        """A PoseBatch's rays from the dataset poses (zero deltas): what
+        the capacity probe of the dense-to-compact switch reads."""
+        return self.rays(self.poses[batch.img], batch.pix)
 
 
 def photometric_loss(err: torch.Tensor, kind: str = "l2", huber_delta: float = 0.1) -> torch.Tensor:
@@ -236,21 +269,49 @@ def photometric_loss(err: torch.Tensor, kind: str = "l2", huber_delta: float = 0
 
 class TrainState:
     """What a checkpoint holds of the model: the field (its parameters),
-    the optimizer (its state) and the number of steps taken."""
+    the parameters beyond the field (`extra`: the pose deltas under
+    train.optimize_poses), the optimizer (its state) and the number of
+    steps taken."""
 
-    def __init__(self, field, optimizer: Optimizer, step: int = 0):
+    def __init__(self, field, optimizer: Optimizer, step: int = 0,
+                 extra: Optional[Dict[str, torch.Tensor]] = None):
         self.field = field
         self.optimizer = optimizer
         self.step = step
+        self.extra = extra or {}
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
-        return self.field.params()
+        return {**self.field.params(), **self.extra}
+
+    @torch.no_grad()
+    def load_params(self, params: Dict[str, torch.Tensor]) -> None:
+        """Copy a checkpoint's parameters in: the field's and the extras."""
+        if set(params) != set(self.params):
+            raise ValueError(f"the checkpoint holds the parameters {sorted(params)}, this "
+                             f"configuration trains {sorted(self.params)}")
+        self.field.load_state_dict({k: v for k, v in params.items() if k not in self.extra})
+        for k, v in self.extra.items():
+            v.copy_(params[k])
 
 
-def init_train_state(field, train_cfg) -> TrainState:
-    """A fresh TrainState around `field` (already on its device)."""
-    return TrainState(field, create_optimizer(train_cfg, field.params()), 0)
+def pose_extra_params(cfg, n_train_images: int, device="cpu") -> Optional[Dict[str, torch.Tensor]]:
+    """The parameters beyond the field's (`tnerf/train.py:458`): under
+    train.optimize_poses the per-training-image SE(3) deltas, [N, 6]
+    zeros (leaf "pose_deltas", with its Adam moments); None when there
+    are none.  (train.freq_anneal_steps' schedule leaf is not ported.)"""
+    if not cfg.train.optimize_poses:
+        return None
+    return {"pose_deltas": torch.zeros((n_train_images, 6), dtype=torch.float32, device=device,
+                                       requires_grad=True)}
+
+
+def init_train_state(field, train_cfg, extra: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> TrainState:
+    """A fresh TrainState around `field` (already on its device) and the
+    extra parameters (on the same device)."""
+    params = {**field.params(), **(extra or {})}
+    return TrainState(field, create_optimizer(train_cfg, params), 0, extra)
 
 
 def table_l1(params: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -265,24 +326,37 @@ def table_l1(params: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 def make_train_step(renderer: Callable, loss: str = "l2", huber_delta: float = 0.1,
                     distortion: float = 0.0, table_l1_weight: float = 0.0,
-                    table_tv_weight: float = 0.0) -> Callable:
+                    table_tv_weight: float = 0.0,
+                    pose_setup: Optional[PixelSampler] = None) -> Callable:
     """train_step(state, batch, occupancy, generator=None) -> aux:
     photometric loss through the renderer (plus `distortion` times the
     rays' mean distortion term, where > 0: the caller has divided the
     weight by the sampled range; plus table_l1_weight times `table_l1` and
     table_tv_weight times the triplane's `triplane_tv`, where > 0),
-    gradients onto the field's parameters,
+    gradients onto the state's parameters,
     one optimizer update, `state.step` advanced; aux = {"loss", "psnr"
     (always from the MSE), "acc_mean"} and, with the regularizer on,
     "distortion", as device scalars nobody has waited for.  `generator` (on the batch's device) is the renderer's
     source of sample jitter, the counterpart of the reference step's key;
-    a renderer with uniform placement draws nothing from it."""
+    a renderer with uniform placement draws nothing from it.
+
+    pose_setup (the PixelSampler of the training views) turns on pose refinement
+    (`tnerf/train.py:347`): the batch is a PoseBatch, and the rays are made
+    inside the loss from exp(pose_deltas[img]) composed onto the dataset
+    pose (`sampler.rays`, NDC-warped where the sampler warps), so that the
+    loss reaches the deltas through the ray geometry; aux adds
+    "pose_delta_norm", the deltas' mean norm."""
     photometric_loss(torch.zeros((1, 3)), loss, huber_delta)  # validate early
 
-    def train_step(state: TrainState, batch: RayBatch, occupancy=None,
+    def train_step(state: TrainState, batch, occupancy=None,
                    generator: Optional[torch.Generator] = None) -> dict:
         params = state.params
-        res = renderer(params, batch.rays, occupancy, generator)
+        if pose_setup is not None:
+            delta = se3_exp(params["pose_deltas"][batch.img])
+            rays = pose_setup.rays(compose_pose(delta, pose_setup.poses[batch.img]), batch.pix)
+        else:
+            rays = batch.rays
+        res = renderer(params, rays, occupancy, generator)
         err = res.rgb - batch.gt_rgb
         mse = torch.mean(torch.square(err))
         obj = mse if loss == "l2" else photometric_loss(err, loss, huber_delta)
@@ -304,6 +378,9 @@ def make_train_step(renderer: Callable, loss: str = "l2", huber_delta: float = 0
         }
         if distortion > 0.0:
             aux["distortion"] = dist.detach()
+        if pose_setup is not None:
+            aux["pose_delta_norm"] = torch.linalg.norm(params["pose_deltas"].detach(),
+                                                       dim=-1).mean()
         return aux
 
     return train_step

@@ -17,6 +17,7 @@ from tnerf_torch.config import Config
 from tnerf_torch.data.dataset import (
     ImageDataset,
     load_data,
+    scene_llff_kwargs,
     scene_proc_kwargs,
     validate_scene_background,
 )
@@ -34,7 +35,13 @@ from tnerf_torch.grid.occupancy import (
 from tnerf_torch.render.fused import MAX_BWD_LAYERS, make_fused_renderer
 from tnerf_torch.render.grid_renderer import cdf_occupied_sample_fraction, make_grid_renderer
 from tnerf_torch.render.renderer import make_uniform_renderer
-from tnerf_torch.train import Optimizer, PixelSampler, init_train_state, make_train_step
+from tnerf_torch.train import (
+    Optimizer,
+    PixelSampler,
+    init_train_state,
+    make_train_step,
+    pose_extra_params,
+)
 from tnerf_torch.utils.checkpoint import (
     latest_checkpoint,
     load_jax_checkpoint,
@@ -85,10 +92,7 @@ def validate_ported(cfg: Config, for_eval: bool = True) -> None:
             f"field_.view_encoding={f.view_encoding!r} needs "
             "render.pipeline=grid_march"
         )
-    if cfg.scene.kind != "procedural":
-        raise _not_ported(f"scene.kind={cfg.scene.kind!r} (procedural scenes only)")
-    if cfg.scene.ndc:
-        raise _not_ported("scene.ndc=true")
+    validate_ndc(cfg)
     if cfg.sampler.placement not in ("uniform", "occupancy_cdf", "density_cdf"):
         raise ValueError(f"sampler.placement={cfg.sampler.placement!r} must be uniform, "
                          "occupancy_cdf or density_cdf")
@@ -118,9 +122,7 @@ def validate_ported(cfg: Config, for_eval: bool = True) -> None:
         "train.grad_accum_steps > 1": t.grad_accum_steps > 1,
         "train.param_ema > 0": t.param_ema > 0,
         "train.random_background=true": t.random_background,
-        "train.optimize_poses=true": t.optimize_poses,
         "train.keep_best=true": t.keep_best,
-        "train.pose_lr_mult != 1": t.pose_lr_mult != 1.0,
         "train.freq_anneal_steps > 0": t.freq_anneal_steps > 0,
         "train.remat=true": t.remat,
         "grid.mesh_path": bool(cfg.grid.mesh_path),
@@ -146,6 +148,8 @@ def validate_ported(cfg: Config, for_eval: bool = True) -> None:
             "prior (hash tables have no spatial adjacency); "
             f"field_.encoding={f.encoding!r}"
         )
+    if t.optimize_poses:
+        _validate_pose_opt(cfg)
     if f.tri_upsample_steps:
         _tri_stage_plan(cfg)
     if t.shuffle not in ("random", "epoch"):
@@ -200,10 +204,78 @@ def build_renderer(cfg: Config, for_eval: bool = True, compact: Optional[bool] =
                                tighten=cfg.render.fused_tighten, for_eval=for_eval)
 
 
+def validate_ndc(cfg: Config) -> None:
+    """scene.ndc's preconditions (`tnerf/train_loop.py:151`): the warp
+    projects along world -z from a recentred forward-facing capture, so a
+    configuration that cannot mean that is refused."""
+    if not cfg.scene.ndc:
+        return
+    if cfg.scene.kind == "nerf_synthetic":
+        raise ValueError(
+            "scene.ndc is the forward-facing (LLFF) parameterization; "
+            "nerf_synthetic scenes are inward-facing 360 captures — "
+            "rays behind the mean view direction cannot be warped"
+        )
+    if cfg.scene.kind in ("llff", "colmap") and not cfg.scene.llff_recenter:
+        raise ValueError(
+            "scene.ndc needs poses recentered to the mean camera frame: "
+            "set scene.llff_recenter=true (and usually "
+            "scene.llff_bd_rescale=0.75)"
+        )
+    if cfg.grid.mesh_path:
+        raise ValueError(
+            "grid.mesh_path voxelizes a WORLD-space mesh; under scene.ndc "
+            "the grid lives in warped NDC coordinates — unset one of them"
+        )
+    if cfg.scene.ndc_near <= 0:
+        raise ValueError(f"scene.ndc_near must be > 0, got {cfg.scene.ndc_near}")
+    nf = (cfg.sampler.near, cfg.sampler.far)
+    if nf not in ((-1.0, -1.0), (0.0, 1.0)):
+        raise ValueError(
+            "under scene.ndc the warped ray runs over t in [0, 1] (near "
+            "plane to infinity): set sampler.near=-1 sampler.far=-1 "
+            f"(auto) or exactly (0, 1); got {nf} — the world-space near "
+            "plane is scene.ndc_near"
+        )
+
+
+def ndc_near_or_none(cfg: Config) -> Optional[float]:
+    """The NDC warp's near plane for every site that makes rays, None
+    where scene.ndc is off (`tnerf/train_loop.py:188`)."""
+    return cfg.scene.ndc_near if cfg.scene.ndc else None
+
+
+def _validate_pose_opt(cfg: Config) -> None:
+    """Pose refinement needs the loss's gradient to reach the ray geometry
+    (`tnerf/train_loop.py:470`): a configuration whose backward treats
+    positions as constants is refused rather than learning nothing."""
+    if cfg.render.pipeline == "fused":
+        raise ValueError(
+            "train.optimize_poses needs ray-geometry gradients; the "
+            "fused kernel's VJP treats rays as non-differentiable — "
+            "use grid_march, grid_intervals or uniform"
+        )
+    enc = cfg.field_.encoding
+    mode = {"hashgrid": resolve_gather_mode, "cp": resolve_cp_mode,
+            "triplane": resolve_tri_mode}.get(enc)
+    if mode is not None and mode(cfg.field_) != "gather":
+        name = {"hashgrid": "hash grid's", "cp": "CP", "triplane": "triplane"}[enc]
+        knob = "hash_gather_mode" if enc == "hashgrid" else "tri_gather_mode"
+        raise ValueError(
+            "train.optimize_poses needs position gradients, but the "
+            f"{name} onehot path returns zero position cotangents — set "
+            f"field_.{knob}=gather"
+        )
+
+
 def resolve_near_far(cfg: Config, dataset: ImageDataset) -> Config:
-    """Resolve sampler.near/far = -1 (auto) from the dataset's per-view
-    depth bounds: near = 0.9 min, far = 1.1 max, in scene_scale units
-    (`tnerf/train_loop.py:194`).  No-op when both are explicit."""
+    """Resolve sampler.near/far = -1 (auto) (`tnerf/train_loop.py:201`):
+    under scene.ndc the warped ray spans [0, 1] by construction; else from
+    the dataset's per-view depth bounds, near = 0.9 min, far = 1.1 max, in
+    scene_scale units.  No-op when both are explicit."""
+    if cfg.scene.ndc and (cfg.sampler.near < 0 or cfg.sampler.far < 0):
+        return dataclasses.replace(cfg, sampler=dataclasses.replace(cfg.sampler, near=0.0,
+                                                                    far=1.0))
     if cfg.sampler.near >= 0 and cfg.sampler.far >= 0:
         return cfg
     if dataset.near_far is None:
@@ -216,6 +288,19 @@ def resolve_near_far(cfg: Config, dataset: ImageDataset) -> Config:
     near = 0.9 * lo if cfg.sampler.near < 0 else cfg.sampler.near
     far = 1.1 * hi if cfg.sampler.far < 0 else cfg.sampler.far
     return dataclasses.replace(cfg, sampler=dataclasses.replace(cfg.sampler, near=near, far=far))
+
+
+def load_datasets(cfg: Config, splits=("train", "val", "test"), device="cuda"
+                  ) -> Dict[str, ImageDataset]:
+    """The scene of cfg.scene, checked (`tnerf/train_loop.py:_load_datasets`):
+    its background, scene.ndc's preconditions; `splits` as `load_data`
+    takes them; a procedural scene's ground truth is rendered on `device`."""
+    validate_scene_background(cfg.scene.kind, cfg.scene.name, cfg.scene.white_background)
+    validate_ndc(cfg)
+    return load_data(cfg.scene.kind, cfg.scene.name, root=cfg.scene.root,
+                     srgb_to_linear=cfg.scene.srgb_to_linear, downscale=cfg.scene.downscale,
+                     splits=splits, proc=scene_proc_kwargs(cfg.scene),
+                     llff=scene_llff_kwargs(cfg.scene), device=device)
 
 
 def _eval(cfg, renderer, state, occ, datasets, step, log, metrics, device,
@@ -231,6 +316,7 @@ def _eval(cfg, renderer, state, occ, datasets, step, log, metrics, device,
             white_background=cfg.scene.white_background,
             max_views=None if save_images else 2, save_dir=save_dir,
             chunk_size=cfg.render.chunk_size, occupancy=bits, device=device,
+            ndc_near=ndc_near_or_none(cfg),
         )
         out.update(m)
         log.info("eval step %d: %s", step, m)
@@ -258,6 +344,12 @@ def _tri_stage_plan(cfg: Config):
         raise ValueError(
             "field_.tri_upsample_steps is the triplane family's "
             f"progressive schedule; field_.encoding={cfg.field_.encoding!r}"
+        )
+    if cfg.train.optimize_poses:
+        raise ValueError(
+            "train.optimize_poses does not compose with progressive "
+            "triplane stages (the stage upsample rewrite does not "
+            "thread the pose leaves)"
         )
     if not (0 < r0 < rf):
         raise ValueError(
@@ -401,13 +493,15 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
     metrics = MetricsWriter(os.path.join(out_dir, cfg.logging.metrics_file))
 
     if datasets is None:
-        validate_scene_background(cfg.scene.kind, cfg.scene.name, cfg.scene.white_background)
-        datasets = load_data(cfg.scene.kind, cfg.scene.name,
-                             proc=scene_proc_kwargs(cfg.scene), device=dev)
+        t0 = time.perf_counter()
+        datasets = load_datasets(cfg, device=dev)
+        log.info("loaded the scene in %.3f s", time.perf_counter() - t0)
     train_ds = datasets["train"]
     log.info("scene=%s/%s: %d train views %dx%d focal=%.2f", cfg.scene.kind, cfg.scene.name,
              len(train_ds), train_ds.width, train_ds.height, train_ds.focal)
-    cfg = resolve_near_far(cfg, train_ds)
+    if cfg.sampler.near < 0 or cfg.sampler.far < 0:
+        cfg = resolve_near_far(cfg, train_ds)
+        log.info("auto near/far: [%.3f, %.3f]", cfg.sampler.near, cfg.sampler.far)
 
     init_gen = torch.Generator()  # parameters are drawn on the host, then moved
     init_gen.manual_seed(cfg.train.seed)
@@ -421,7 +515,7 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
     renderer_compact = build_renderer(cfg, for_eval=False, compact=True) if switching \
         else renderer_dense
     renderer = renderer_dense
-    state = init_train_state(field, cfg.train)
+    state = init_train_state(field, cfg.train, pose_extra_params(cfg, len(train_ds), dev))
     n_params = sum(p.numel() for p in field.parameters())
     log.info("field=%s/%s params=%.2fM pipeline=%s device=%s", cfg.field_.encoding, field.arch,
              n_params / 1e6, cfg.render.pipeline, dev)
@@ -437,7 +531,7 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
             log.info("train.resume: no checkpoint in %s, starting from step 0", ckpt_dir)
         else:
             start_step, params, opt_state, occ = load_train_checkpoint(ckpt_dir, dev)
-            field.load_state_dict(params)
+            state.load_params(params)
             state.optimizer.load_state(opt_state)
             state.step = start_step
             log.info("resumed from step %d", start_step)
@@ -445,13 +539,16 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
     def save(step: int) -> None:
         save_checkpoint(ckpt_dir, step, state.params, state.optimizer.state, occ, cfg.train)
 
-    sampler = PixelSampler(train_ds, cfg.scene.scene_scale, cfg.scene.white_background, dev)
+    sampler = PixelSampler(train_ds, cfg.scene.scene_scale, cfg.scene.white_background, dev,
+                           ndc_near=ndc_near_or_none(cfg))
+    poses = cfg.train.optimize_poses
     # span-normalized: raw-t distortion scales with the sampled range
     loss_kw = dict(loss=cfg.train.loss, huber_delta=cfg.train.huber_delta,
                    distortion=cfg.train.distortion_weight
                    / max(cfg.sampler.far - cfg.sampler.near, 1e-6),
                    table_l1_weight=cfg.train.table_l1_weight,
-                   table_tv_weight=cfg.train.table_tv_weight)
+                   table_tv_weight=cfg.train.table_tv_weight,
+                   pose_setup=sampler if poses else None)
     step_dense = make_train_step(renderer_dense, **loss_kw)
     step_compact = make_train_step(renderer_compact, **loss_kw) if switching else step_dense
     train_step = step_dense
@@ -481,9 +578,9 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
         for step in range(start_step, cfg.train.steps):
             if cfg.train.shuffle == "epoch":
                 batch = sampler.sample_epoch(cfg.train.seed + step // steps_per_epoch,
-                                             step % steps_per_epoch, rays_per_step)
+                                             step % steps_per_epoch, rays_per_step, meta=poses)
             else:
-                batch = sampler.sample(gen, rays_per_step)
+                batch = sampler.sample(gen, rays_per_step, meta=poses)
             aux = train_step(state, batch, occ_payload, gen)
             window_steps += 1
             if use_grid and step >= cfg.grid.warmup_steps and step % cfg.grid.update_every == 0:
@@ -491,7 +588,10 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
                 occ_payload = renderer_payload(occ, cfg.sampler, cfg.grid)
                 if switching:
                     with torch.no_grad():
-                        frac = cdf_occupied_sample_fraction(batch.rays, occ_payload, cfg.grid,
+                        # a PoseBatch has no rays: the probe needs only their
+                        # geometry, so the dataset poses (zero deltas) stand in
+                        probe = sampler.regen_rays(batch) if poses else batch.rays
+                        frac = cdf_occupied_sample_fraction(probe, occ_payload, cfg.grid,
                                                             cfg.sampler) \
                             if cdf_switch else occupancy_fraction(occ)
                     compacted = float(frac) < compact_switch_frac  # waits for the device
@@ -514,6 +614,8 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
                     m["occupancy_frac"] = float(occupancy_fraction(occ))
                 if "distortion" in aux:
                     m["distortion"] = float(aux["distortion"])
+                if "pose_delta_norm" in aux:
+                    m["pose_delta_norm"] = float(aux["pose_delta_norm"])
                 metrics.write(step, **m)
                 log.info("step %d loss=%.5f psnr=%.2f rays/s=%.0f occ=%.2f", step, m["loss"],
                          m["train_psnr"], m["rays_per_sec"], m.get("occupancy_frac", 1.0))

@@ -11,20 +11,21 @@ keeps NamedTuple fields in declaration order, so the saved
   `trunk` alone, biases first (`params['trunk']['b']`, one per layer), then
   weights (`[in, out]` per layer); a twobranch field `color` (likewise),
   then its encoding's tables (`cp` {lines}, `hashgrid` {tables} or
-  `triplane` {lines, planes}), then `trunk`;
+  `triplane` {lines, planes}), then `trunk`; under `train.optimize_poses`
+  the [N, 6] leaf `pose_deltas` takes its sorted place among them;
 - the optimizer state: the non-finite skip's three counters (int32, bool,
   int32; only with `train.skip_nonfinite`), Adam's `count`, `mu` and `nu`
   (each laid out like the params), the schedule's `count` (only when the
-  learning rate is scheduled; `train.table_lr_mult` adds a masked scale,
-  which holds no leaf),
+  learning rate is scheduled; `train.table_lr_mult` and
+  `train.pose_lr_mult` each add a masked scale, which holds no leaf),
 - `TrainState.step`, and `TrainState.ema` (must be `None`),
 - the last three: `OccupancyGridState(density_ema, bitfield, step)`; the
   uniform pipeline keeps no occupancy grid and saves the `TrainState` alone.
 
 `save_checkpoint` writes exactly this, so the reference's
 `restore_checkpoint` reads the port's checkpoints and the port resumes the
-reference's.  Anything else (a weight EMA, pose deltas, another field) is
-refused rather than guessed at.
+reference's.  Anything else (a weight EMA, another field) is refused
+rather than guessed at.
 """
 
 from __future__ import annotations
@@ -60,6 +61,8 @@ def latest_checkpoint(ckpt_dir: str) -> Tuple[int, str]:
 # of each table-backed encoding, by their sorted names.
 _MLPS = ("color", "trunk")
 _TABLES = {"cp": ("lines",), "hashgrid": ("tables",), "triplane": ("lines", "planes")}
+# top-level leaves beyond the field (`tnerf/train.py:pose_extra_params`)
+_LEAVES = ("pose_deltas",)
 
 
 def _layout(groups: dict) -> Dict[str, object]:
@@ -67,12 +70,13 @@ def _layout(groups: dict) -> Dict[str, object]:
     trunk alone (the fused5d field), or a trunk, a colour head and one
     encoding's tables (twobranch)."""
     tables = [g for g in groups if g in _TABLES]
-    unknown = sorted(set(groups) - set(_MLPS) - set(_TABLES))
+    unknown = sorted(set(groups) - set(_MLPS) - set(_TABLES) - set(_LEAVES))
     twobranch = "color" in groups
     if unknown or "trunk" not in groups or twobranch != bool(tables) or len(tables) > 1:
         raise ValueError(
             f"parameter groups {sorted(groups)}: only a frequency-MLP trunk, or a trunk, a "
-            "colour head and one of the hashgrid / triplane / cp tables, is ported")
+            "colour head and one of the hashgrid / triplane / cp tables (and the pose deltas), "
+            "is ported")
     return {g: groups[g] for g in sorted(groups)}
 
 
@@ -83,6 +87,8 @@ def layout_of(params: Dict[str, torch.Tensor]) -> Dict[str, object]:
         g = k.split(".")[0]
         if g in _TABLES:
             groups[g] = _TABLES[g]
+        elif g in _LEAVES:
+            groups[g] = None
         else:
             groups[g] = sum(1 for n in params if n.startswith(f"{g}.w."))
     return _layout(groups)
@@ -95,6 +101,8 @@ def leaf_names(layout: Dict[str, object]) -> list:
     for g, v in layout.items():
         if g in _TABLES:
             out += [f"{g}.{leaf}" for leaf in v]
+        elif g in _LEAVES:
+            out.append(g)
         else:
             out += [f"{g}.b.{l}" for l in range(v)] + [f"{g}.w.{l}" for l in range(v)]
     return out
@@ -106,6 +114,8 @@ def _tree(layout: Dict[str, object]) -> str:
     for g, v in layout.items():
         if g in _TABLES:
             parts.append(f"'{g}': {{" + ", ".join(f"'{leaf}': *" for leaf in v) + "}")
+        elif g in _LEAVES:
+            parts.append(f"'{g}': *")
         else:
             stars = ", ".join(["*"] * v)
             parts.append(f"'{g}': {{'b': [{stars}], 'w': [{stars}]}}")
@@ -125,6 +135,8 @@ def _layout_of_tree(tree: str) -> Dict[str, object]:
     for g, v in nested.items():
         if g in _TABLES and v == {leaf: 0 for leaf in _TABLES[g]}:
             groups[g] = _TABLES[g]
+        elif g in _LEAVES and v == 0:
+            groups[g] = None
         elif isinstance(v, dict) and set(v) == {"b", "w"} and len(v["b"]) == len(v["w"]) \
                 and v["w"] and v["b"] == v["w"] == [0] * len(v["w"]):
             groups[g] = len(v["w"])
@@ -160,12 +172,19 @@ def params_from_jax(np_params: dict) -> Dict[str, torch.Tensor]:
     "color.w.<l>" / "color.b.<l>") and one of {'hashgrid': {'tables'}}
     (-> "hashgrid.tables" [L*T, F]), {'triplane': {'lines', 'planes'}}
     (-> "triplane.lines" [3, R, F], "triplane.planes" [3, R*R, F]),
-    {'cp': {'lines'}} (-> "cp.lines" [3, R, F])."""
+    {'cp': {'lines'}} (-> "cp.lines" [3, R, F]); and 'pose_deltas' [N,
+    6] (-> "pose_deltas")."""
     _layout({g: None for g in np_params})
     out: Dict[str, torch.Tensor] = {}
     for g in sorted(np_params):
         if g in _MLPS:
             _mlp_from_jax(g, np_params[g], out)
+            continue
+        if g in _LEAVES:
+            a = np.asarray(np_params[g])
+            if a.dtype != np.float32 or a.ndim != 2 or a.shape[1] != 6:
+                raise ValueError(f"{g}: {a.dtype} {a.shape}, expected float32 [N, 6]")
+            out[g] = torch.from_numpy(a.copy())
             continue
         if set(np_params[g]) != set(_TABLES[g]):
             raise ValueError(f"params[{g!r}] has keys {sorted(np_params[g])}, expected "
@@ -189,6 +208,8 @@ def _nested(layout: Dict[str, object], leaves) -> dict:
     for g, v in layout.items():
         if g in _TABLES:
             out[g] = {leaf: next(it) for leaf in v}
+        elif g in _LEAVES:
+            out[g] = next(it)
         else:
             b = [next(it) for _ in range(v)]
             out[g] = {"b": b, "w": [next(it) for _ in range(v)]}
@@ -316,6 +337,8 @@ def checkpoint_treedef(layout: Dict[str, object], train_cfg, with_occupancy: boo
     if train_cfg.grad_clip > 0.0:
         opt = f"({empty}, {opt})"
     if train_cfg.table_lr_mult != 1.0:
+        opt = f"({opt}, CustomNode(namedtuple[MaskedState], [{empty}]))"
+    if train_cfg.pose_lr_mult != 1.0:
         opt = f"({opt}, CustomNode(namedtuple[MaskedState], [{empty}]))"
     if train_cfg.skip_nonfinite:
         opt = f"CustomNode(namedtuple[ApplyIfFiniteState], [*, *, *, {opt}])"

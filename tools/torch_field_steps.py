@@ -10,15 +10,17 @@ From the checkpoint's weights, Adam moments and occupancy grid:
   (the dense and the compacted step of `train_loop.run_training`) under
   torch.profiler: host clock per step, device time per step, launches, the
   kernels by device time;
-- the position encoding alone (the config's hash grid, triplane or CP) at
-  one compacted step's own positions, its table gradient formed three
-  ways: advanced indexing (`table[idx]`, whose backward is `index_put_`
-  with accumulate), `torch.nn.functional.embedding`
-  (a segmented sum by sorted index, what `fields/hashgrid.py` runs) and
-  `index_select` (`index_add_`, atomics): forward and backward
-  device time by CUDA events, two backward passes compared bit for bit,
-  and, for a hash grid, the largest index multiplicity, the count of one
-  table row's contributions in one pass.
+- the table gradient formed four ways: the port's fixed-order sorted
+  segment sum (`fields/hashgrid.py:segment_sum_rows`), advanced indexing
+  (`table[idx]`, whose backward is `index_put_` with accumulate),
+  `torch.nn.functional.embedding` (partial segments by sorted index, in
+  no fixed order) and `index_select` (`index_add_`, atomics): for each,
+  20 compacted train steps under torch.profiler from the checkpoint's
+  state (device time per step, the cost the lookup puts on the step), and
+  the position encoding alone at one compacted step's own positions
+  (forward and backward device time by CUDA events, two backward passes
+  compared bit for bit); for a hash grid, the largest index multiplicity,
+  the count of one table row's contributions in one pass.
 Writes chiprun_out/field_steps_<encoding>.json with the card's name and power
 limit.
 """
@@ -60,7 +62,20 @@ def profile_steps(step, n_steps):
 
 
 def lookups(kind):
-    """table, idx -> rows, by the formulation `kind`."""
+    """table, idx, dtype -> rows, by the formulation `kind` (dtype is the
+    port's rounding, used by "segment" only: every committed config looks
+    up in float32)."""
+    import torch
+
+    from tnerf_torch.fields import hashgrid
+
+    if kind == "segment":
+        return hashgrid.rounded_lookup
+    fn = _plain_lookup(kind)
+    return lambda table, idx, dtype: fn(table, idx)
+
+
+def _plain_lookup(kind):
     import torch
 
     if kind == "index":
@@ -108,15 +123,18 @@ def main() -> int:
     payload = renderer_payload(occ, cfg.sampler, cfg.grid)
     result = {"card": smi, "config": os.path.relpath(args.config, REPO),
               "occupancy_frac": float(occupancy_fraction(occ)), "steps": {}}
-    for compact in (False, True):
+
+    def fresh_step(compact):
         field = nerf_field.NeRFField(cfg.field_, cfg.grid, torch.Generator()).to(dev)
         field.load_state_dict(params)
         state = init_train_state(field, cfg.train)
         state.optimizer.load_state(opt_state)
         step_fn = make_train_step(build_renderer(cfg, for_eval=False, compact=compact))
         gen = torch.Generator(device=dev).manual_seed(2)
-        step = lambda: step_fn(state, sampler.sample(gen, cfg.train.batch_size), payload, gen)
-        r = profile_steps(step, args.steps)
+        return lambda: step_fn(state, sampler.sample(gen, cfg.train.batch_size), payload, gen)
+
+    for compact in (False, True):
+        r = profile_steps(fresh_step(compact), args.steps)
         result["steps"]["compact" if compact else "dense"] = r
         print(f"{'compacted' if compact else 'dense'} step: {r['host_ms']:.3f} ms host clock, "
               f"{r['device_ms']:.3f} ms device, {r['launches']:.0f} launches; top "
@@ -124,7 +142,7 @@ def main() -> int:
               flush=True)
 
     # one compacted step's positions, as the encoding sees them
-    positions = cs.step_positions(step)[3]
+    positions = cs.step_positions(fresh_step(True))[3]
     enc = cfg.field_.encoding
     tables = {k: v.detach().clone().requires_grad_() for k, v in params.items()
               if k.split(".")[0] == enc}
@@ -136,22 +154,27 @@ def main() -> int:
     result["samples"] = positions.shape[0]
     result["lookups"] = {}
     original = hashgrid.rounded_lookup
-    for kind in ("index", "embedding", "index_select"):
-        fn = lookups(kind)
-        hashgrid.rounded_lookup = triplane.rounded_lookup = \
-            lambda t, idx, dtype, fn=fn: fn(t, idx)
+    for kind in ("segment", "embedding", "index", "index_select"):
+        hashgrid.rounded_lookup = triplane.rounded_lookup = lookups(kind)
         try:
+            step_ms = profile_steps(fresh_step(True), args.steps)["device_ms"]
             fwd_ms = cs.cuda_ms(encode_alone, 20)
             both_ms = cs.cuda_ms(grad, 20)
             g1, g2 = grad(), grad()
         finally:
             hashgrid.rounded_lookup = triplane.rounded_lookup = original
-        r = {"fwd_ms": fwd_ms, "bwd_ms": both_ms - fwd_ms, "repeats": bool(torch.equal(g1, g2)),
+        r = {"step_device_ms": step_ms, "fwd_ms": fwd_ms, "bwd_ms": both_ms - fwd_ms,
+             "repeats": bool(torch.equal(g1, g2)),
              "max_rel_to_port": float((g1 - ref).abs().max() / ref.abs().max())}
         result["lookups"][kind] = r
-        print(f"lookup {kind}: forward {fwd_ms:.3f} ms, backward {r['bwd_ms']:.3f} ms, two "
-              f"passes bit-equal {r['repeats']}, against fields/hashgrid.py's gradient "
+        print(f"lookup {kind}: compacted step {step_ms:.3f} ms device, encode forward "
+              f"{fwd_ms:.3f} ms, backward {r['bwd_ms']:.3f} ms, two passes bit-equal "
+              f"{r['repeats']}, against fields/hashgrid.py's gradient "
               f"{r['max_rel_to_port']:.2e} of its largest entry", flush=True)
+    seg, emb = result["lookups"]["segment"], result["lookups"]["embedding"]
+    result["segment_step_over_embedding"] = seg["step_device_ms"] / emb["step_device_ms"]
+    print(f"the fixed-order segment sum's step against embedding's: "
+          f"{result['segment_step_over_embedding']:.4f}x device time", flush=True)
     if enc == "hashgrid":  # how often the most used row of each level is read in one pass
         xn01 = 0.5 * (nerf_field.normalize_positions(positions, cfg.grid) + 1.0)
         i0, frac = hashgrid._level_geometry(xn01, cfg.field_)
