@@ -108,8 +108,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
      steps without and with train.optimize_poses: each within
      TRAIN_PSNR_MARGIN_DB of the reference's record, refinement better by
      more than 0.5 dB, `cli render --split train --refined-poses` of the
-     refined checkpoint;
- 12. print the kernels' JSON line, then the status line.
+     refined checkpoint; (e) the off-centre capture data/colmap/prims_oc
+     (tools/colmap_offcentre.py) trained 300 steps in NDC, its loss
+     falling, the training warp's rays of a view bit-equal on the card and
+     the CPU and B4 bit-equal to its plain version on them and on a test
+     view;
+ 12. `options`: the training options and CLI commands through the entry
+     points, under chiprun_out/chip_smoke/options/: (a) grad accumulation
+     (the prims config as 3000 loop steps of 4096 rays, 1500 updates:
+     within TRAIN_PSNR_MARGIN_DB of the record, Adam's count 1500); (b) the
+     weight EMA with keep_best and remat (the EMA eval within the margin,
+     `cli eval` of checkpoints_best reproducing its best_psnr within
+     BEST_PSNR_TOL_DB, B1 rerun in each backward pass, one step's gradient
+     with and without remat within B2_RTOL); (c) random background on the
+     fused pipeline (the white sphere on white of
+     tests/test_random_background.py: its PSNR and opacity gates); (d) the
+     BARF window with unit view directions on grid_march (within the
+     margin of the reference's CPU run, freq_alpha of a mid-anneal
+     checkpoint exact); (e) `cli suite` of the three procedural checkpoints
+     and a missing scene (each within PSNR_TOL_DB of its record); (f)
+     `render --orbit 8 --gif` (8 frames in the GIF's blocks); (g)
+     logging.profile (a trace holding the card's kernels) and
+     logging.debug_nans (nothing raised) on 50 steps;
+ 13. print the kernels' JSON line, then the status line.
 In the `kernels` phase B5 (the grid walk) is held bit-equal to its plain
 version, dense at 16^3 and 128^3, with occupancy at 64^3 (the prims
 model's bitfield, coarse factor 4) and 32^3 (a random 8% bitfield, factor
@@ -121,9 +142,11 @@ an intervals eval chunk (a 128 x 128 view) and at 640,000 rays, 128^3,
 dense, 384 steps; B4 is held bit-equal at the march eval's shape (16^3
 pooling, 64 probes, 96 midpoints).
 Each phase prints its seconds.
-`--phases kernels,serve,train,resume,cdf,march,intervals,fields,scenes` runs a subset (for development;
-the kernels' line then lists what ran).  Files go under chiprun_out/
-(git-ignored).
+`--phases kernels,serve,train,resume,cdf,march,intervals,fields,scenes,options` runs a
+subset (for development; the kernels' line then lists what ran).  `--phases
+march_full`, which no default run includes (it would not fit the chip call's
+1200 s), trains configs/procedural_hard_30db.json for its full 5000 steps
+against the reference's record.  Files go under chiprun_out/ (git-ignored).
 """
 
 import argparse
@@ -241,6 +264,12 @@ JAX_COLMAP_PSNR_TEST = 39.812801577821745
 JAX_POSE_OPT_PSNR_TEST, JAX_POSE_NO_OPT_PSNR_TEST = 18.03, 16.20
 POSE_OPT_MIN_GAIN_DB = 0.5
 SCENE_PSNR_FLOOR_DB = 30.0
+# A capture with an off-centre principal point (data/colmap/prims_oc,
+# tools/colmap_offcentre.py: 240x180, fx != fy, the principal point at
+# (W/2 + 17.5, H/2 - 11.25)), trained in NDC as runs/colmap_rehearsal is:
+# the training warp keeps its shift add there (no constant folding).
+OFFCENTRE_OVERRIDES = [f"scene.root={COLMAP_ROOT}", "scene.name=prims_oc", "train.steps=300",
+                       "train.log_every=50", "train.eval_every=0", "train.checkpoint_every=300"]
 LLFF_OVERRIDES = ["scene.kind=llff", "scene.name=prims_ff", f"scene.root={LLFF_ROOT}",
                   "scene.white_background=true", "render.white_background=true",
                   "scene.scene_scale=1.0", "sampler.near=2.0", "sampler.far=5.5",
@@ -270,8 +299,52 @@ TRAIN_PSNR_MARGIN_DB = 1.5
 # moments would send the first updates far off.  Written before the run.
 RESUME_LOSS_MAX = 3e-4
 RESUME_STEPS = 50
+# Phase `options`: the training options and CLI commands of tnerf/train.py and
+# tnerf/cli.py through the entry points, each run under chiprun_out/.
+# (a) grad accumulation: the prims config's 1500 updates of 8192 rays as
+# 3000 loop steps of 4096, two microbatches an update.
+ACCUM_OVERRIDES = ["train.grad_accum_steps=2", "train.batch_size=4096", "train.steps=3000"]
+# (b) the weight EMA, keep_best and remat on the prims config; two val
+# views, so that every in-training eval sees all of them and `cli eval`
+# of the best checkpoint can reproduce its best_psnr.
+EMA_OVERRIDES = ["train.param_ema=0.99", "train.keep_best=true", "train.remat=true",
+                 "train.eval_every=750", "scene.proc_n_val=2"]
+BEST_PSNR_TOL_DB = 1e-3
+# (c) random background: the white sphere on white of
+# tests/test_random_background.py (radius 0.6, cameras at radius 3, its
+# 24-pixel view's field of view) at 128x128, 16 train / 2 test views,
+# through the default config's fused pipeline; its gates are that test's.
+RBG_SIZE, RBG_TRAIN, RBG_TEST, RBG_STEPS = 128, 16, 2, 1000
+RBG_RADIUS, RBG_FOCAL = 0.6, 26.0 * 128 / 24
+RBG_OVERRIDES = ["scene.kind=procedural", "scene.name=prims", "scene.scene_scale=1.0",
+                 "scene.white_background=true", "render.white_background=true",
+                 "sampler.near=1.5", "sampler.far=4.5", "train.random_background=true",
+                 f"train.steps={RBG_STEPS}", "train.eval_every=0",
+                 f"train.checkpoint_every={RBG_STEPS}", "train.log_every=250"]
+RBG_PSNR_MIN, RBG_ACC_CORE_MIN, RBG_ACC_BG_MAX = 20.0, 0.85, 0.10
+# (d) the BARF window and unit view directions: the pose-refinement config
+# as the reference trained it on the CPU through its CLI (the committed
+# runs/pose_refinement_barf_unit: runs/pose_refinement_opt/config.json on
+# the prims scene of tests/test_pose_opt.py's size, uncorrupted, with
+# train.freq_anneal_steps=400 field_.view_param=unit, a checkpoint every
+# 200 steps); its final test PSNR (metrics.jsonl, last line).
+CONFIG_BARF = os.path.join(REPO, "runs", "pose_refinement_barf_unit", "config.json")
+JAX_BARF_UNIT_PSNR_TEST = 14.477848861019408
+# (e) `cli suite` over copies of the three committed procedural
+# checkpoints: each within PSNR_TOL_DB of its record (each metrics.jsonl's
+# last line).
+SUITE_RUNS = os.path.join(REPO, "runs", "suite_rehearsal")
+SUITE_SCENES = ("prims", "rings", "layers")
+# (f) `cli render --orbit ORBIT_FRAMES --gif` of the prims model.
+ORBIT_FRAMES = 8
+# (g) logging.profile, then logging.debug_nans, on PROFILE_STEPS prims steps.
+PROFILE_STEPS = 50
 ALL_PHASES = ("kernels", "serve", "train", "resume", "cdf", "march", "intervals", "fields",
-              "scenes")
+              "scenes", "options")
+# Not in the default run, which would not fit the chip call's 1200 s with it:
+# `march_full` trains configs/procedural_hard_30db.json for its full 5000
+# steps against the reference's record JAX_MARCH_PSNR_TEST.
+EXTRA_PHASES = ("march_full",)
 # Published H100 SXM peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -2133,6 +2206,422 @@ def train_and_serve_scenes():
     add(n)
     print("cli render --split train --refined-poses of the refined checkpoint: written",
           flush=True)
+    add(offcentre_capture())
+    return launches
+
+
+def offcentre_capture():
+    """(e) The off-centre capture: `cli train` of 300 steps in NDC whose
+    logged loss falls; then, with the trained occupancy, the training warp's
+    rays of a whole training view (the NDC warp as a train step runs it) on
+    the card bit-equal to the same warp on the CPU, B4 on them bit-equal to
+    its plain version, and B4 on a test view's eval rays (b4_on_view)."""
+    import shutil
+
+    import torch
+
+    from tnerf_torch.cameras import Rays, ndc_warp
+    from tnerf_torch.grid import tighten as tg
+    from tnerf_torch.grid.traversal import make_coarse_occupancy
+    from tnerf_torch.train import PixelSampler
+    from tnerf_torch.train_loop import load_datasets, ndc_near_or_none, resolve_near_far
+    from tnerf_torch.utils.checkpoint import load_jax_checkpoint
+
+    cfg = load_config(CONFIG_COLMAP, OFFCENTRE_OVERRIDES)
+    out_dir = os.path.join(OUT, "train_offcentre")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    argv = ["train", "--config", CONFIG_COLMAP, "--out", out_dir]
+    for ov in OFFCENTRE_OVERRIDES:
+        argv += ["-o", ov]
+    text, launches = counted(lambda: run_cli(argv))
+    last, losses, _ = last_window(os.path.join(out_dir, "metrics.jsonl"))
+    final = json.loads(text)
+    print(f"off-centre capture, {cfg.train.steps} steps in NDC ({time.perf_counter() - t0:.1f} s):"
+          f" logged losses {['%.4f' % x for x in losses]}, psnr_test {final['psnr_test']:.4f} dB, "
+          f"{last['step_seconds'] * 1e3:.3f} ms/step", flush=True)
+    if not losses[-1] < losses[0] or last["step"] != cfg.train.steps - 1:
+        raise AssertionError(f"off-centre capture: the loss did not fall: {losses}")
+    ckpt = os.path.join(out_dir, "checkpoints")
+
+    dev = torch.device("cuda")
+    ds = load_datasets(cfg, splits=("train",), device=dev)["train"]
+    cfg = resolve_near_far(cfg, ds)
+    sampler = PixelSampler(ds, cfg.scene.scene_scale, cfg.scene.white_background, dev)
+    ys, xs = torch.meshgrid(torch.arange(ds.height, device=dev),
+                            torch.arange(ds.width, device=dev), indexing="ij")
+    pix = torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1).float()
+    world = sampler.rays(sampler.poses[torch.zeros_like(xs.reshape(-1))], pix)
+    near = ndc_near_or_none(cfg)
+    card = ndc_warp(world, ds.width, ds.height, ds.camera, near)
+    host = ndc_warp(Rays(*(t.cpu() for t in world)), ds.width, ds.height, ds.camera, near)
+    warp_bad = [int((a.cpu() != b).sum()) for a, b in zip(card[:2], host[:2])]
+    _, _, occ = load_jax_checkpoint(ckpt, dev)
+    res, t_res = cfg.grid.resolution, cfg.sampler.tighten_res
+    pooled = make_coarse_occupancy(occ.bitfield.reshape(res, res, res), res // t_res)
+    o, d, te, tx = probe_rays(card.origins, card.directions, cfg.grid, cfg.sampler.near)
+    n, probes = cfg.sampler.samples_per_ray, cfg.sampler.tighten_probes
+    plain = tg.tighten_sample_mask_plain(o, d, te, tx, pooled, n, cfg.grid, probes)
+    kernel = tg.tighten_sample_mask(o, d, te, tx, pooled, n, cfg.grid, probes)
+    torch.cuda.synchronize()
+    b4_bad = [int((a != b).sum()) for a, b in zip(kernel, plain)]
+    print(f"off-centre capture (intrinsics {ds.intrinsics}): the training warp of train view 0 "
+          f"({pix.shape[0]} rays) on the card against the CPU, origins / directions differ in "
+          f"{warp_bad} elements; B4 on those rays (trained occupancy, {int(kernel[2].sum())} "
+          f"occupied midpoints) against its plain version: {b4_bad}", flush=True)
+    if any(warp_bad) or any(b4_bad):
+        raise AssertionError(f"off-centre capture: warp {warp_bad}, B4 {b4_bad} elements differ")
+    b4_on_view("off-centre COLMAP NDC 240x180 test view", CONFIG_COLMAP, ckpt, "test",
+               OFFCENTRE_OVERRIDES)
+    shutil.rmtree(ckpt)
+    return launches
+
+
+def remat_gradient_check(ckpt_dir):
+    """(b) One fused train step's gradient from the weights and occupancy of
+    ckpt_dir on one batch of 8192 prims rays, with and without remat: each
+    leaf within B2_RTOL of its largest entry (B2 does not repeat bit for
+    bit, ROADMAP Queue C 1), and B1 launched twice under remat (once more
+    in the backward pass), once without."""
+    import torch
+
+    from tnerf_torch.config import Config
+    from tnerf_torch.grid.occupancy import renderer_payload
+    from tnerf_torch.train import PixelSampler, rematerialized
+    from tnerf_torch.train_loop import build_renderer
+    from tnerf_torch.utils.checkpoint import read_train_checkpoint
+
+    dev = torch.device("cuda")
+    cfg = Config.from_json_file(CONFIG)
+    sampler = PixelSampler(_prims_test_split(), cfg.scene.scene_scale,
+                           cfg.scene.white_background, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    batch = sampler.sample(gen, cfg.train.batch_size)
+    ck = read_train_checkpoint(ckpt_dir, dev)  # the live weights
+    params, occ = ck.params, ck.occupancy
+    names = sorted(params)
+    for v in params.values():
+        v.requires_grad_(True)
+    payload = renderer_payload(occ, cfg.sampler, cfg.grid)
+    renderer = build_renderer(cfg, for_eval=False)
+
+    def grads(r):
+        res = r(params, batch.rays, payload, None)
+        loss = torch.mean(torch.square(res.rgb - batch.gt_rgb))
+        out = torch.autograd.grad(loss, [params[k] for k in names])
+        torch.cuda.synchronize()
+        return out
+
+    plain, n_plain = counted(lambda: grads(renderer))
+    remat, n_remat = counted(lambda: grads(rematerialized(renderer)))
+    rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for a, b in zip(remat, plain))
+    print(f"one fused train step's gradient with and without remat: max |diff| / max |leaf| "
+          f"{rel:.3e} over {len(names)} leaves (bound B2_RTOL {B2_RTOL}); B1 launches "
+          f"{n_remat['fused_forward']} with remat, {n_plain['fused_forward']} without; B2 "
+          f"{n_remat['fused_backward']} / {n_plain['fused_backward']}", flush=True)
+    if rel > B2_RTOL:
+        raise AssertionError(f"remat changed the gradient by {rel} (bound {B2_RTOL})")
+    if (n_remat["fused_forward"], n_plain["fused_forward"]) != (2, 1) \
+            or n_remat["fused_backward"] != 1:
+        raise AssertionError(f"remat did not rerun B1 in the backward pass: {n_remat} / "
+                             f"{n_plain}")
+
+
+def sphere_rgba_dataset(n_views, split, seed):
+    """tests/test_random_background.py's white sphere on white, RGBA with the
+    analytic silhouette as alpha, built by the port's own code at
+    RBG_SIZE^2."""
+    import numpy as np
+
+    from tnerf_torch.data.dataset import ImageDataset
+    from tnerf_torch.data.procedural import sphere_poses
+
+    poses = sphere_poses(n_views, radius=3.0, seed=seed).astype(np.float32)
+    imgs = []
+    for p in poses:
+        rgba = np.ones((RBG_SIZE, RBG_SIZE, 4), np.float32)
+        rgba[..., 3] = sphere_silhouette(p)
+        imgs.append(rgba)
+    return ImageDataset(images=np.stack(imgs), poses=poses, focal=RBG_FOCAL, width=RBG_SIZE,
+                        height=RBG_SIZE, channels=4, split=split)
+
+
+def sphere_silhouette(pose):
+    """Analytic alpha of the centred sphere from one camera (float64)."""
+    import numpy as np
+
+    from tnerf_torch.cameras import camera_rays
+
+    rays = camera_rays(pose, RBG_SIZE, RBG_SIZE, RBG_FOCAL, device="cpu")
+    o = rays.origins.numpy().astype(np.float64)
+    d = rays.directions.numpy().astype(np.float64)
+    b = np.sum(d * o, axis=-1)
+    disc = b * b - (np.sum(o * o, axis=-1) - RBG_RADIUS * RBG_RADIUS)
+    return (disc > 0).astype(np.float32)
+
+
+def random_background_sphere():
+    """(c) train.random_background on the fused pipeline: the white sphere
+    on white, whose composited images are all but uniform, so that only the
+    alpha channel (composited over each ray's random colour) says where the
+    sphere is; gates: test PSNR over RBG_PSNR_MIN, the opacity of test view
+    0 over RBG_ACC_CORE_MIN inside the eroded silhouette and under
+    RBG_ACC_BG_MAX outside it."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from scipy import ndimage
+
+    from tnerf_torch.config import Config
+    from tnerf_torch.eval import render_pose_result
+    from tnerf_torch.grid.occupancy import renderer_payload
+    from tnerf_torch.train_loop import build_renderer, run_training
+    from tnerf_torch.utils.checkpoint import load_jax_checkpoint
+
+    out_dir = os.path.join(OUT, "options", "random_background")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    datasets = {"train": sphere_rgba_dataset(RBG_TRAIN, "train", 0),
+                "test": sphere_rgba_dataset(RBG_TEST, "test", 9)}
+    cfg = Config().apply_overrides(RBG_OVERRIDES + [f"logging.out_dir={out_dir}"])
+    t0 = time.perf_counter()
+    final, launches = counted(lambda: run_training(cfg, datasets=datasets, device="cuda"))
+    train_s = time.perf_counter() - t0
+    _, params, occ = load_jax_checkpoint(os.path.join(out_dir, "checkpoints"), "cuda")
+    ds = datasets["test"]
+    res = render_pose_result(build_renderer(cfg), params, ds.poses[0], ds.width, ds.height,
+                             ds.camera, cfg.scene.scene_scale, chunk_size=cfg.render.chunk_size,
+                             occupancy=renderer_payload(occ, cfg.sampler, cfg.grid),
+                             device=torch.device("cuda"))
+    acc = np.asarray(res.acc, np.float32)
+    sil = sphere_silhouette(ds.poses[0])
+    core = ndimage.binary_erosion(sil > 0.5, iterations=2)
+    bg = ndimage.binary_erosion(sil < 0.5, iterations=2)
+    a_core, a_bg = float(acc[core].mean()), float(acc[bg].mean())
+    print(f"random background, white sphere on white ({RBG_SIZE}x{RBG_SIZE}, {RBG_TRAIN} train "
+          f"views, fused, {RBG_STEPS} steps, {train_s:.1f} s): psnr_test {final['psnr_test']:.4f} "
+          f"dB (gate > {RBG_PSNR_MIN}), acc inside the eroded silhouette {a_core:.4f} (> "
+          f"{RBG_ACC_CORE_MIN}), outside {a_bg:.4f} (< {RBG_ACC_BG_MAX}); launches {launches}",
+          flush=True)
+    if not (core.sum() > 10 and bg.sum() > 50):
+        raise AssertionError(f"eroded regions too small: {core.sum()} / {bg.sum()} pixels")
+    if final["psnr_test"] <= RBG_PSNR_MIN or a_core <= RBG_ACC_CORE_MIN \
+            or a_bg >= RBG_ACC_BG_MAX:
+        raise AssertionError("random background: the opacity does not follow the silhouette")
+    if min(launches["fused_forward"], launches["fused_backward"]) < RBG_STEPS:
+        raise AssertionError(f"random background did not train through B1 / B2: {launches}")
+    shutil.rmtree(os.path.join(out_dir, "checkpoints"))
+    return launches
+
+
+def barf_unit_run():
+    """(d) the BARF window and unit view directions on grid_march, through
+    `cli train`: test PSNR within TRAIN_PSNR_MARGIN_DB of the reference's
+    CPU run of the same config, and the mid-anneal checkpoint step_200
+    holding the window's alpha of its last step, 199 / 400 in float32, as
+    the reference's checkpoint holds it."""
+    import numpy as np
+
+    from tnerf_torch.utils.checkpoint import layout_of, leaf_names, load_jax_checkpoint
+
+    cfg = load_config(CONFIG_BARF)
+    launches, final, out_dir = train_from_scratch(
+        CONFIG_BARF, os.path.join("options", "barf_unit"), cfg.train.steps, (),
+        JAX_BARF_UNIT_PSNR_TEST)
+    ckpt = os.path.join(out_dir, "checkpoints")
+    _, params, _ = load_jax_checkpoint(ckpt, "cpu")
+    i = leaf_names(layout_of(params)).index("freq_alpha")
+    step = cfg.train.checkpoint_every
+    with np.load(os.path.join(ckpt, f"step_{step:08d}.npz")) as data:
+        alpha = data[f"leaf_{i}"]
+    want = np.float32(step - 1) / np.float32(cfg.train.freq_anneal_steps)
+    print(f"BARF window + unit view directions (grid_march, {cfg.train.steps} steps): "
+          f"freq_alpha in step_{step} {alpha!r} (the window of step {step - 1}: {want!r}), at "
+          f"the end {float(params['freq_alpha'])}; B4 launches {launches['tighten_sample_mask']}",
+          flush=True)
+    if alpha.dtype != np.float32 or alpha.shape != () or alpha != want \
+            or float(params["freq_alpha"]) != 1.0:
+        raise AssertionError(f"freq_alpha {alpha!r} / {params['freq_alpha']} is not the "
+                             f"window's {want!r} / 1.0")
+    return launches
+
+
+def suite_run():
+    """(e) `cli suite` over copies of runs/suite_rehearsal/{prims,rings,layers}
+    (config and checkpoint; the committed suite_renders stay as they are)
+    and a scene that does not exist: each scene within PSNR_TOL_DB of its
+    record, the missing one skipped, the summary's mean printed."""
+    import shutil
+
+    root = os.path.join(OUT, "options", "suite")
+    shutil.rmtree(root, ignore_errors=True)
+    records = {}
+    for scene in SUITE_SCENES:
+        src = os.path.join(SUITE_RUNS, scene)
+        os.makedirs(os.path.join(root, scene))
+        shutil.copy(os.path.join(src, "config.json"), os.path.join(root, scene))
+        shutil.copytree(os.path.join(src, "checkpoints"), os.path.join(root, scene, "checkpoints"))
+        with open(os.path.join(src, "metrics.jsonl")) as fh:
+            records[scene] = json.loads(fh.read().strip().splitlines()[-1])["psnr_test"]
+    t0 = time.perf_counter()
+    (text, err), launches = counted(lambda: run_cli(
+        ["suite", "--config", os.path.join(root, "prims", "config.json"), "-o",
+         f"logging.out_dir={root}", "--scenes", ",".join(SUITE_SCENES + ("missing",))],
+        with_stderr=True))
+    summary = json.loads(text)
+    gaps = {sc: summary["scenes"][sc]["psnr_test"] - records[sc] for sc in SUITE_SCENES}
+    print(f"cli suite ({time.perf_counter() - t0:.1f} s): "
+          + ", ".join(f"{sc} {summary['scenes'][sc]['psnr_test']:.4f} dB (record "
+                      f"{records[sc]:.4f}, {gaps[sc]:+.4f})" for sc in SUITE_SCENES)
+          + f"; mean_psnr_test {summary['mean_psnr_test']:.4f}; launches {launches}", flush=True)
+    if sorted(summary["scenes"]) != sorted(SUITE_SCENES) or "missing: SKIP" not in err:
+        raise AssertionError(f"cli suite evaluated {sorted(summary['scenes'])}: {err[-400:]}")
+    if max(abs(g) for g in gaps.values()) > PSNR_TOL_DB:
+        raise AssertionError(f"cli suite: a scene is not within {PSNR_TOL_DB} dB of its record: "
+                             f"{gaps}")
+    for scene in SUITE_SCENES:
+        shutil.rmtree(os.path.join(root, scene, "checkpoints"))
+    return launches
+
+
+def orbit_gif():
+    """(f) `cli render --orbit ORBIT_FRAMES --gif` of the prims model: the
+    GIF's blocks hold ORBIT_FRAMES frames of the view's size."""
+    from tnerf_torch.data.gif_io import gif_frames
+
+    out = os.path.join(OUT, "options", "orbit_gif")
+    text, launches = counted(lambda: run_cli(
+        ["render", "--config", CONFIG, "--checkpoint", CKPT, "--orbit", str(ORBIT_FRAMES),
+         "--gif", "--out", out]))
+    got = gif_frames(os.path.join(out, "orbit.gif"))
+    frames = json.loads(text.strip().splitlines()[-1])
+    print(f"render --orbit {ORBIT_FRAMES} --gif: {got[0]} frames {got[1]}x{got[2]} in "
+          f"orbit.gif ({os.path.getsize(os.path.join(out, 'orbit.gif'))} bytes), "
+          f"{frames['ms_per_frame']:.2f} ms/frame", flush=True)
+    if got != (ORBIT_FRAMES, frames["width"], frames["height"]):
+        raise AssertionError(f"orbit.gif holds {got}")
+    return launches
+
+
+def profile_and_debug_nans():
+    """(g) PROFILE_STEPS prims steps with logging.profile (a torch.profiler
+    trace holding the card's kernels), then the same steps with
+    logging.debug_nans, which must raise nothing."""
+    import shutil
+
+    from tnerf_torch.utils.metrics import TRACE_FILE
+
+    total = {k: 0 for k in kernel_counters()}
+    # 50 steps are no trained model: the config's acceptance gate is for
+    # its full 1500
+    base = ["train", "--config", CONFIG, "-o", f"train.steps={PROFILE_STEPS}",
+            "-o", "train.checkpoint_every=0", "-o", "train.log_every=10",
+            "-o", "train.assert_test_psnr_min=0"]
+    for tag, flag in (("profile", "logging.profile=true"),
+                      ("debug_nans", "logging.debug_nans=true")):
+        out_dir = os.path.join(OUT, "options", tag)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        t0 = time.perf_counter()
+        _, launches = counted(lambda: run_cli(base + ["--out", out_dir, "-o", flag]))
+        for k, n in launches.items():
+            total[k] += n
+        last, _, _ = last_window(os.path.join(out_dir, "metrics.jsonl"))
+        seconds = time.perf_counter() - t0
+        if tag == "profile":
+            trace = os.path.join(out_dir, "profile", TRACE_FILE)
+            size = os.path.getsize(trace)
+            with open(trace) as fh:
+                events = json.load(fh)["traceEvents"]
+            kernels = sum(1 for e in events if e.get("cat") == "kernel")
+            print(f"logging.profile: {PROFILE_STEPS} steps in {seconds:.1f} s, last window "
+                  f"{last['step_seconds'] * 1e3:.3f} ms/step; {TRACE_FILE} {size} bytes, "
+                  f"{len(events)} events, {kernels} kernel launches on the card", flush=True)
+            if kernels < launches["fused_backward"]:
+                raise AssertionError(f"the trace holds {kernels} kernels of the card")
+            shutil.rmtree(os.path.join(out_dir, "profile"))
+        else:
+            print(f"logging.debug_nans: {PROFILE_STEPS} steps in {seconds:.1f} s, nothing "
+                  f"raised, last window {last['step_seconds'] * 1e3:.3f} ms/step", flush=True)
+    return total
+
+
+def train_with_options():
+    """Phase `options`: (a) grad accumulation, (b) the weight EMA with
+    keep_best and remat, (c) random background, (d) the BARF window with
+    unit view directions, (e) `cli suite`, (f) `render --orbit --gif`, (g)
+    logging.profile and logging.debug_nans."""
+    import shutil
+
+    from tnerf_torch.utils.checkpoint import latest_checkpoint, read_train_checkpoint
+
+    launches = {k: 0 for k in kernel_counters()}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] += n
+
+    per_step = ("tighten_range", "fused_forward", "fused_backward")
+    prims = load_config(CONFIG)
+    # (a) grad accumulation
+    cfg = load_config(CONFIG, ACCUM_OVERRIDES)
+    n, final, out_dir = train_from_scratch(CONFIG, os.path.join("options", "accum"),
+                                           cfg.train.steps, per_step, JAX_PSNR_TEST,
+                                           ACCUM_OVERRIDES)
+    add(n)
+    check_trained("options/accum", cfg, final)
+    ck = read_train_checkpoint(os.path.join(out_dir, "checkpoints"), "cpu")
+    updates = (int(ck.opt_state["count"]), int(ck.opt_state["gradient_step"]),
+               int(ck.opt_state["mini_step"]))
+    print(f"grad accumulation: {cfg.train.steps} loop steps of {cfg.train.batch_size} rays -> "
+          f"Adam count, gradient_step, mini_step {updates}", flush=True)
+    if updates != (prims.train.steps, prims.train.steps, 0):
+        raise AssertionError(f"accumulation emitted {updates}, not {prims.train.steps} updates")
+    shutil.rmtree(os.path.join(out_dir, "checkpoints"))
+
+    # (b) weight EMA, keep_best, remat
+    cfg = load_config(CONFIG, EMA_OVERRIDES)
+    n, final, out_dir = train_from_scratch(CONFIG, os.path.join("options", "ema"),
+                                           cfg.train.steps, per_step, JAX_PSNR_TEST, EMA_OVERRIDES)
+    add(n)
+    check_trained("options/ema", cfg, final)
+    if n["fused_forward"] < 2 * cfg.train.steps:
+        raise AssertionError(f"remat did not rerun B1 in each backward pass: {n}")
+    recs = [json.loads(line) for line in open(os.path.join(out_dir, "metrics.jsonl"))]
+    best = [r for r in recs if "best_psnr" in r][-1]
+    bdir = os.path.join(out_dir, "checkpoints_best")
+    bstep, _ = latest_checkpoint(bdir)
+    m, n, _ = eval_cli(os.path.join(out_dir, "config.json"), bdir, "options_ema_best",
+                       ["render.ray_compact=false"])
+    add(n)
+    print(f"EMA 0.99 + keep_best + remat: EMA eval psnr_test {final['psnr_test']:.4f} dB "
+          f"(record {JAX_PSNR_TEST:.4f}); best_psnr {best['best_psnr']:.6f} dB at step "
+          f"{best['best_step']}, checkpoints_best's newest step {bstep}, its cli eval psnr_val "
+          f"{m['psnr_val']:.6f} ({m['psnr_val'] - best['best_psnr']:+.2e} dB)", flush=True)
+    if bstep != best["best_step"] or abs(m["psnr_val"] - best["best_psnr"]) > BEST_PSNR_TOL_DB:
+        raise AssertionError(f"checkpoints_best (step {bstep}, cli eval {m['psnr_val']}) is not "
+                             f"the recorded best {best}")
+    remat_gradient_check(os.path.join(out_dir, "checkpoints"))
+    shutil.rmtree(os.path.join(out_dir, "checkpoints"))
+    shutil.rmtree(bdir)
+
+    add(random_background_sphere())  # (c)
+    add(barf_unit_run())  # (d)
+    add(suite_run())  # (e)
+    add(orbit_gif())  # (f)
+    add(profile_and_debug_nans())  # (g)
+    return launches
+
+
+def train_march_full():
+    """Phase `march_full` (not in the default run): configs/procedural_hard_30db.json
+    trained for all its 5000 steps through `cli train`, held to the
+    reference's record JAX_MARCH_PSNR_TEST and the config's own gate."""
+    cfg = load_config(CONFIG_MARCH)
+    launches, final, _ = train_from_scratch(CONFIG_MARCH, "train_march_full", cfg.train.steps, (),
+                                            JAX_MARCH_PSNR_TEST)
+    check_trained("train_march_full", cfg, final)
     return launches
 
 
@@ -2141,8 +2630,13 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
-                    help=f"comma list of {', '.join(ALL_PHASES)} (default: all)")
+                    help=f"comma list of {', '.join(ALL_PHASES + EXTRA_PHASES)} (default: "
+                    f"{', '.join(ALL_PHASES)})")
     phases = set(ap.parse_args().phases.split(","))
+    unknown = phases - set(ALL_PHASES + EXTRA_PHASES)
+    if unknown:
+        log(f"chip_smoke: unknown phases {sorted(unknown)}")
+        return 2
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA card")
         return 1
@@ -2214,6 +2708,12 @@ def main() -> int:
     if "scenes" in phases:
         add(train_and_serve_scenes())
         phase_done("scenes")
+    if "options" in phases:
+        add(train_with_options())
+        phase_done("options")
+    if "march_full" in phases:
+        add(train_march_full())
+        phase_done("march_full")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "wrapper_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -335,10 +335,14 @@ def test_unfused_pipelines_refuse_what_the_reference_refuses():
     with pytest.raises(ValueError, match="table_tv_weight is the triplane family's"):
         validate_ported(cfg.apply_overrides(["render.pipeline=grid_march",
                                              "train.table_tv_weight=0.1"]), for_eval=False)
+    # the BARF window and remat are ported: they validate on grid_march; the
+    # window on the fused pipeline is the reference's own refusal
+    # (`tnerf/train_loop.py:675`)
     for ov in ("train.freq_anneal_steps=100", "train.remat=true"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            validate_ported(cfg.apply_overrides(["render.pipeline=grid_march", ov]),
-                            for_eval=False)
+        validate_ported(cfg.apply_overrides(["render.pipeline=grid_march", ov]), for_eval=False)
+    with pytest.raises(ValueError, match="train.freq_anneal_steps needs the XLA field path"):
+        validate_ported(cfg.apply_overrides(["render.pipeline=fused",
+                                             "train.freq_anneal_steps=100"]), for_eval=False)
 
 
 def test_density_payload_has_the_dense_start():

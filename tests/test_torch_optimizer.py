@@ -93,5 +93,13 @@ def test_state_round_trip_and_refusals():
     assert int(b.count) == 1 and torch.equal(b.mu, a.mu) and torch.equal(b.nu, a.nu)
     with pytest.raises(ValueError, match="optimizer state"):
         create_optimizer(TrainConfig(), params).load_state(a.state)  # no schedule count there
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        create_optimizer(TrainConfig(grad_accum_steps=2), params)
+    # gradient accumulation is ported: its state adds MultiSteps' counters and
+    # window, and round-trips like the rest
+    c = create_optimizer(TrainConfig(grad_accum_steps=2), params)
+    c.step([torch.ones(s) for s in SHAPES.values()])
+    assert {"mini_step", "gradient_step", "acc"} <= set(c.state) and int(c.mini_step) == 1
+    d = create_optimizer(TrainConfig(grad_accum_steps=2), {k: v.clone() for k, v in params.items()})
+    d.load_state(c.state)
+    assert int(d.mini_step) == 1 and torch.equal(d.acc, c.acc) and float(d.acc.abs().sum()) > 0
+    with pytest.raises(ValueError, match="optimizer state"):
+        create_optimizer(TrainConfig(), params).load_state(c.state)

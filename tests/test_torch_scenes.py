@@ -5,9 +5,10 @@
   and on RGBA, RGB, grey, grey + alpha and palette (tRNS) files the test
   writes, with 3 and 4 channels and the sRGB decode; 16-bit, sub-byte,
   interlaced and corrupt files refused by name;
-- the LLFF and COLMAP loaders on data/llff/prims_ff and
-  data/colmap/prims_cm bit-equal to the reference's (images, poses,
-  near_far, camera), with recentering and bd_rescale 0.75 on and off;
+- the LLFF and COLMAP loaders on data/llff/prims_ff, data/colmap/prims_cm
+  and data/colmap/prims_oc (an off-centre principal point, fx != fy)
+  bit-equal to the reference's (images, poses, near_far, camera), with
+  recentering and bd_rescale 0.75 on and off;
 - a COLMAP binary model equal to the same text model (the reference's
   writer, tests/test_colmap.py), and both equal to the reference's loads;
 - export -> load round trips of the LLFF, COLMAP and NeRF-synthetic
@@ -139,7 +140,8 @@ def _assert_same_datasets(got, want):
 
 
 @pytest.mark.parametrize("kind,name,root", [("llff", "prims_ff", LLFF_ROOT),
-                                            ("colmap", "prims_cm", COLMAP_ROOT)])
+                                            ("colmap", "prims_cm", COLMAP_ROOT),
+                                            ("colmap", "prims_oc", COLMAP_ROOT)])
 @pytest.mark.parametrize("recenter,bd_rescale", [(False, 0.0), (True, 0.75), (True, 0.0),
                                                  (False, 0.75)])
 def test_loaders_match_reference_on_the_committed_captures(kind, name, root, recenter,

@@ -287,10 +287,14 @@ def test_training_options_this_slice_does_not_run_are_refused():
     _, cfg = _cfgs()
     validate_ported(cfg, for_eval=False)
     validate_ported(cfg.apply_overrides(["render.ray_compact=true"]), for_eval=False)
+    # the training options and logging of tnerf/train.py are ported and
+    # validate on the fused pipeline as in the reference
     for ov in ("train.grad_accum_steps=2", "train.param_ema=0.99", "train.random_background=true",
-               "train.keep_best=true", "grid.mesh_path=mesh.obj",
-               "parallel.data_parallel=2", "parallel.sample_parallel=2",
-               "parallel.table_parallel=2", "logging.profile=true"):
+               "train.keep_best=true", "logging.profile=true", "logging.debug_nans=true",
+               "train.remat=true"):
+        validate_ported(cfg.apply_overrides([ov]), for_eval=False)
+    for ov in ("grid.mesh_path=mesh.obj", "parallel.data_parallel=2", "parallel.sample_parallel=2",
+               "parallel.table_parallel=2"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             validate_ported(cfg.apply_overrides([ov]), for_eval=False)
     # pose refinement is ported: refused on the fused pipeline with the

@@ -1,4 +1,5 @@
-"""Command line of the port: `python -m tnerf_torch.cli train|eval|render`.
+"""Command line of the port: `python -m tnerf_torch.cli
+train|eval|render|suite|config`.
 
 Trains a field through the pipeline its config names (`render.pipeline`:
 fused, grid_march, grid_intervals or uniform) on the scene it names
@@ -7,8 +8,12 @@ warps forward-facing rays into NDC; `train.optimize_poses` refines the
 training poses), and serves a checkpoint written by this port or by the
 reference package (`tnerf.cli train`), on the card (`--device cuda`, the
 default) or through the plain PyTorch versions on the CPU (`--device
-cpu`).  Configs are the reference's JSON files; options this port does not
-run yet are refused (`train_loop.validate_ported`).
+cpu`): `eval` and `render` (`--orbit N --gif` adds an animated GIF) read
+the weight EMA where the config keeps one (`train.param_ema`); `suite`
+evaluates <out_dir>/<scene>/checkpoints of several scenes; `config
+[--diff]` prints the resolved config (or the overrides that make it).
+Configs are the reference's JSON files; options this port does not run yet
+are refused (`train_loop.validate_ported`).
 
     python -m tnerf_torch.cli train --config runs/suite_rehearsal/prims/config.json \\
         --out runs/prims_torch
@@ -16,6 +21,9 @@ run yet are refused (`train_loop.validate_ported`).
         --checkpoint runs/suite_rehearsal/prims/checkpoints
     python -m tnerf_torch.cli train --config runs/colmap_rehearsal/config.json \\
         -o scene.root=data/colmap --out runs/colmap_torch
+    python -m tnerf_torch.cli suite --config runs/suite_rehearsal/prims/config.json \\
+        -o logging.out_dir=runs/suite_rehearsal --scenes prims,rings,layers
+    python -m tnerf_torch.cli config --config configs/procedural_hard_30db.json --diff
 """
 
 from __future__ import annotations
@@ -127,12 +135,31 @@ def _parser() -> argparse.ArgumentParser:
                     help="orbit elevation in radians (default: the split cameras' mean)")
     sp.add_argument("--channels", default="rgb", metavar="LIST",
                     help="comma list of rgb, depth, acc; extra channels get a _depth/_acc suffix")
+    sp.add_argument("--gif", action="store_true",
+                    help="with --orbit / --path: also write the frames as an animated "
+                    "<out>/orbit.gif (or path.gif), 10 frames a second (rgb, else the first "
+                    "channel)")
 
     sp = sub.add_parser("eval", help="PSNR/SSIM over the val and test splits from a checkpoint")
     common(sp)
     sp.add_argument("--out", default=None, help="also write the metrics JSON to this file")
     sp.add_argument("--save-renders", default=None, metavar="DIR",
                     help="also write each evaluated view's render as DIR/<split>_###.png")
+
+    sp = sub.add_parser("suite", help="test-set eval of several scenes, each from "
+                        "<out_dir>/<scene>/checkpoints (renders to "
+                        "<out_dir>/<scene>/suite_renders)")
+    common(sp)
+    sp.add_argument("--scenes", default="chair,drums,ficus,hotdog,lego,materials,mic,ship",
+                    help="comma-separated scene names (scene.name of each)")
+
+    sp = sub.add_parser("config", help="print the resolved config JSON")
+    sp.add_argument("--config", help="JSON config file")
+    sp.add_argument("--override", "-o", action="append", default=[],
+                    help="config override key.path=value (repeatable)")
+    sp.add_argument("--diff", action="store_true",
+                    help="print only the overrides that differ from the defaults, one "
+                    "section.key=value a line (usable as -o arguments)")
     return p
 
 
@@ -155,11 +182,17 @@ def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     cfg = _load_cfg(args)
 
+    if args.cmd == "config":
+        for line in cfg.diff_overrides() if args.diff else [cfg.to_json()]:
+            print(line)
+        return 0
     if args.cmd == "train":
         from tnerf_torch.train_loop import run_training
 
         print(json.dumps(run_training(cfg, device=args.device), indent=2))
         return 0
+    if args.cmd == "suite":
+        return _run_suite(cfg, args.scenes.split(","), args.device)
 
     from tnerf_torch.device import resolve_device
     from tnerf_torch.grid.occupancy import renderer_payload
@@ -206,7 +239,7 @@ def main(argv=None) -> int:
     cfg = resolve_near_far(cfg, next(iter(datasets.values())))
     ndc = ndc_near_or_none(cfg)
     ckpt_dir = args.checkpoint or os.path.join(cfg.logging.out_dir, "checkpoints")
-    step, params, occ = load_jax_checkpoint(ckpt_dir, device=dev)
+    step, params, occ = load_jax_checkpoint(ckpt_dir, device=dev, ema=cfg.train.param_ema > 0)
     print(f"restored step {step} from {ckpt_dir}", file=sys.stderr)
     payload = renderer_payload(occ, cfg.sampler, cfg.grid)
     renderer = build_renderer(cfg, for_eval=True)
@@ -313,12 +346,19 @@ def main(argv=None) -> int:
                     spans.append((float(th[hit].min()), float(th[hit].max())))
             depth_range = ((min(a for a, _ in spans), max(b for _, b in spans))
                            if spans else (0.0, 1.0))
+        frames = {ch: [_channel_image(r, ch, depth_range) for r in results] for ch in channels}
         for ch in channels:
             suffix = "" if ch == "rgb" or len(channels) == 1 else f"_{ch}"
             write_png_batch([os.path.join(args.out, f"{seq_tag}_{i:03d}{suffix}.png")
-                             for i in range(len(seq_poses))],
-                            [_channel_image(r, ch, depth_range) for r in results])
+                             for i in range(len(seq_poses))], frames[ch])
         print(f"wrote {len(seq_poses)} {seq_tag} frames ({','.join(channels)}) to {args.out}/")
+        if args.gif:
+            from tnerf_torch.data.gif_io import write_gif
+
+            gif = os.path.join(args.out, f"{seq_tag}.gif")
+            write_gif(gif, [np.asarray(torch.as_tensor(f).cpu()) for f in
+                            frames["rgb" if "rgb" in channels else channels[0]]])
+            print(f"wrote {gif}")
         print(json.dumps({"frames": len(seq_poses), "width": ds.width, "height": ds.height,
                           "device": str(dev), "ms_per_frame": float(np.mean(ms)),
                           "ms": ms}))
@@ -349,6 +389,64 @@ def main(argv=None) -> int:
         write_png(path, _channel_image(res, ch))
         print(f"wrote {path}")
     return 0
+
+
+def _run_suite(cfg: Config, scenes, device) -> int:
+    """`suite` (`tnerf/cli.py:824`): the test split of each scene evaluated
+    from <out_dir>/<scene>/checkpoints (the eval parameters: the weight EMA
+    where the config keeps one), its renders written to
+    <out_dir>/<scene>/suite_renders; a scene without data or without a
+    checkpoint is skipped with a word on standard error.  Prints {"scenes":
+    per-scene metrics, "mean_psnr_test"}; exit status 1 when no scene
+    produced results."""
+    from tnerf_torch.device import resolve_device
+    from tnerf_torch.eval import evaluate
+    from tnerf_torch.grid.occupancy import renderer_payload
+    from tnerf_torch.train_loop import (
+        build_renderer,
+        load_datasets,
+        ndc_near_or_none,
+        resolve_near_far,
+    )
+    from tnerf_torch.utils.checkpoint import load_jax_checkpoint
+
+    dev = resolve_device(device)
+    results = {}
+    for scene in scenes:
+        scene = scene.strip()
+        scfg = cfg.apply_overrides([
+            f"scene.name={scene}",
+            f"logging.out_dir={os.path.join(cfg.logging.out_dir, scene)}",
+        ])
+        try:
+            datasets = load_datasets(scfg, splits=("test",), device=dev)
+        except (FileNotFoundError, ValueError) as e:
+            print(f"{scene}: SKIP (no data: {e})", file=sys.stderr)
+            continue
+        scfg = resolve_near_far(scfg, datasets["test"])
+        ckpt_dir = os.path.join(scfg.logging.out_dir, "checkpoints")
+        renderer = build_renderer(scfg, for_eval=True, compact=False)
+        try:
+            _, params, occ = load_jax_checkpoint(ckpt_dir, device=dev,
+                                                 ema=scfg.train.param_ema > 0)
+        except FileNotFoundError:
+            print(f"{scene}: SKIP (no checkpoint found in {ckpt_dir})", file=sys.stderr)
+            continue
+        results[scene] = evaluate(
+            renderer, params, datasets["test"], scfg.scene.scene_scale,
+            white_background=scfg.scene.white_background,
+            save_dir=os.path.join(scfg.logging.out_dir, "suite_renders"),
+            chunk_size=scfg.render.chunk_size,
+            occupancy=renderer_payload(occ, scfg.sampler, scfg.grid), device=dev,
+            ndc_near=ndc_near_or_none(scfg),
+        )
+        print(f"{scene}: {results[scene]}", file=sys.stderr)
+    if results:
+        mean_psnr = sum(r["psnr_test"] for r in results.values()) / len(results)
+        print(json.dumps({"scenes": results, "mean_psnr_test": mean_psnr}, indent=2))
+        return 0
+    print("error: no scene produced results", file=sys.stderr)
+    return 1
 
 
 def _read_path(path: str):

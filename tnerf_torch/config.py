@@ -511,6 +511,21 @@ class Config:
         with open(path) as fh:
             return cls.from_dict(json.load(fh))
 
+    def diff_overrides(self) -> list:
+        """The `section.key=value` overrides that reproduce this config
+        from the defaults (`cli config --diff`): tuples as compact JSON, so
+        that a printed line survives as an unquoted `-o` argument; strings
+        bare; everything else as JSON."""
+        base = Config().to_dict()
+        out = []
+        for section, sub in self.to_dict().items():
+            for k, v in sub.items():
+                if v != base[section][k]:
+                    rendered = (json.dumps(list(v), separators=(",", ":")) if isinstance(v, tuple)
+                                else v if isinstance(v, str) else json.dumps(v))
+                    out.append(f"{section}.{k}={rendered}")
+        return out
+
     # ---- CLI overrides -----------------------------------------------------
     def apply_overrides(self, overrides: list[str]) -> "Config":
         """Apply `section.key=value` strings, returning a new Config."""

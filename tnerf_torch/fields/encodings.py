@@ -1,7 +1,7 @@
 """Input encodings (counterpart of `tnerf/fields/encodings.py`): the
-frequency encoding (:23) and the real spherical-harmonics basis of view
-directions (:71).  The table-backed position encodings are in
-`fields/hashgrid.py` and `fields/triplane.py`."""
+frequency encoding (:23) with BARF's band window (:54) and the real
+spherical-harmonics basis of view directions (:71).  The table-backed
+position encodings are in `fields/hashgrid.py` and `fields/triplane.py`."""
 
 from __future__ import annotations
 
@@ -11,18 +11,33 @@ import torch
 
 
 def frequency_encoding(x: torch.Tensor, n_frequencies: int, include_input: bool = True,
-                       scale: float = math.pi) -> torch.Tensor:
+                       scale: float = math.pi, window: "torch.Tensor | None" = None
+                       ) -> torch.Tensor:
     """NeRF positional encoding [..., D] -> [..., D * (2L (+ 1))]: per input
     dimension (sin(2^0 s p) .. sin(2^{L-1} s p), cos(2^0 s p) .. cos(2^{L-1}
     s p)), optionally behind p itself.  scale = pi: inputs normalized to
-    [-1, 1] see their full period at octave 0."""
+    [-1, 1] see their full period at octave 0.  window: [L] band weights
+    (`barf_window`) scaling each band's sin and cos; p itself is never
+    windowed."""
     if n_frequencies <= 0:
         return x
     freqs = scale * (2.0 ** torch.arange(n_frequencies, dtype=torch.float32, device=x.device))
     xb = x[..., None] * freqs  # [..., D, L]
     enc = torch.cat([torch.sin(xb), torch.cos(xb)], dim=-1)  # [..., D, 2L]
+    if window is not None:
+        enc = enc * torch.cat([window, window])
     enc = enc.reshape(*x.shape[:-1], x.shape[-1] * 2 * n_frequencies)
     return torch.cat([x, enc], dim=-1) if include_input else enc
+
+
+def barf_window(alpha: torch.Tensor, n_frequencies: int) -> torch.Tensor:
+    """BARF's coarse-to-fine band weights (`tnerf/fields/encodings.py:54`,
+    Lin et al. 2021 eq. 14): band k weighs (1 - cos(pi t)) / 2 with t =
+    clip(alpha L - k, 0, 1), so alpha in [0, 1] sweeps the active bands
+    from none to all."""
+    k = torch.arange(n_frequencies, dtype=torch.float32, device=alpha.device)
+    t = torch.clamp(alpha * n_frequencies - k, 0.0, 1.0)
+    return 0.5 * (1.0 - torch.cos(math.pi * t))
 
 
 def frequency_encoding_dim(in_dim: int, n_frequencies: int, include_input: bool = True) -> int:

@@ -26,6 +26,7 @@ from torch import nn
 
 from tnerf_torch.cameras import thetaphi_to_unit
 from tnerf_torch.fields.encodings import (
+    barf_window,
     frequency_encoding,
     frequency_encoding_dim,
     sh_encoding,
@@ -81,18 +82,24 @@ def pos_enc_dim(field_cfg) -> int:
 def view_enc_dim(field_cfg) -> int:
     if field_cfg.view_encoding == "sh":
         return sh_encoding_dim(field_cfg.sh_degree)
-    return frequency_encoding_dim(2, field_cfg.n_frequencies_view)
+    d = 3 if field_cfg.view_param == "unit" else 2
+    return frequency_encoding_dim(d, field_cfg.n_frequencies_view)
 
 
 def encode_positions(params: Dict[str, torch.Tensor], field_cfg, grid_cfg,
                      positions: torch.Tensor) -> torch.Tensor:
     """The position encoding [..., 3] -> [..., pos_enc_dim]: the frequency
-    encoding of the [-1, 1]^3 position, or the table encoding of the [0,
-    1]^3 position 0.5 (normalized + 1) (`nerf_field.py:129`)."""
+    encoding of the [-1, 1]^3 position, BARF-windowed where params hold a
+    `freq_alpha` (train.freq_anneal_steps; `nerf_field.py:113`, the alpha
+    with its gradient cut), or the table encoding of the [0, 1]^3 position
+    0.5 (normalized + 1) (`nerf_field.py:129`)."""
     xn = normalize_positions(positions, grid_cfg)
     enc = field_cfg.encoding
     if enc == "frequency":
-        return frequency_encoding(xn, field_cfg.n_frequencies)
+        window = None
+        if "freq_alpha" in params:
+            window = barf_window(params["freq_alpha"].detach(), field_cfg.n_frequencies)
+        return frequency_encoding(xn, field_cfg.n_frequencies, window=window)
     xn01 = 0.5 * (xn + 1.0)
     if enc == "hashgrid":
         return apply_hashgrid(params["hashgrid.tables"], xn01, field_cfg)
@@ -107,12 +114,17 @@ def encode_positions(params: Dict[str, torch.Tensor], field_cfg, grid_cfg,
 def encode_view(field_cfg, viewdirs_tp: torch.Tensor) -> torch.Tensor:
     """The view encoding of (theta, phi) [..., 2]: spherical harmonics of
     the unit direction `thetaphi_to_unit` makes of it, as the reference's
-    field does with the (theta, phi) its renderers pass, or the frequency
-    encoding of (theta, phi) / pi."""
+    field does with the (theta, phi) its renderers pass; or the frequency
+    encoding of (theta, phi) / pi, or under field_.view_param="unit" of
+    that unit direction (`nerf_field.py:160-170`)."""
     if field_cfg.view_encoding == "sh":
         return sh_encoding(thetaphi_to_unit(viewdirs_tp), field_cfg.sh_degree)
     if field_cfg.view_encoding != "frequency":
         raise ValueError(f"unknown view_encoding {field_cfg.view_encoding!r}")
+    if field_cfg.view_param == "unit":
+        return frequency_encoding(thetaphi_to_unit(viewdirs_tp), field_cfg.n_frequencies_view)
+    if field_cfg.view_param != "thetaphi":
+        raise ValueError(f"unknown view_param {field_cfg.view_param!r}")
     return frequency_encoding(viewdirs_tp * (1.0 / math.pi), field_cfg.n_frequencies_view)
 
 
@@ -207,13 +219,15 @@ class NeRFField(nn.Module):
         [...]) with the module's own parameters."""
         return apply_field(self.params(), self.config, self.grid, positions, viewdirs_tp)
 
-    def density(self, positions: torch.Tensor) -> torch.Tensor:
+    def density(self, positions: torch.Tensor, params=None) -> torch.Tensor:
         """Density-only query for the occupancy refresh
-        (`nerf_field.py:262`): twobranch runs the trunk alone; fused5d needs
-        a view direction and probes with the fixed (0, 0)."""
+        (`nerf_field.py:262`) with the module's parameters, or `params`
+        (the training state's, which may add the BARF window's
+        `freq_alpha`): twobranch runs the trunk alone; fused5d needs a view
+        direction and probes with the fixed (0, 0)."""
+        params = self.params() if params is None else params
         if self.arch == "twobranch":
-            return density_activation(_trunk(self.params(), self.config, self.grid,
-                                             positions)[..., 0])
+            return density_activation(_trunk(params, self.config, self.grid, positions)[..., 0])
         probe = torch.zeros((*positions.shape[:-1], 2), dtype=torch.float32,
                             device=positions.device)
-        return self(positions, probe)[1]
+        return apply_field(params, self.config, self.grid, positions, probe)[1]

@@ -13,8 +13,11 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, NamedTuple, Optional
 
+import numpy as np
 import torch
+import torch.utils.checkpoint
 
+from tnerf_torch import sampling
 from tnerf_torch.cameras import Rays, compose_pose, ndc_warp, pixel_rays, se3_exp
 from tnerf_torch.data.dataset import ImageDataset
 from tnerf_torch.fields.nerf_field import TABLE_ENCODINGS
@@ -25,7 +28,7 @@ MAX_CONSECUTIVE_ERRORS = 1000  # non-finite steps in a row after which an update
 
 class RayBatch(NamedTuple):
     rays: Rays
-    gt_rgb: torch.Tensor  # [B, 3]
+    gt_rgb: torch.Tensor  # [B, 3] (straight RGBA [B, 4] under train.random_background)
 
 
 class PoseBatch(NamedTuple):
@@ -40,20 +43,26 @@ class PoseBatch(NamedTuple):
 
 class Optimizer:
     """Adam / AdamW with linear warmup, exponential decay, global-norm
-    clipping and the non-finite skip, as `tnerf.train.create_optimizer`
-    (:66) composes them from optax: clip the raw gradients, Adam with bias
-    correction, decoupled weight decay, the scheduled step size, all of it
-    applied only if every gradient is finite (or after
-    MAX_CONSECUTIVE_ERRORS rejected steps in a row).
+    clipping, gradient accumulation and the non-finite skip, as
+    `tnerf.train.create_optimizer` (:66) composes them from optax: clip the
+    raw gradients, Adam with bias correction, decoupled weight decay, the
+    scheduled step size, all of it applied only if every gradient is
+    finite (or after MAX_CONSECUTIVE_ERRORS rejected steps in a row).
+
+    With train.grad_accum_steps = k > 1 the update is `optax.MultiSteps`'
+    (`optax/transforms/_accumulation.py`): each loop step folds its
+    gradient into a running mean, acc + (g - acc) / (mini_step + 1); the
+    inner Adam sees that mean, its state advances and the update is
+    applied only on the k-th mini-step (the update of every other one is
+    zero), and schedule lengths are counted in updates (horizon // k,
+    warmup // k).  The non-finite skip wraps outside the accumulation: a
+    non-finite microbatch leaves the window as it was.
 
     The moments live in one flat buffer each; `state` exposes them per
     parameter in the reference checkpoint's leaf layout.  `step(grads)`
     updates `params` in place and makes no host synchronization."""
 
     def __init__(self, cfg, params: Dict[str, torch.Tensor]):
-        if cfg.grad_accum_steps > 1:
-            raise NotImplementedError(
-                "train.grad_accum_steps > 1 is not yet ported to tnerf_torch, see ROADMAP.md")
         self.cfg = cfg
         self.names = list(params)
         self.params = [params[k] for k in self.names]
@@ -76,9 +85,14 @@ class Optimizer:
         self.mu = torch.zeros(sum(self.sizes), dtype=torch.float32, device=dev)
         self.nu = torch.zeros_like(self.mu)
         self.count = torch.zeros((), **i32)
+        self.accum = max(cfg.grad_accum_steps, 1)
+        if self.accum > 1:
+            self.mini_step = torch.zeros((), **i32)
+            self.gradient_step = torch.zeros((), **i32)
+            self.acc = torch.zeros_like(self.mu)
         horizon = cfg.schedule_total_steps or cfg.steps
-        self.warmup = cfg.lr_warmup_steps
-        self.decay_steps = max(max(horizon, 1) - self.warmup, 1)
+        self.warmup = cfg.lr_warmup_steps // self.accum
+        self.decay_steps = max(max(horizon // self.accum, 1) - self.warmup, 1)
         # a schedule carries its own step count; a constant rate has none
         self.scheduled = cfg.lr_final_fraction != 1.0 or self.warmup > 0
         self.sched_count = torch.zeros((), **i32) if self.scheduled else None
@@ -105,10 +119,15 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]) -> None:
-        """One update from gradients in parameter order."""
+        """One loop step from gradients in parameter order."""
         cfg = self.cfg
         g = torch.cat([x.reshape(-1) for x in grads]).to(torch.float32)
         finite = torch.isfinite(g).all()
+        emit = None  # every step emits an update without accumulation
+        if self.accum > 1:
+            g = self.acc + (g - self.acc) / (self.mini_step + 1).to(torch.float32)
+            acc = g
+            emit = self.mini_step == self.accum - 1
         if cfg.grad_clip > 0.0:
             norm = torch.sqrt(torch.sum(g * g))
             g = torch.where(norm < cfg.grad_clip, g, (g / norm) * cfg.grad_clip)
@@ -124,25 +143,42 @@ class Optimizer:
         update = -lr * update
         if self.table_scale is not None:
             update = update * self.table_scale
+        if emit is not None:
+            update = update * emit.to(torch.float32)
+        apply = None
         if self.skip_nonfinite:
             notfinite = torch.where(finite, torch.zeros_like(self.notfinite_count),
                                     self.notfinite_count + 1)
             apply = finite | (notfinite > MAX_CONSECUTIVE_ERRORS)
             update = torch.where(apply, update, torch.zeros_like(update))
-            self.mu.copy_(torch.where(apply, mu, self.mu))
-            self.nu.copy_(torch.where(apply, nu, self.nu))
-            self.count.copy_(torch.where(apply, count, self.count))
-            if self.scheduled:
-                self.sched_count.copy_(torch.where(apply, self.sched_count + 1, self.sched_count))
             self.total_notfinite.add_((~finite).to(torch.int32))
             self.notfinite_count.copy_(notfinite)
             self.last_finite.copy_(finite)
-        else:
+        # the inner state advances where an update is emitted and applied
+        advance = emit if apply is None else apply if emit is None else apply & emit
+        if advance is None:
             self.mu.copy_(mu)
             self.nu.copy_(nu)
             self.count.copy_(count)
             if self.scheduled:
                 self.sched_count.add_(1)
+        else:
+            self.mu.copy_(torch.where(advance, mu, self.mu))
+            self.nu.copy_(torch.where(advance, nu, self.nu))
+            self.count.copy_(torch.where(advance, count, self.count))
+            if self.scheduled:
+                self.sched_count.copy_(torch.where(advance, self.sched_count + 1,
+                                                   self.sched_count))
+        if emit is not None:
+            # MultiSteps' own counters and window, kept as they were where
+            # the non-finite skip rejected the step
+            keep = torch.ones_like(finite) if apply is None else apply
+            acc = acc * (~emit).to(torch.float32)
+            self.acc.copy_(torch.where(keep, acc, self.acc))
+            self.gradient_step.copy_(torch.where(keep & emit, self.gradient_step + 1,
+                                                 self.gradient_step))
+            self.mini_step.copy_(torch.where(keep, (self.mini_step + 1) % self.accum,
+                                             self.mini_step))
         torch._foreach_add_(self.params, [u.reshape(p.shape) for u, p in
                                           zip(torch.split(update, self.sizes), self.params)])
 
@@ -152,17 +188,23 @@ class Optimizer:
 
     @property
     def state(self) -> dict:
-        """The optimizer state by the names of the reference's leaves: the
-        three non-finite counters (if on), `count`, `mu` / `nu` per
-        parameter (views of the flat buffers) and `sched_count` (if a
-        schedule is on)."""
+        """The optimizer state by the names of the reference's leaves, in
+        its flatten order: the three non-finite counters (if on),
+        MultiSteps' `mini_step` and `gradient_step` (with accumulation),
+        `count`, `mu` / `nu` per parameter (views of the flat buffers),
+        `sched_count` (if a schedule is on) and the accumulated gradient
+        `acc` per parameter (with accumulation)."""
         out = {}
         if self.skip_nonfinite:
             out.update(notfinite_count=self.notfinite_count, last_finite=self.last_finite,
                        total_notfinite=self.total_notfinite)
+        if self.accum > 1:
+            out.update(mini_step=self.mini_step, gradient_step=self.gradient_step)
         out.update(count=self.count, mu=self._per_param(self.mu), nu=self._per_param(self.nu))
         if self.scheduled:
             out["sched_count"] = self.sched_count
+        if self.accum > 1:
+            out["acc"] = self._per_param(self.acc)
         return out
 
     @torch.no_grad()
@@ -190,13 +232,24 @@ class PixelSampler:
     (`tnerf/train.py:155`): the training images and poses live there, and
     a draw is three randints, a gather and the rays' arithmetic, warped
     into NDC where ndc_near is set (scene.ndc).  meta=True draws a
-    PoseBatch instead (pose refinement: the step makes the rays)."""
+    PoseBatch instead (pose refinement: the step makes the rays).  With
+    random_background the images stay straight RGBA [N, H, W, 4]: the
+    train step composites them over each ray's random colour itself."""
 
     def __init__(self, dataset: ImageDataset, scene_scale: float, white_background: bool,
-                 device="cuda", ndc_near: Optional[float] = None):
+                 device="cuda", ndc_near: Optional[float] = None,
+                 random_background: bool = False):
         self.device = torch.device(device)
-        self.images = torch.as_tensor(dataset.composited(white_background),
-                                      dtype=torch.float32).to(self.device)  # [N, H, W, 3]
+        if random_background:
+            if dataset.channels != 4:
+                raise ValueError(
+                    "train.random_background needs GT alpha; this "
+                    f"dataset has {dataset.channels} channels"
+                )
+            images = dataset.images
+        else:
+            images = dataset.composited(white_background)
+        self.images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
         self.poses = torch.as_tensor(dataset.poses, dtype=torch.float32).to(self.device)
         self.width = dataset.width
         self.height = dataset.height
@@ -270,15 +323,19 @@ def photometric_loss(err: torch.Tensor, kind: str = "l2", huber_delta: float = 0
 class TrainState:
     """What a checkpoint holds of the model: the field (its parameters),
     the parameters beyond the field (`extra`: the pose deltas under
-    train.optimize_poses), the optimizer (its state) and the number of
-    steps taken."""
+    train.optimize_poses, the BARF window's `freq_alpha` under
+    train.freq_anneal_steps), the optimizer (its state), the number of
+    steps taken and, under train.param_ema, the Polyak shadow `ema` of
+    every parameter (`tnerf/train.py:38`)."""
 
     def __init__(self, field, optimizer: Optimizer, step: int = 0,
-                 extra: Optional[Dict[str, torch.Tensor]] = None):
+                 extra: Optional[Dict[str, torch.Tensor]] = None,
+                 ema: Optional[Dict[str, torch.Tensor]] = None):
         self.field = field
         self.optimizer = optimizer
         self.step = step
         self.extra = extra or {}
+        self.ema = ema
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -295,23 +352,38 @@ class TrainState:
             v.copy_(params[k])
 
 
+def eval_params(state: TrainState) -> Dict[str, torch.Tensor]:
+    """The parameters eval, checkpoints_best and the CLI read
+    (`tnerf/train.py:496`): the EMA shadow under train.param_ema, else the
+    live parameters."""
+    return state.params if state.ema is None else state.ema
+
+
 def pose_extra_params(cfg, n_train_images: int, device="cpu") -> Optional[Dict[str, torch.Tensor]]:
-    """The parameters beyond the field's (`tnerf/train.py:458`): under
-    train.optimize_poses the per-training-image SE(3) deltas, [N, 6]
-    zeros (leaf "pose_deltas", with its Adam moments); None when there
-    are none.  (train.freq_anneal_steps' schedule leaf is not ported.)"""
-    if not cfg.train.optimize_poses:
-        return None
-    return {"pose_deltas": torch.zeros((n_train_images, 6), dtype=torch.float32, device=device,
-                                       requires_grad=True)}
+    """The parameters beyond the field's (`tnerf/train.py:458`), each with
+    its Adam moments: under train.optimize_poses the per-training-image
+    SE(3) deltas, [N, 6] zeros ("pose_deltas"); under
+    train.freq_anneal_steps the BARF window's scalar "freq_alpha" (set by
+    the train step, never learned).  None when there are none."""
+    extra = {}
+    if cfg.train.optimize_poses:
+        extra["pose_deltas"] = torch.zeros((n_train_images, 6), dtype=torch.float32,
+                                           device=device, requires_grad=True)
+    if cfg.train.freq_anneal_steps > 0:
+        extra["freq_alpha"] = torch.zeros((), dtype=torch.float32, device=device,
+                                          requires_grad=True)
+    return extra or None
 
 
 def init_train_state(field, train_cfg, extra: Optional[Dict[str, torch.Tensor]] = None
                      ) -> TrainState:
     """A fresh TrainState around `field` (already on its device) and the
-    extra parameters (on the same device)."""
+    extra parameters (on the same device); under train.param_ema its
+    shadow starts as a copy of the initial parameters."""
     params = {**field.params(), **(extra or {})}
-    return TrainState(field, create_optimizer(train_cfg, params), 0, extra)
+    ema = ({k: v.detach().clone() for k, v in params.items()} if train_cfg.param_ema > 0
+           else None)
+    return TrainState(field, create_optimizer(train_cfg, params), 0, extra, ema)
 
 
 def table_l1(params: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -324,10 +396,49 @@ def table_l1(params: Dict[str, torch.Tensor]) -> torch.Tensor:
     return total
 
 
+def rematerialized(renderer: Callable) -> Callable:
+    """train.remat (`tnerf/train.py:344`, jax.checkpoint there): the
+    renderer under `torch.utils.checkpoint` (non-reentrant), which keeps
+    none of its activations and runs it again in the backward pass (on
+    the fused path: kernel B1 once more before B2).  The recomputation
+    replays the forward's draws from `generator` (CDF jitter) and then
+    puts the generator back where the step left it, so that the rerun
+    sees the same samples and the step's later draws are unchanged."""
+
+    def render(params, rays, occupancy=None, generator=None):
+        start = None if generator is None else generator.get_state()
+        runs = []
+
+        def run(params, rays, occupancy):
+            if runs and start is not None:  # the backward pass's rerun
+                now = generator.get_state()
+                generator.set_state(start)
+                try:
+                    return renderer(params, rays, occupancy, generator)
+                finally:
+                    generator.set_state(now)
+            runs.append(1)
+            return renderer(params, rays, occupancy, generator)
+
+        return torch.utils.checkpoint.checkpoint(run, params, rays, occupancy,
+                                                 use_reentrant=False)
+
+    return render
+
+
+def freq_alpha(step: int, anneal_steps: int) -> float:
+    """The BARF window's alpha of loop step `step` (0-based), clip(step /
+    anneal_steps, 0, 1) in float32 as the reference's step computes it
+    (`tnerf/train.py:431`)."""
+    return float(np.clip(np.float32(step) / np.float32(anneal_steps), 0.0, 1.0))
+
+
 def make_train_step(renderer: Callable, loss: str = "l2", huber_delta: float = 0.1,
                     distortion: float = 0.0, table_l1_weight: float = 0.0,
                     table_tv_weight: float = 0.0,
-                    pose_setup: Optional[PixelSampler] = None) -> Callable:
+                    pose_setup: Optional[PixelSampler] = None, remat: bool = False,
+                    random_bg: bool = False, param_ema: float = 0.0, freq_anneal: int = 0,
+                    debug_nans: bool = False) -> Callable:
     """train_step(state, batch, occupancy, generator=None) -> aux:
     photometric loss through the renderer (plus `distortion` times the
     rays' mean distortion term, where > 0: the caller has divided the
@@ -345,19 +456,46 @@ def make_train_step(renderer: Callable, loss: str = "l2", huber_delta: float = 0
     inside the loss from exp(pose_deltas[img]) composed onto the dataset
     pose (`sampler.rays`, NDC-warped where the sampler warps), so that the
     loss reaches the deltas through the ray geometry; aux adds
-    "pose_delta_norm", the deltas' mean norm."""
+    "pose_delta_norm", the deltas' mean norm.
+
+    The options of `tnerf/train.py:305`: remat runs the renderer under
+    `rematerialized`; random_bg (train.random_background; the renderer is
+    built background-free and the batch holds straight RGBA) composites
+    prediction and ground truth over one uniform colour per ray, drawn
+    from `generator` after the renderer's draws (`sampling.draw_uniform`);
+    param_ema > 0 updates the state's shadow as d e + (1 - d) p after
+    every step; freq_anneal > 0 sets the `freq_alpha` leaf to this step's
+    window (`freq_alpha`) before the loss and again after the update, so
+    that no optimizer moves it; debug_nans (logging.debug_nans) waits for
+    the device every step and raises FloatingPointError at the first
+    non-finite loss or gradient, before its update."""
     photometric_loss(torch.zeros((1, 3)), loss, huber_delta)  # validate early
+    if remat:
+        renderer = rematerialized(renderer)
+    if param_ema > 0.0:
+        decay = np.float32(param_ema)
+        keep, take = float(decay), float(np.float32(1.0) - decay)
 
     def train_step(state: TrainState, batch, occupancy=None,
                    generator: Optional[torch.Generator] = None) -> dict:
         params = state.params
+        if freq_anneal > 0:
+            alpha = freq_alpha(state.step, freq_anneal)
+            with torch.no_grad():
+                params["freq_alpha"].fill_(alpha)
         if pose_setup is not None:
             delta = se3_exp(params["pose_deltas"][batch.img])
             rays = pose_setup.rays(compose_pose(delta, pose_setup.poses[batch.img]), batch.pix)
         else:
             rays = batch.rays
         res = renderer(params, rays, occupancy, generator)
-        err = res.rgb - batch.gt_rgb
+        if random_bg:
+            bg = sampling.draw_uniform(generator, (*res.acc.shape, 3), res.acc.device)
+            a = batch.gt_rgb[..., 3:4]
+            gt = batch.gt_rgb[..., :3] * a + bg * (1.0 - a)
+            err = (res.rgb + (1.0 - res.acc)[..., None] * bg) - gt
+        else:
+            err = res.rgb - batch.gt_rgb
         mse = torch.mean(torch.square(err))
         obj = mse if loss == "l2" else photometric_loss(err, loss, huber_delta)
         if table_l1_weight > 0.0:
@@ -368,8 +506,26 @@ def make_train_step(renderer: Callable, loss: str = "l2", huber_delta: float = 0
         if distortion > 0.0:
             dist = torch.mean(res.distortion)
             obj = obj + distortion * dist
-        grads = torch.autograd.grad(obj, [params[k] for k in state.optimizer.names])
-        state.optimizer.step(list(grads))
+        leaves = [params[k] for k in state.optimizer.names]
+        # the window's alpha reaches the field with its gradient cut
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(
+            torch.autograd.grad(obj, leaves, allow_unused=freq_anneal > 0), leaves)]
+        if debug_nans:
+            bad = [k for k, g in zip(state.optimizer.names, grads)
+                   if not bool(torch.isfinite(g).all())]
+            if not bool(torch.isfinite(obj)) or bad:
+                raise FloatingPointError(
+                    f"logging.debug_nans: non-finite loss ({float(obj.detach())}) or gradient "
+                    f"({', '.join(bad) or 'none'}) at step {state.step}")
+        state.optimizer.step(grads)
+        if freq_anneal > 0:
+            with torch.no_grad():
+                params["freq_alpha"].fill_(alpha)
+        if param_ema > 0.0:
+            with torch.no_grad():
+                ema = [state.ema[k] for k in state.optimizer.names]
+                torch._foreach_mul_(ema, keep)
+                torch._foreach_add_(ema, torch._foreach_mul(leaves, take))
         state.step += 1
         aux = {
             "loss": obj.detach(),

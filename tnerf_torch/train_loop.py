@@ -5,6 +5,7 @@
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import os
 import time
@@ -38,6 +39,7 @@ from tnerf_torch.render.renderer import make_uniform_renderer
 from tnerf_torch.train import (
     Optimizer,
     PixelSampler,
+    eval_params,
     init_train_state,
     make_train_step,
     pose_extra_params,
@@ -45,10 +47,10 @@ from tnerf_torch.train import (
 from tnerf_torch.utils.checkpoint import (
     latest_checkpoint,
     load_jax_checkpoint,
-    load_train_checkpoint,
+    read_train_checkpoint,
     save_checkpoint,
 )
-from tnerf_torch.utils.metrics import MetricsWriter, get_logger
+from tnerf_torch.utils.metrics import MetricsWriter, get_logger, maybe_profile
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -69,9 +71,8 @@ def validate_ported(cfg: Config, for_eval: bool = True) -> None:
         raise ValueError(f"unknown encoding {f.encoding!r}")
     if f.view_encoding not in ("frequency", "sh"):
         raise ValueError(f"unknown view_encoding {f.view_encoding!r}")
-    if f.view_encoding == "frequency" and f.view_param != "thetaphi":
-        raise _not_ported(f"field_.view_param={f.view_param!r} (the frequency view encoding of "
-                          "(theta, phi) only)")
+    if f.view_param not in ("thetaphi", "unit"):
+        raise ValueError(f"unknown view_param {f.view_param!r}")
     if f.encoding == "hashgrid":  # the lookup modes: "pallas" and unknown ones raise
         resolve_gather_mode(f)
     elif f.encoding == "triplane":
@@ -91,6 +92,15 @@ def validate_ported(cfg: Config, for_eval: bool = True) -> None:
             "into the kernel (gamma/beta algebra); "
             f"field_.view_encoding={f.view_encoding!r} needs "
             "render.pipeline=grid_march"
+        )
+    if p == "fused" and f.view_encoding == "frequency" and f.view_param == "unit":
+        # the reference's kernel packs (x, y, z, theta, phi) and fails at its
+        # first render, when layer 0's 3-wide view columns meet its 2-wide
+        # view encoding (`tnerf/render/pallas_fused2.py:89`)
+        raise ValueError(
+            "render.pipeline=fused bakes the (theta, phi) frequency view "
+            "encoding into the kernel; field_.view_param='unit' needs "
+            "render.pipeline=grid_march, grid_intervals or uniform"
         )
     validate_ndc(cfg)
     if cfg.sampler.placement not in ("uniform", "occupancy_cdf", "density_cdf"):
@@ -119,22 +129,28 @@ def validate_ported(cfg: Config, for_eval: bool = True) -> None:
         return
     t, par = cfg.train, cfg.parallel
     refused = {
-        "train.grad_accum_steps > 1": t.grad_accum_steps > 1,
-        "train.param_ema > 0": t.param_ema > 0,
-        "train.random_background=true": t.random_background,
-        "train.keep_best=true": t.keep_best,
-        "train.freq_anneal_steps > 0": t.freq_anneal_steps > 0,
-        "train.remat=true": t.remat,
         "grid.mesh_path": bool(cfg.grid.mesh_path),
         "parallel.data_parallel > 1": par.data_parallel > 1,
         "parallel.sample_parallel > 1": par.sample_parallel > 1,
         "parallel.table_parallel > 1": par.table_parallel > 1,
-        "logging.profile=true": cfg.logging.profile,
-        "logging.debug_nans=true": cfg.logging.debug_nans,
     }
     for what, hit in refused.items():
         if hit:
             raise _not_ported(what)
+    if t.freq_anneal_steps > 0:  # `tnerf/train_loop.py:667-681`
+        if f.encoding != "frequency":
+            raise ValueError(
+                "train.freq_anneal_steps anneals the frequency positional "
+                "encoding (the grid families have their own coarse-to-fine:"
+                " hash_nearest_levels / tri_upsample_steps); "
+                f"field_.encoding={f.encoding!r}"
+            )
+        if p == "fused":
+            raise ValueError(
+                "train.freq_anneal_steps needs the XLA field path; the "
+                "fused kernel bakes the full-frequency encoding algebra "
+                "— use grid_march, grid_intervals or uniform"
+            )
     if p == "fused" and cfg.field_.hidden_layers + 1 > MAX_BWD_LAYERS:
         raise ValueError(
             f"field_.hidden_layers={cfg.field_.hidden_layers}: fused training runs at most "
@@ -305,6 +321,8 @@ def load_datasets(cfg: Config, splits=("train", "val", "test"), device="cuda"
 
 def _eval(cfg, renderer, state, occ, datasets, step, log, metrics, device,
           save_images: bool = False) -> Dict[str, float]:
+    """Eval of `eval_params(state)`: two views of each of the val and test
+    splits, or with save_images every view, its render written."""
     out: Dict[str, float] = {}
     bits = renderer_payload(occ, cfg.sampler, cfg.grid)
     for split in ("val", "test"):
@@ -312,7 +330,7 @@ def _eval(cfg, renderer, state, occ, datasets, step, log, metrics, device,
             continue
         save_dir = os.path.join(cfg.logging.out_dir, f"renders_{step}") if save_images else None
         m = evaluate(
-            renderer, state.params, datasets[split], cfg.scene.scene_scale,
+            renderer, eval_params(state), datasets[split], cfg.scene.scene_scale,
             white_background=cfg.scene.white_background,
             max_views=None if save_images else 2, save_dir=save_dir,
             chunk_size=cfg.render.chunk_size, occupancy=bits, device=device,
@@ -322,6 +340,51 @@ def _eval(cfg, renderer, state, occ, datasets, step, log, metrics, device,
         log.info("eval step %d: %s", step, m)
         metrics.write(step, **m)
     return out
+
+
+def _restore_best_psnr(cfg: Config, start_step: int, log) -> float:
+    """The train.keep_best tracker of a resumed run
+    (`tnerf/train_loop.py:1038`): the largest finite `best_psnr` in the
+    run's metrics stream, so that a worse eval after the resume does not
+    write a higher-step file into checkpoints_best; -inf for a fresh run,
+    with keep_best off, or without a metrics file."""
+    if not (cfg.train.keep_best and start_step > 0):
+        return -np.inf
+    path = os.path.join(cfg.logging.out_dir, cfg.logging.metrics_file)
+    best = -np.inf
+    try:
+        with open(path) as fh:
+            for line in fh:
+                try:
+                    v = json.loads(line).get("best_psnr")
+                except ValueError:
+                    continue
+                if v is not None and np.isfinite(v):
+                    best = max(best, float(v))
+    except OSError:
+        return best
+    if np.isfinite(best):
+        log.info("keep_best resumed: best so far %.2f dB", best)
+    return best
+
+
+def _maybe_keep_best(cfg: Config, eval_metrics, save, step: int, best: float, log,
+                     metrics) -> float:
+    """train.keep_best (`tnerf/train_loop.py:1063`): where this eval's PSNR
+    (the val split's, else the test split's) improves on `best`, save the
+    state into <out_dir>/checkpoints_best as step_<step> (each improvement
+    a higher step, so its newest file is the best) and record best_psnr /
+    best_step; returns the new best."""
+    if not cfg.train.keep_best:
+        return best
+    v = eval_metrics.get("psnr_val", eval_metrics.get("psnr_test"))
+    if v is None or not np.isfinite(v) or v <= best:
+        return best
+    bdir = os.path.join(cfg.logging.out_dir, "checkpoints_best")
+    save(step, bdir)
+    metrics.write(step - 1, best_psnr=float(v), best_step=step)
+    log.info("new best checkpoint: step %d (%.2f dB) -> %s", step, v, bdir)
+    return v
 
 
 def run_training(cfg: Config, datasets: Optional[Dict[str, ImageDataset]] = None,
@@ -447,14 +510,20 @@ def _upsample_checkpoint(scfg_new: Config, ckpt_dir: str, log) -> None:
     (`tnerf/train_loop.py:425`): planes and lines upsampled, a fresh
     optimizer state under the next stage's schedule, the occupancy and the
     step carried over."""
-    step, params, _, occ = load_train_checkpoint(ckpt_dir, device="cpu")
+    step, params, _, occ, ema = read_train_checkpoint(ckpt_dir, device="cpu")
     r_old = params["triplane.lines"].shape[1]
     r_new = scfg_new.field_.tri_resolution
-    params = dict(params)
-    params["triplane.planes"], params["triplane.lines"] = upsample_triplane(
-        params["triplane.planes"], params["triplane.lines"], r_new)
+
+    def upsampled(tree):
+        tree = dict(tree)
+        tree["triplane.planes"], tree["triplane.lines"] = upsample_triplane(
+            tree["triplane.planes"], tree["triplane.lines"], r_new)
+        return tree
+
+    params = upsampled(params)
     fresh = Optimizer(scfg_new.train, params)
-    save_checkpoint(ckpt_dir, step, params, fresh.state, occ, scfg_new.train)
+    save_checkpoint(ckpt_dir, step, params, fresh.state, occ, scfg_new.train,
+                    ema=None if ema is None else upsampled(ema))
     log.info("upsampled triplane %d -> %d at step %d (optimizer reset)", r_old, r_new, step)
 
 
@@ -478,7 +547,16 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
     occupancy update.  Checkpoints are in the reference's layout
     (train.resume continues one, the reference's included); the run ends
     with an eval of every val and test view, images written, and the
-    train.assert_test_psnr_min gate on the worst test view."""
+    train.assert_test_psnr_min gate on the worst test view.
+
+    The training options of `tnerf/train.py:make_train_step` ride on the
+    step (grad accumulation in the optimizer, the weight EMA, remat, the
+    BARF window, random background: the training renderers are then built
+    background-free and the eval renderers as configured); every eval reads
+    `eval_params`; train.keep_best keeps the best eval's state under
+    <out_dir>/checkpoints_best; logging.profile traces the loop with
+    torch.profiler into <out_dir>/profile; logging.debug_nans stops at
+    the first non-finite loss or gradient."""
     dev = resolve_device(device)
     validate_ported(cfg, for_eval=False)
     log = get_logger(level=cfg.logging.level)
@@ -511,10 +589,23 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
     # variant once the grid has pruned below the capacity with headroom.
     # Training and eval switch together.  Only grid_march compacts samples.
     switching = cfg.render.pipeline == "grid_march" and cfg.render.compact
-    renderer_dense = build_renderer(cfg, for_eval=False, compact=False)
-    renderer_compact = build_renderer(cfg, for_eval=False, compact=True) if switching \
+    # train.random_background: the training renderers add no background
+    # (the step composites prediction and ground truth over one random
+    # colour per ray); the eval renderers keep the configured one
+    cfg_train_r = cfg
+    if cfg.train.random_background:
+        cfg_train_r = dataclasses.replace(
+            cfg, scene=dataclasses.replace(cfg.scene, white_background=False),
+            render=dataclasses.replace(cfg.render, white_background=False))
+    renderer_dense = build_renderer(cfg_train_r, for_eval=False, compact=False)
+    renderer_compact = build_renderer(cfg_train_r, for_eval=False, compact=True) if switching \
         else renderer_dense
-    renderer = renderer_dense
+    eval_dense, eval_compact = renderer_dense, renderer_compact
+    if cfg.train.random_background:
+        eval_dense = build_renderer(cfg, for_eval=False, compact=False)
+        eval_compact = build_renderer(cfg, for_eval=False, compact=True) if switching \
+            else eval_dense
+    renderer = eval_dense
     state = init_train_state(field, cfg.train, pose_extra_params(cfg, len(train_ds), dev))
     n_params = sum(p.numel() for p in field.parameters())
     log.info("field=%s/%s params=%.2fM pipeline=%s device=%s", cfg.field_.encoding, field.arch,
@@ -530,17 +621,27 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
         except FileNotFoundError:
             log.info("train.resume: no checkpoint in %s, starting from step 0", ckpt_dir)
         else:
-            start_step, params, opt_state, occ = load_train_checkpoint(ckpt_dir, dev)
+            start_step, params, opt_state, occ, ema = read_train_checkpoint(ckpt_dir, dev)
+            if (ema is None) != (state.ema is None):
+                raise ValueError(f"{ckpt_dir}: the checkpoint "
+                                 f"{'has no' if ema is None else 'holds a'} weight EMA, but "
+                                 f"train.param_ema is {cfg.train.param_ema}")
             state.load_params(params)
             state.optimizer.load_state(opt_state)
+            if ema is not None:
+                with torch.no_grad():
+                    for k, v in state.ema.items():
+                        v.copy_(ema[k])
             state.step = start_step
             log.info("resumed from step %d", start_step)
 
-    def save(step: int) -> None:
-        save_checkpoint(ckpt_dir, step, state.params, state.optimizer.state, occ, cfg.train)
+    def save(step: int, where: str = ckpt_dir) -> None:
+        save_checkpoint(where, step, state.params, state.optimizer.state, occ, cfg.train,
+                        ema=state.ema)
 
     sampler = PixelSampler(train_ds, cfg.scene.scene_scale, cfg.scene.white_background, dev,
-                           ndc_near=ndc_near_or_none(cfg))
+                           ndc_near=ndc_near_or_none(cfg),
+                           random_background=cfg.train.random_background)
     poses = cfg.train.optimize_poses
     # span-normalized: raw-t distortion scales with the sampled range
     loss_kw = dict(loss=cfg.train.loss, huber_delta=cfg.train.huber_delta,
@@ -548,7 +649,10 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
                    / max(cfg.sampler.far - cfg.sampler.near, 1e-6),
                    table_l1_weight=cfg.train.table_l1_weight,
                    table_tv_weight=cfg.train.table_tv_weight,
-                   pose_setup=sampler if poses else None)
+                   pose_setup=sampler if poses else None, remat=cfg.train.remat,
+                   random_bg=cfg.train.random_background, param_ema=cfg.train.param_ema,
+                   freq_anneal=cfg.train.freq_anneal_steps,
+                   debug_nans=cfg.logging.debug_nans)
     step_dense = make_train_step(renderer_dense, **loss_kw)
     step_compact = make_train_step(renderer_compact, **loss_kw) if switching else step_dense
     train_step = step_dense
@@ -563,6 +667,7 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
     steps_per_epoch = max(1, len(train_ds) * train_ds.height * train_ds.width // rays_per_step)
     final_metrics: Dict[str, float] = {}
     occ_payload = renderer_payload(occ, cfg.sampler, cfg.grid)
+    best_psnr = _restore_best_psnr(cfg, start_step, log)
 
     def sync() -> None:
         if dev.type == "cuda":
@@ -574,79 +679,84 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
     sync()
     window_t0 = time.perf_counter()
     window_steps = 0
-    try:
-        for step in range(start_step, cfg.train.steps):
-            if cfg.train.shuffle == "epoch":
-                batch = sampler.sample_epoch(cfg.train.seed + step // steps_per_epoch,
-                                             step % steps_per_epoch, rays_per_step, meta=poses)
-            else:
-                batch = sampler.sample(gen, rays_per_step, meta=poses)
-            aux = train_step(state, batch, occ_payload, gen)
-            window_steps += 1
-            if use_grid and step >= cfg.grid.warmup_steps and step % cfg.grid.update_every == 0:
-                occ = update_occupancy(occ, field.density, cfg.grid, generator=gen)
-                occ_payload = renderer_payload(occ, cfg.sampler, cfg.grid)
-                if switching:
-                    with torch.no_grad():
-                        # a PoseBatch has no rays: the probe needs only their
-                        # geometry, so the dataset poses (zero deltas) stand in
-                        probe = sampler.regen_rays(batch) if poses else batch.rays
-                        frac = cdf_occupied_sample_fraction(probe, occ_payload, cfg.grid,
-                                                            cfg.sampler) \
-                            if cdf_switch else occupancy_fraction(occ)
-                    compacted = float(frac) < compact_switch_frac  # waits for the device
-                    train_step = step_compact if compacted else step_dense
-                    renderer = renderer_compact if compacted else renderer_dense
+    with maybe_profile(cfg.logging.profile, os.path.join(out_dir, "profile")):
+        try:
+            for step in range(start_step, cfg.train.steps):
+                if cfg.train.shuffle == "epoch":
+                    batch = sampler.sample_epoch(cfg.train.seed + step // steps_per_epoch,
+                                                 step % steps_per_epoch, rays_per_step, meta=poses)
+                else:
+                    batch = sampler.sample(gen, rays_per_step, meta=poses)
+                aux = train_step(state, batch, occ_payload, gen)
+                window_steps += 1
+                if use_grid and step >= cfg.grid.warmup_steps and step % cfg.grid.update_every == 0:
+                    occ = update_occupancy(occ, lambda x: field.density(x, state.params), cfg.grid,
+                                           generator=gen)
+                    occ_payload = renderer_payload(occ, cfg.sampler, cfg.grid)
+                    if switching:
+                        with torch.no_grad():
+                            # a PoseBatch has no rays: the probe needs only their
+                            # geometry, so the dataset poses (zero deltas) stand in
+                            probe = sampler.regen_rays(batch) if poses else batch.rays
+                            frac = cdf_occupied_sample_fraction(probe, occ_payload, cfg.grid,
+                                                                cfg.sampler) \
+                                if cdf_switch else occupancy_fraction(occ)
+                        compacted = float(frac) < compact_switch_frac  # waits for the device
+                        train_step = step_compact if compacted else step_dense
+                        renderer = eval_compact if compacted else eval_dense
 
-            if step % cfg.train.log_every == 0 or step == cfg.train.steps - 1:
-                loss_host = float(aux["loss"])  # waits for the device
-                sec = (time.perf_counter() - window_t0) / max(window_steps, 1)
-                m = {
-                    "loss": loss_host,
-                    "train_psnr": float(aux["psnr"]),
-                    "acc_mean": float(aux["acc_mean"]),
-                    "rays_per_sec": rays_per_step / max(sec, 1e-9),
-                    "step_seconds": sec,
-                    "skipped_steps": float(state.optimizer.total_notfinite)
-                    if cfg.train.skip_nonfinite else 0.0,
-                }
-                if occ is not None:
-                    m["occupancy_frac"] = float(occupancy_fraction(occ))
-                if "distortion" in aux:
-                    m["distortion"] = float(aux["distortion"])
-                if "pose_delta_norm" in aux:
-                    m["pose_delta_norm"] = float(aux["pose_delta_norm"])
-                metrics.write(step, **m)
-                log.info("step %d loss=%.5f psnr=%.2f rays/s=%.0f occ=%.2f", step, m["loss"],
-                         m["train_psnr"], m["rays_per_sec"], m.get("occupancy_frac", 1.0))
-                if not np.isfinite(loss_host):
-                    log.warning("non-finite loss at step %d (update was skipped)", step)
-                window_t0 = time.perf_counter()
-                window_steps = 0
+                if step % cfg.train.log_every == 0 or step == cfg.train.steps - 1:
+                    loss_host = float(aux["loss"])  # waits for the device
+                    sec = (time.perf_counter() - window_t0) / max(window_steps, 1)
+                    m = {
+                        "loss": loss_host,
+                        "train_psnr": float(aux["psnr"]),
+                        "acc_mean": float(aux["acc_mean"]),
+                        "rays_per_sec": rays_per_step / max(sec, 1e-9),
+                        "step_seconds": sec,
+                        "skipped_steps": float(state.optimizer.total_notfinite)
+                        if cfg.train.skip_nonfinite else 0.0,
+                    }
+                    if occ is not None:
+                        m["occupancy_frac"] = float(occupancy_fraction(occ))
+                    if "distortion" in aux:
+                        m["distortion"] = float(aux["distortion"])
+                    if "pose_delta_norm" in aux:
+                        m["pose_delta_norm"] = float(aux["pose_delta_norm"])
+                    metrics.write(step, **m)
+                    log.info("step %d loss=%.5f psnr=%.2f rays/s=%.0f occ=%.2f", step, m["loss"],
+                             m["train_psnr"], m["rays_per_sec"], m.get("occupancy_frac", 1.0))
+                    if not np.isfinite(loss_host):
+                        log.warning("non-finite loss at step %d (update was skipped)", step)
+                    window_t0 = time.perf_counter()
+                    window_steps = 0
 
-            did_barrier = False
-            if cfg.train.eval_every and (step + 1) % cfg.train.eval_every == 0:
-                final_metrics.update(_eval(cfg, renderer, state, occ, datasets, step, log,
-                                           metrics, dev))
-                did_barrier = True
-            if cfg.train.checkpoint_every and (step + 1) % cfg.train.checkpoint_every == 0:
-                save(step + 1)
-                did_barrier = True
-            if did_barrier:  # eval / checkpoint time must not count as training time
-                sync()
-                window_t0 = time.perf_counter()
-                window_steps = 0
-    except KeyboardInterrupt:
-        # the state holds the last completed step: persist it, so that
-        # train.resume continues from the interrupted step
-        save(state.step)
-        log.warning("interrupted at step %d: checkpoint saved to %s (continue with "
-                    "train.resume=true)", state.step, ckpt_dir)
-        metrics.close()
-        raise
+                did_barrier = False
+                if cfg.train.eval_every and (step + 1) % cfg.train.eval_every == 0:
+                    em = _eval(cfg, renderer, state, occ, datasets, step, log, metrics, dev)
+                    final_metrics.update(em)
+                    best_psnr = _maybe_keep_best(cfg, em, save, step + 1, best_psnr, log, metrics)
+                    did_barrier = True
+                if cfg.train.checkpoint_every and (step + 1) % cfg.train.checkpoint_every == 0:
+                    save(step + 1)
+                    did_barrier = True
+                if did_barrier:  # eval / checkpoint time must not count as training time
+                    sync()
+                    window_t0 = time.perf_counter()
+                    window_steps = 0
+        except KeyboardInterrupt:
+            # the state holds the last completed step: persist it, so that
+            # train.resume continues from the interrupted step
+            save(state.step)
+            log.warning("interrupted at step %d: checkpoint saved to %s (continue with "
+                        "train.resume=true)", state.step, ckpt_dir)
+            metrics.close()
+            raise
     save(cfg.train.steps)
-    final_metrics.update(_eval(cfg, renderer, state, occ, datasets, cfg.train.steps, log, metrics,
-                               dev, save_images=True))
+    em = _eval(cfg, renderer, state, occ, datasets, cfg.train.steps, log, metrics, dev,
+               save_images=True)
+    final_metrics.update(em)
+    _maybe_keep_best(cfg, em, save, cfg.train.steps, best_psnr, log, metrics)
     metrics.close()
     floor = cfg.train.assert_test_psnr_min
     if floor > 0 and "psnr_test_min" in final_metrics:

@@ -11,20 +11,26 @@ keeps NamedTuple fields in declaration order, so the saved
   `trunk` alone, biases first (`params['trunk']['b']`, one per layer), then
   weights (`[in, out]` per layer); a twobranch field `color` (likewise),
   then its encoding's tables (`cp` {lines}, `hashgrid` {tables} or
-  `triplane` {lines, planes}), then `trunk`; under `train.optimize_poses`
-  the [N, 6] leaf `pose_deltas` takes its sorted place among them;
+  `triplane` {lines, planes}), then `trunk`; under `train.freq_anneal_steps`
+  the scalar leaf `freq_alpha`, under `train.optimize_poses` the [N, 6]
+  leaf `pose_deltas`, each in its sorted place among them;
 - the optimizer state: the non-finite skip's three counters (int32, bool,
-  int32; only with `train.skip_nonfinite`), Adam's `count`, `mu` and `nu`
-  (each laid out like the params), the schedule's `count` (only when the
-  learning rate is scheduled; `train.table_lr_mult` and
-  `train.pose_lr_mult` each add a masked scale, which holds no leaf),
-- `TrainState.step`, and `TrainState.ema` (must be `None`),
+  int32; only with `train.skip_nonfinite`), then under
+  `train.grad_accum_steps` > 1 `MultiStepsState`'s `mini_step` and
+  `gradient_step` (int32), Adam's `count`, `mu` and `nu` (each laid out
+  like the params), the schedule's `count` (only when the learning rate is
+  scheduled; `train.table_lr_mult` and `train.pose_lr_mult` each add a
+  masked scale, which holds no leaf), then with accumulation the
+  accumulated gradient (laid out like the params; its `skip_state` is
+  empty);
+- `TrainState.step`, and `TrainState.ema`: `None` (no leaf), or under
+  `train.param_ema` the shadow parameters, laid out like the params;
 - the last three: `OccupancyGridState(density_ema, bitfield, step)`; the
   uniform pipeline keeps no occupancy grid and saves the `TrainState` alone.
 
 `save_checkpoint` writes exactly this, so the reference's
 `restore_checkpoint` reads the port's checkpoints and the port resumes the
-reference's.  Anything else (a weight EMA, another field) is refused
+reference's.  Anything else (another field, another optimizer) is refused
 rather than guessed at.
 """
 
@@ -34,7 +40,7 @@ import ast
 import json
 import os
 import re
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,7 +68,8 @@ def latest_checkpoint(ckpt_dir: str) -> Tuple[int, str]:
 _MLPS = ("color", "trunk")
 _TABLES = {"cp": ("lines",), "hashgrid": ("tables",), "triplane": ("lines", "planes")}
 # top-level leaves beyond the field (`tnerf/train.py:pose_extra_params`)
-_LEAVES = ("pose_deltas",)
+# and the shape of each ("N": one row per training view)
+_LEAVES = {"freq_alpha": (), "pose_deltas": ("N", 6)}
 
 
 def _layout(groups: dict) -> Dict[str, object]:
@@ -173,7 +180,7 @@ def params_from_jax(np_params: dict) -> Dict[str, torch.Tensor]:
     (-> "hashgrid.tables" [L*T, F]), {'triplane': {'lines', 'planes'}}
     (-> "triplane.lines" [3, R, F], "triplane.planes" [3, R*R, F]),
     {'cp': {'lines'}} (-> "cp.lines" [3, R, F]); and 'pose_deltas' [N,
-    6] (-> "pose_deltas")."""
+    6] (-> "pose_deltas"), 'freq_alpha' [] (-> "freq_alpha")."""
     _layout({g: None for g in np_params})
     out: Dict[str, torch.Tensor] = {}
     for g in sorted(np_params):
@@ -182,8 +189,10 @@ def params_from_jax(np_params: dict) -> Dict[str, torch.Tensor]:
             continue
         if g in _LEAVES:
             a = np.asarray(np_params[g])
-            if a.dtype != np.float32 or a.ndim != 2 or a.shape[1] != 6:
-                raise ValueError(f"{g}: {a.dtype} {a.shape}, expected float32 [N, 6]")
+            want = _LEAVES[g]
+            if a.dtype != np.float32 or a.ndim != len(want) \
+                    or any(w != "N" and n != w for n, w in zip(a.shape, want)):
+                raise ValueError(f"{g}: {a.dtype} {a.shape}, expected float32 {list(want)}")
             out[g] = torch.from_numpy(a.copy())
             continue
         if set(np_params[g]) != set(_TABLES[g]):
@@ -222,38 +231,59 @@ def n_layers(params: Dict[str, torch.Tensor]) -> int:
 
 
 _STATE = "CustomNode(namedtuple[TrainState], ["
-_TAIL = ", *, None]), CustomNode(namedtuple[OccupancyGridState], [*, *, *])))"
-_TAIL_ALONE = ", *, None]))"
+_OCCUPANCY = ", CustomNode(namedtuple[OccupancyGridState], [*, *, *]))"
 
 
-def _read_leaves(ckpt_dir: str):
-    """(step, layout, treedef, leaves, has_occupancy) of the newest
-    checkpoint, its layout checked."""
+def _tail(ema_tree: str, with_occupancy: bool) -> str:
+    """The end of the treedef string after the optimizer state:
+    TrainState's step and ema (`None`, or the params' tree), then the
+    OccupancyGridState where there is one."""
+    return f", *, {ema_tree}])" + (_OCCUPANCY + ")" if with_occupancy else ")")
+
+
+class _Leaves(NamedTuple):
+    step: int
+    layout: Dict[str, object]
+    treedef: str
+    leaves: list
+    has_occupancy: bool
+    has_ema: bool
+
+
+def _read_leaves(ckpt_dir: str) -> _Leaves:
+    """The newest checkpoint's leaves, its layout checked."""
     step, path = latest_checkpoint(ckpt_dir)
     with open(os.path.join(ckpt_dir, "treedef.json")) as fh:
         meta = json.load(fh)
     treedef, n = meta["treedef"], int(meta["n_leaves"])
     if treedef.count("*") != n:
         raise ValueError(f"treedef has {treedef.count('*')} leaves, n_leaves says {n}")
-    pair = treedef.startswith("PyTreeDef((" + _STATE) and treedef.endswith(_TAIL)
-    alone = treedef.startswith("PyTreeDef(" + _STATE) and treedef.endswith(_TAIL_ALONE) \
-        and "OccupancyGridState" not in treedef
-    if not (pair or alone):
-        raise ValueError(
-            f"{ckpt_dir}: unsupported checkpoint layout (only a TrainState with no weight EMA, "
-            f"with or without an OccupancyGridState, is ported): {treedef[:160]}...")
+    if _STATE not in treedef:
+        raise ValueError(f"{ckpt_dir}: not a TrainState checkpoint: {treedef[:160]}...")
     start = treedef.index(_STATE) + len(_STATE)
     depth = 0
     for end in range(start, len(treedef)):
         depth += {"{": 1, "}": -1}.get(treedef[end], 0)
         if depth == 0:
             break
-    layout = _layout_of_tree(treedef[start:end + 1])
+    tree = treedef[start:end + 1]
+    layout = _layout_of_tree(tree)
+    shape = None
+    for ema in (False, True):
+        for occ in (False, True):
+            head = "PyTreeDef((" if occ else "PyTreeDef("
+            if treedef.startswith(head + _STATE) and treedef.endswith(
+                    _tail(tree if ema else "None", occ)) and (occ or _OCCUPANCY not in treedef):
+                shape = (occ, ema)
+    if shape is None:
+        raise ValueError(
+            f"{ckpt_dir}: unsupported checkpoint layout (only a TrainState, with or without a "
+            f"weight EMA and an OccupancyGridState, is ported): {treedef[:160]}...")
     with np.load(path) as data:
         if sorted(data.files) != sorted(f"leaf_{i}" for i in range(n)):
             raise ValueError(f"{path} holds {len(data.files)} leaves; treedef.json says {n}")
         leaves = [data[f"leaf_{i}"] for i in range(n)]
-    return step, layout, treedef, leaves, pair
+    return _Leaves(step, layout, treedef, leaves, *shape)
 
 
 def _occupancy_from_leaves(leaves, dev, has_occupancy: bool) -> Optional[OccupancyGridState]:
@@ -273,59 +303,102 @@ def _occupancy_from_leaves(leaves, dev, has_occupancy: bool) -> Optional[Occupan
     )
 
 
-def load_jax_checkpoint(ckpt_dir: str, device="cuda"):
+def _params_on(layout, leaves, dev) -> Dict[str, torch.Tensor]:
+    return {k: v.to(dev) for k, v in params_from_jax(_nested(layout, leaves)).items()}
+
+
+def load_jax_checkpoint(ckpt_dir: str, device="cuda", ema: Optional[bool] = None):
     """Newest checkpoint of ckpt_dir -> (step, params, occupancy) on
-    `device`: params from params_from_jax, occupancy an
-    OccupancyGridState whose bitfield is the saved [res]^3 bool grid, or
-    None where the checkpoint holds none (the uniform pipeline's)."""
+    `device`: the parameters eval reads (`tnerf/train.py:eval_params`:
+    the weight EMA's shadow where the checkpoint holds one, else the live
+    parameters), from params_from_jax; occupancy an OccupancyGridState
+    whose bitfield is the saved [res]^3 bool grid, or None where the
+    checkpoint holds none (the uniform pipeline's).  ema (train.param_ema
+    > 0 of the config that reads it), where given, must agree with the
+    checkpoint, as the reference's restore template must."""
     dev = resolve_device(device)
-    step, layout, _, leaves, has_occ = _read_leaves(ckpt_dir)
-    params = params_from_jax(_nested(layout, leaves))
-    return (step, {k: v.to(dev) for k, v in params.items()},
-            _occupancy_from_leaves(leaves, dev, has_occ))
+    got = _read_leaves(ckpt_dir)
+    if ema is not None and ema != got.has_ema:
+        raise ValueError(
+            f"{ckpt_dir}: the checkpoint {'holds' if got.has_ema else 'has no'} weight EMA, "
+            f"but the config's train.param_ema {'is' if ema else 'is not'} > 0 (config "
+            "mismatch?)")
+    leaves = got.leaves
+    if got.has_ema:
+        P = len(leaf_names(got.layout))
+        i_ema = len(leaves) - (3 if got.has_occupancy else 0) - P
+        leaves = leaves[i_ema:i_ema + P]
+    return (got.step, _params_on(got.layout, leaves, dev),
+            _occupancy_from_leaves(got.leaves, dev, got.has_occupancy))
+
+
+class TrainCheckpoint(NamedTuple):
+    """A checkpoint as a run resumes it: the step, the live parameters,
+    the optimizer state (shaped as `train.Optimizer.state`), the occupancy
+    grid (or None) and the weight EMA's shadow (or None)."""
+
+    step: int
+    params: Dict[str, torch.Tensor]
+    opt_state: dict
+    occupancy: Optional[OccupancyGridState]
+    ema: Optional[Dict[str, torch.Tensor]]
+
+
+def read_train_checkpoint(ckpt_dir: str, device="cuda") -> TrainCheckpoint:
+    """The newest checkpoint of ckpt_dir on `device`.  Which of the
+    non-finite counters, MultiSteps' counters and accumulated gradient and
+    the schedule's count the optimizer state holds is read from the
+    treedef's nodes and checked against the leaf count."""
+    dev = resolve_device(device)
+    got = _read_leaves(ckpt_dir)
+    leaves, treedef = got.leaves, got.treedef
+    names = leaf_names(got.layout)
+    P = len(names)
+    n_ema = P if got.has_ema else 0
+    i_step = len(leaves) - (3 if got.has_occupancy else 0) - n_ema - 1
+    opt = leaves[P:i_step]  # between the params and (step, ema, occupancy x 3)
+    skip = "ApplyIfFiniteState" in treedef
+    multi = "MultiStepsState" in treedef
+    sched = "ScaleByScheduleState" in treedef
+    if len(opt) != 3 * skip + (2 + P) * multi + 1 + 2 * P + sched:
+        raise ValueError(f"{ckpt_dir}: optimizer state of {len(opt)} leaves for {P} parameters "
+                         "is not an Adam state this port knows")
+    t = lambda a: torch.from_numpy(np.array(a)).to(dev)
+    it = iter(opt)
+    take = lambda: t(next(it))
+    state = {}
+    if skip:
+        state.update(notfinite_count=take(), last_finite=take(), total_notfinite=take())
+    if multi:
+        state.update(mini_step=take(), gradient_step=take())
+    state["count"] = take()
+    state["mu"] = {k: take() for k in names}
+    state["nu"] = {k: take() for k in names}
+    if sched:
+        state["sched_count"] = take()
+    if multi:
+        state["acc"] = {k: take() for k in names}
+    if int(leaves[i_step]) != got.step:
+        raise ValueError(f"{ckpt_dir}: TrainState.step {int(leaves[i_step])} in step_{got.step} "
+                         "file")
+    ema = _params_on(got.layout, leaves[i_step + 1:i_step + 1 + n_ema], dev) if n_ema else None
+    return TrainCheckpoint(got.step, _params_on(got.layout, leaves, dev), state,
+                           _occupancy_from_leaves(leaves, dev, got.has_occupancy), ema)
 
 
 def load_train_checkpoint(ckpt_dir: str, device="cuda"):
     """Newest checkpoint of ckpt_dir -> (step, params, opt_state,
-    occupancy) on `device`.  opt_state has the shape of
-    `train.Optimizer.state`: which of the non-finite counters and the
-    schedule's count it holds follows from the leaf count."""
-    dev = resolve_device(device)
-    step, layout, treedef, leaves, has_occ = _read_leaves(ckpt_dir)
-    names = leaf_names(layout)
-    P = len(names)
-    params = params_from_jax(_nested(layout, leaves))
-    i_step = -4 if has_occ else -1
-    opt = leaves[P:i_step]  # between the params and (step, occupancy x 3); ema=None is no leaf
-    extra = len(opt) - (1 + 2 * P)
-    if extra not in (0, 1, 3, 4) \
-            or ("ApplyIfFiniteState" in treedef) != (extra >= 3) \
-            or ("ScaleByScheduleState" in treedef) != (extra in (1, 4)):
-        raise ValueError(f"{ckpt_dir}: optimizer state of {len(opt)} leaves for {P} parameters "
-                         "is not an Adam state this port knows")
-    t = lambda a: torch.from_numpy(np.array(a)).to(dev)
-    state = {}
-    if extra >= 3:
-        state.update(notfinite_count=t(opt[0]), last_finite=t(opt[1]), total_notfinite=t(opt[2]))
-        opt = opt[3:]
-    state["count"] = t(opt[0])
-    state["mu"] = {k: t(a) for k, a in zip(names, opt[1:1 + P])}
-    state["nu"] = {k: t(a) for k, a in zip(names, opt[1 + P:1 + 2 * P])}
-    if extra in (1, 4):
-        state["sched_count"] = t(opt[1 + 2 * P])
-    if int(leaves[i_step]) != step:
-        raise ValueError(f"{ckpt_dir}: TrainState.step {int(leaves[i_step])} in step_{step} file")
-    return (step, {k: v.to(dev) for k, v in params.items()}, state,
-            _occupancy_from_leaves(leaves, dev, has_occ))
+    occupancy) on `device` (`read_train_checkpoint` without the EMA)."""
+    return tuple(read_train_checkpoint(ckpt_dir, device))[:4]
 
 
 def checkpoint_treedef(layout: Dict[str, object], train_cfg, with_occupancy: bool = True) -> str:
     """The treedef string the reference writes for `(TrainState,
     OccupancyGridState)`, or for the `TrainState` alone, of a field of
     `layout` (`layout_of`) under `train_cfg`'s optimizer
-    (`str(jax.tree_util.tree_structure(...))`, `tnerf/train.py:66`;
-    informative: its reader checks only the leaf count, this port's reader
-    the parts it names)."""
+    (`str(jax.tree_util.tree_structure(...))`, `tnerf/train.py:66`) and
+    weight EMA (informative: its reader checks only the leaf count, this
+    port's reader the parts it names)."""
     tree = _tree(layout)
     empty = "CustomNode(namedtuple[EmptyState], [])"
     scheduled = train_cfg.lr_final_fraction != 1.0 or train_cfg.lr_warmup_steps > 0
@@ -340,24 +413,31 @@ def checkpoint_treedef(layout: Dict[str, object], train_cfg, with_occupancy: boo
         opt = f"({opt}, CustomNode(namedtuple[MaskedState], [{empty}]))"
     if train_cfg.pose_lr_mult != 1.0:
         opt = f"({opt}, CustomNode(namedtuple[MaskedState], [{empty}]))"
+    if train_cfg.grad_accum_steps > 1:
+        opt = f"CustomNode(namedtuple[MultiStepsState], [*, *, {opt}, {tree}, ()])"
     if train_cfg.skip_nonfinite:
         opt = f"CustomNode(namedtuple[ApplyIfFiniteState], [*, *, *, {opt}])"
-    if not with_occupancy:
-        return f"PyTreeDef({_STATE}{tree}, {opt}{_TAIL_ALONE}"
-    return f"PyTreeDef(({_STATE}{tree}, {opt}{_TAIL}"
+    tail = _tail(tree if train_cfg.param_ema > 0 else "None", with_occupancy)
+    return f"PyTreeDef({'(' if with_occupancy else ''}{_STATE}{tree}, {opt}{tail}"
 
 
 def save_checkpoint(ckpt_dir: str, step: int, params: Dict[str, torch.Tensor], opt_state: dict,
-                    occupancy: Optional[OccupancyGridState], train_cfg) -> str:
+                    occupancy: Optional[OccupancyGridState], train_cfg,
+                    ema: Optional[Dict[str, torch.Tensor]] = None) -> str:
     """Write ckpt_dir/step_<N>.npz + treedef.json in the reference's layout
     (module docstring).  opt_state: `train.Optimizer.state`; occupancy:
-    None for a run that keeps no grid."""
+    None for a run that keeps no grid; ema: the weight EMA's shadow, which
+    a config with train.param_ema > 0 must give."""
     os.makedirs(ckpt_dir, exist_ok=True)
     layout = layout_of(params)
     names = leaf_names(layout)
+    if (ema is not None) != (train_cfg.param_ema > 0):
+        raise ValueError(f"a weight EMA {'was' if ema is not None else 'was not'} given, but "
+                         f"train.param_ema is {train_cfg.param_ema}")
     host = lambda t: t.detach().cpu().numpy()
     leaves = [host(params[k]) for k in names]
-    for k in ("notfinite_count", "last_finite", "total_notfinite"):
+    for k in ("notfinite_count", "last_finite", "total_notfinite", "mini_step",
+              "gradient_step"):
         if k in opt_state:
             leaves.append(host(opt_state[k]))
     leaves.append(host(opt_state["count"]))
@@ -365,7 +445,11 @@ def save_checkpoint(ckpt_dir: str, step: int, params: Dict[str, torch.Tensor], o
     leaves += [host(opt_state["nu"][k]) for k in names]
     if "sched_count" in opt_state:
         leaves.append(host(opt_state["sched_count"]))
+    if "acc" in opt_state:
+        leaves += [host(opt_state["acc"][k]) for k in names]
     leaves.append(np.asarray(step, np.int32))
+    if ema is not None:
+        leaves += [host(ema[k]) for k in names]
     if occupancy is not None:
         leaves += [host(occupancy.density_ema), host(occupancy.bitfield), host(occupancy.step)]
     treedef = checkpoint_treedef(layout, train_cfg, with_occupancy=occupancy is not None)

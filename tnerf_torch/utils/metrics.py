@@ -1,4 +1,5 @@
-"""Metrics stream and logger (counterpart of `tnerf/utils/metrics.py`)."""
+"""Metrics stream, logger and profiler trace (counterpart of
+`tnerf/utils/metrics.py`)."""
 
 from __future__ import annotations
 
@@ -6,6 +7,7 @@ import json
 import logging
 import os
 import time
+from contextlib import contextmanager
 from typing import Any, Dict, Optional
 
 
@@ -46,3 +48,27 @@ class MetricsWriter:
         if self._fh:
             self._fh.close()
             self._fh = None
+
+
+TRACE_FILE = "trace.json"
+
+
+@contextmanager
+def maybe_profile(enabled: bool, out_dir: str):
+    """logging.profile: a `torch.profiler` trace of the block, host and (on
+    a card) device activity, written as Chrome trace JSON to
+    out_dir/TRACE_FILE (the counterpart of the reference's
+    `jax.profiler.trace`, `tnerf/utils/metrics.py:75`).  Nothing when not
+    enabled."""
+    if not enabled:
+        yield
+        return
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(out_dir, TRACE_FILE))
