@@ -145,11 +145,12 @@ def test_port_imports_neither_jax_nor_tnerf():
         "bad = sorted(k for k in sys.modules if k in ('jax', 'jaxlib', 'tnerf')\n"
         "             or k.startswith(('jax.', 'jaxlib.', 'tnerf.')))\n"
         "print(len([k for k in sys.modules if k.startswith('tnerf_torch.')]), bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "new = ('tnerf_torch.grid.mesh', 'tnerf_torch.grid.marching', 'tnerf_torch.render.baked')\n"
+        "sys.exit(1 if bad or not all(m in sys.modules for m in new) else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 29  # tnerf_torch.sampling and every other module
+    assert int(proc.stdout.split()[0]) >= 32  # tnerf_torch.sampling and every other module

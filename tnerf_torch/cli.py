@@ -1,5 +1,5 @@
 """Command line of the port: `python -m tnerf_torch.cli
-train|eval|render|suite|config`.
+train|eval|render|suite|mesh|bake|config`.
 
 Trains a field through the pipeline its config names (`render.pipeline`:
 fused, grid_march, grid_intervals or uniform) on the scene it names
@@ -10,8 +10,12 @@ reference package (`tnerf.cli train`), on the card (`--device cuda`, the
 default) or through the plain PyTorch versions on the CPU (`--device
 cpu`): `eval` and `render` (`--orbit N --gif` adds an animated GIF) read
 the weight EMA where the config keeps one (`train.param_ema`); `suite`
-evaluates <out_dir>/<scene>/checkpoints of several scenes; `config
-[--diff]` prints the resolved config (or the overrides that make it).
+evaluates <out_dir>/<scene>/checkpoints of several scenes; `mesh` extracts
+the density isosurface of a checkpoint as an OBJ (marching tetrahedra,
+`--vertex-colors` from the field); `bake` evaluates the field into a dense
+lookup grid (an npz) and with `--eval` renders the test split through it
+against the march render of the same checkpoint; `config [--diff]` prints
+the resolved config (or the overrides that make it).
 Configs are the reference's JSON files; options this port does not run yet
 are refused (`train_loop.validate_ported`).
 
@@ -23,6 +27,11 @@ are refused (`train_loop.validate_ported`).
         -o scene.root=data/colmap --out runs/colmap_torch
     python -m tnerf_torch.cli suite --config runs/suite_rehearsal/prims/config.json \\
         -o logging.out_dir=runs/suite_rehearsal --scenes prims,rings,layers
+    python -m tnerf_torch.cli mesh --config runs/suite_rehearsal/prims/config.json \
+        --checkpoint runs/suite_rehearsal/prims/checkpoints --out prims.obj --vertex-colors
+    python -m tnerf_torch.cli bake --config runs/suite_rehearsal/prims/config.json \
+        --checkpoint runs/suite_rehearsal/prims/checkpoints --bake-res 256 --eval \
+        -o logging.out_dir=runs/prims_baked
     python -m tnerf_torch.cli config --config configs/procedural_hard_30db.json --diff
 """
 
@@ -32,6 +41,7 @@ import argparse
 import json
 import os
 import sys
+import threading
 import time
 
 import numpy as np
@@ -153,6 +163,34 @@ def _parser() -> argparse.ArgumentParser:
     sp.add_argument("--scenes", default="chair,drums,ficus,hotdog,lego,materials,mic,ship",
                     help="comma-separated scene names (scene.name of each)")
 
+    sp = sub.add_parser("mesh", help="extract the density isosurface of a checkpoint as an OBJ "
+                        "(marching tetrahedra; no dataset needed)")
+    common(sp)
+    sp.add_argument("--out", default="mesh.obj")
+    sp.add_argument("--resolution", type=int, default=128,
+                    help="density sampling cells per AABB axis (the vertex grid is N+1)")
+    sp.add_argument("--threshold", type=float, default=None,
+                    help="density iso level (default: grid.density_threshold)")
+    sp.add_argument("--vertex-colors", action="store_true",
+                    help="per-vertex RGB from the field, seen along the inward surface normal "
+                    "(written as the `v x y z r g b` OBJ vertex-colour extension)")
+
+    sp = sub.add_parser("bake", help="bake a checkpoint's field into a dense RGB + density grid "
+                        "for lookup-only rendering (render/baked.py)")
+    common(sp)
+    sp.add_argument("--out", default=None,
+                    help="output npz (default <out_dir>/baked/baked_<res>.npz)")
+    sp.add_argument("--bake-res", type=int, default=256,
+                    help="vertex-grid resolution per axis (memory: res^3 * 16 B)")
+    sp.add_argument("--mode", default="trilinear_brick",
+                    choices=("nearest", "trilinear", "trilinear_brick"),
+                    help="lookup mode of the --eval render (the npz stores the unpacked "
+                    "[R^3, 4] table)")
+    sp.add_argument("--eval", action="store_true",
+                    help="render the test split through the bake and write "
+                    "<out_dir>/baked_parity.json: its PSNR against the grid_march render of "
+                    "the same checkpoint")
+
     sp = sub.add_parser("config", help="print the resolved config JSON")
     sp.add_argument("--config", help="JSON config file")
     sp.add_argument("--override", "-o", action="append", default=[],
@@ -193,6 +231,13 @@ def main(argv=None) -> int:
         return 0
     if args.cmd == "suite":
         return _run_suite(cfg, args.scenes.split(","), args.device)
+    if args.cmd == "mesh":
+        return _run_mesh(args, cfg)
+    if args.cmd == "bake":
+        # before the config's renderer is validated and built: a bake needs
+        # only the field (its renderer is the march one), so e.g. a fused
+        # refusal must not stop a bake that never runs the fused path
+        return _run_bake(args, cfg)
 
     from tnerf_torch.device import resolve_device
     from tnerf_torch.grid.occupancy import renderer_payload
@@ -388,6 +433,139 @@ def main(argv=None) -> int:
         path = args.out if ch == "rgb" or len(channels) == 1 else f"{base}_{ch}{ext or '.png'}"
         write_png(path, _channel_image(res, ch))
         print(f"wrote {path}")
+    return 0
+
+
+def _run_mesh(args, cfg: Config) -> int:
+    """`mesh` (`tnerf/cli.py:244-313`): the density of the checkpoint's eval
+    parameters (the weight EMA's where the config keeps one) sampled on a
+    (resolution+1)^3 vertex grid over the AABB on the device, the
+    isosurface at --threshold by marching tetrahedra, written as an OBJ;
+    with --vertex-colors each vertex's RGB from the field seen along its
+    inward normal, 65,536 vertices a chunk.  No dataset is read: the
+    checkpoint's treedef gives its layout, a pose-refinement one's
+    included.  Exit status 1 on an empty isosurface."""
+    from tnerf_torch.cameras import viewdirs_to_thetaphi
+    from tnerf_torch.device import resolve_device
+    from tnerf_torch.fields.nerf_field import NeRFField, apply_field
+    from tnerf_torch.grid.marching import extract_density_mesh, save_obj, vertex_normals
+    from tnerf_torch.utils.checkpoint import load_jax_checkpoint
+
+    dev = resolve_device(args.device)
+    ckpt_dir = args.checkpoint or os.path.join(cfg.logging.out_dir, "checkpoints")
+    step, params, _ = load_jax_checkpoint(ckpt_dir, device=dev, ema=cfg.train.param_ema > 0)
+    print(f"restored step {step} from {ckpt_dir}", file=sys.stderr)
+    field = NeRFField(cfg.field_, cfg.grid, torch.Generator()).to(dev)
+    verts, faces = extract_density_mesh(lambda x: field.density(x, params), cfg.grid,
+                                        resolution=args.resolution, level=args.threshold,
+                                        device=dev)
+    if faces.shape[0] == 0:
+        print("error: empty isosurface — is --threshold above the field's max density?",
+              file=sys.stderr)
+        return 1
+    colors = None
+    if args.vertex_colors:
+        nrm = vertex_normals(verts, faces)
+        chunk = 1 << 16
+        cols = []
+        with torch.no_grad():
+            for s in range(0, len(verts), chunk):
+                v = torch.from_numpy(verts[s:s + chunk]).to(dev)
+                tp = viewdirs_to_thetaphi(torch.from_numpy(-nrm[s:s + chunk]).to(dev))
+                rgb, _ = apply_field(params, cfg.field_, cfg.grid, v, tp)
+                cols.append(rgb.float().cpu().numpy())
+        colors = np.concatenate(cols)
+    save_obj(args.out, verts, faces, colors)
+    tag = " (vertex colors)" if colors is not None else ""
+    print(f"wrote {args.out}: {len(verts)} vertices, {len(faces)} faces{tag}")
+    return 0
+
+
+def _run_bake(args, cfg: Config) -> int:
+    """`bake` (`tnerf/cli.py:749-820`): the checkpoint's eval parameters
+    evaluated into a dense [R^3, 4] grid on the device
+    (`render/baked.bake_field`: inward radial views, log1p density, the
+    vertices outside the occupancy's 6-neighbourhood zeroed), saved as an
+    npz (`table` float16, `bake_res`); with --eval the test split rendered
+    through the bake (`make_baked_renderer`, the march renderer with the
+    table lookup as its shade stage) and through render.pipeline=grid_march
+    on the field itself, both with the checkpoint's occupancy, written to
+    <out_dir>/baked_parity.json with the reference's keys and rounding."""
+    from tnerf_torch.device import resolve_device
+    from tnerf_torch.eval import evaluate
+    from tnerf_torch.fields.nerf_field import apply_field
+    from tnerf_torch.grid.occupancy import renderer_payload
+    from tnerf_torch.render.baked import bake_field, make_baked_renderer
+    from tnerf_torch.train_loop import (
+        build_renderer,
+        load_datasets,
+        ndc_near_or_none,
+        resolve_near_far,
+    )
+    from tnerf_torch.utils.checkpoint import load_jax_checkpoint
+
+    dev = resolve_device(args.device)
+    datasets = load_datasets(cfg, splits=("test",), device=dev) if args.eval else {}
+    if args.eval:
+        if "test" not in datasets:
+            print("error: bake --eval needs the scene's test split", file=sys.stderr)
+            return 1
+        cfg = resolve_near_far(cfg, datasets["test"])
+    ndc = ndc_near_or_none(cfg)
+    ckpt_dir = args.checkpoint or os.path.join(cfg.logging.out_dir, "checkpoints")
+    step, params, occ = load_jax_checkpoint(ckpt_dir, device=dev, ema=cfg.train.param_ema > 0)
+    print(f"restored step {step} from {ckpt_dir}", file=sys.stderr)
+    _sync(dev)
+    t0 = time.perf_counter()
+    table = bake_field(lambda p, x, v: apply_field(p, cfg.field_, cfg.grid, x, v), params,
+                       cfg.grid, bake_res=args.bake_res,
+                       occupancy=None if occ is None else occ.bitfield, device=dev)
+    _sync(dev)
+    bake_s = time.perf_counter() - t0
+    out_npz = args.out or os.path.join(cfg.logging.out_dir, "baked", f"baked_{args.bake_res}.npz")
+    os.makedirs(os.path.dirname(out_npz) or ".", exist_ok=True)
+    # the compression runs on the host beside the evals (zlib lets go of the
+    # interpreter while it compresses)
+    writer = threading.Thread(target=np.savez_compressed, args=(out_npz,), kwargs=dict(
+        table=table.cpu().numpy().astype(np.float16), bake_res=args.bake_res))
+    writer.start()
+
+    def written() -> None:
+        writer.join()
+        print(f"baked {args.bake_res}^3 grid in {bake_s:.1f}s -> {out_npz} "
+              f"({os.path.getsize(out_npz) / 1e6:.0f} MB)", file=sys.stderr)
+
+    if not args.eval:
+        written()
+        return 0
+    payload = renderer_payload(occ, cfg.sampler, cfg.grid)
+    test = datasets["test"]
+    kw = dict(white_background=cfg.scene.white_background, chunk_size=cfg.render.chunk_size,
+              occupancy=payload, device=dev, ndc_near=ndc)
+    brend = make_baked_renderer(table, args.bake_res, cfg.grid, cfg.sampler, cfg.render,
+                                mode=args.mode)
+    del table
+    mb = evaluate(brend, brend.params, test, cfg.scene.scene_scale, **kw)
+    # the parity reference: the same checkpoint rendered through the march
+    # pipeline at the config's own quadrature
+    drend = build_renderer(cfg.apply_overrides(["render.pipeline=grid_march"]), for_eval=True)
+    md = evaluate(drend, params, test, cfg.scene.scene_scale, **kw)
+    written()
+    print(f"render_ms_test: baked {mb['render_ms_test']:.2f}, march {md['render_ms_test']:.2f}",
+          file=sys.stderr)
+    keys = ("psnr_test", "psnr_test_min", "ssim_test", "n_views_test")  # the reference's
+    art = {
+        "bake_res": args.bake_res, "mode": args.mode,
+        "bake_seconds": round(bake_s, 1),
+        "baked": {k: round(float(mb[k]), 4) for k in keys},
+        "march": {k: round(float(md[k]), 4) for k in keys},
+        "parity_db": round(abs(float(md["psnr_test"]) - float(mb["psnr_test"])), 4),
+        "checkpoint_step": step,
+    }
+    os.makedirs(cfg.logging.out_dir, exist_ok=True)
+    with open(os.path.join(cfg.logging.out_dir, "baked_parity.json"), "w") as fh:
+        json.dump(art, fh, indent=2)
+    print(json.dumps(art, indent=2))
     return 0
 
 

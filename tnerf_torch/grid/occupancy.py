@@ -1,7 +1,8 @@
 """Occupancy grid state and its density-driven refresh (counterpart of
-`tnerf/grid/occupancy.py:27-112`, without the static mesh mask): a density
-EMA per cell, thresholded into the bitfield that the renderers skip empty
-space with."""
+`tnerf/grid/occupancy.py:27-112`): a density EMA per cell, thresholded into
+the bitfield that the renderers skip empty space with, optionally held
+inside a static mask (a mesh-bounded scene, `grid.mesh_path`,
+`grid/mesh.mesh_occupancy_mask`)."""
 
 from __future__ import annotations
 
@@ -18,13 +19,20 @@ class OccupancyGridState(NamedTuple):
     step: torch.Tensor         # scalar int32 update counter
 
 
-def init_occupancy(grid, device="cpu") -> OccupancyGridState:
-    """All-occupied start.  density_ema starts at 0, so the first update
-    already reflects the field; the bitfield stays dense until then."""
+def _mask3(mask, res: int, device) -> torch.Tensor:
+    return torch.as_tensor(mask, device=device).reshape(res, res, res).to(torch.bool)
+
+
+def init_occupancy(grid, device="cpu", mask=None) -> OccupancyGridState:
+    """All-occupied start, or the static mask where one is given.
+    density_ema starts at 0, so the first update already reflects the
+    field; the bitfield stays dense (within the mask) until then."""
     res = grid.resolution
+    bits = torch.ones((res, res, res), dtype=torch.bool, device=device) if mask is None \
+        else _mask3(mask, res, device).clone()
     return OccupancyGridState(
         density_ema=torch.zeros((res, res, res), dtype=torch.float32, device=device),
-        bitfield=torch.ones((res, res, res), dtype=torch.bool, device=device),
+        bitfield=bits,
         step=torch.zeros((), dtype=torch.int32, device=device),
     )
 
@@ -39,23 +47,30 @@ def cell_centers(grid, device="cpu") -> torch.Tensor:
     return lo + h * torch.stack([ii, jj, kk], dim=-1)
 
 
-def ema_threshold_update(density_ema: torch.Tensor, sigma: torch.Tensor, grid) -> tuple:
+def ema_threshold_update(density_ema: torch.Tensor, sigma: torch.Tensor, grid,
+                         mask=None) -> tuple:
     """(new_ema, bits) from one round of density probes: the decay-max EMA
-    (the Instant-NGP update rule) and its threshold."""
+    (the Instant-NGP update rule) and its threshold.  With a static mask
+    the EMA is zeroed outside it before the threshold, so neither the bits
+    nor a density_cdf payload derived from the EMA can leave it."""
     ema = torch.clamp_max(density_ema * grid.ema_decay, 1e4)
     ema = torch.maximum(ema, sigma)
+    if mask is not None:
+        res = grid.resolution
+        ema = torch.where(_mask3(mask, res, ema.device), ema, torch.zeros_like(ema))
     return ema, ema > grid.density_threshold
 
 
 @torch.no_grad()
 def update_occupancy(state: OccupancyGridState, density_fn, grid,
                      generator: Optional[torch.Generator] = None,
-                     jitter: Optional[torch.Tensor] = None) -> OccupancyGridState:
+                     jitter: Optional[torch.Tensor] = None, mask=None) -> OccupancyGridState:
     """One occupancy refresh: one jittered density probe per cell -> EMA ->
     threshold.  density_fn: positions [N, 3] -> sigma [N].  The probe
     offsets are uniform in [-0.5, 0.5) cells, drawn from `generator` on the
     state's device, or given as `jitter` [res, res, res, 3] (so two
-    implementations can be fed the same points)."""
+    implementations can be fed the same points).  mask: the static
+    [res, res, res] bool bound of a mesh-bounded scene, or None."""
     res = grid.resolution
     dev = state.density_ema.device
     centers = cell_centers(grid, dev)
@@ -64,7 +79,7 @@ def update_occupancy(state: OccupancyGridState, density_fn, grid,
                             device=dev) - 0.5
     points = centers + jitter * torch.tensor(cell_size(grid, res), device=dev)
     sigma = density_fn(points.reshape(-1, 3)).reshape(res, res, res)
-    ema, bits = ema_threshold_update(state.density_ema, sigma, grid)
+    ema, bits = ema_threshold_update(state.density_ema, sigma, grid, mask)
     return OccupancyGridState(density_ema=ema, bitfield=bits, step=state.step + 1)
 
 

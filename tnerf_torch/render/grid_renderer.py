@@ -50,7 +50,7 @@ def _without_samples(rgb, acc, depth) -> RenderResult:
 
 
 def compacted_shade(params, field_cfg, grid_cfg, positions, viewdirs, t, deltas, mask,
-                    capacity: int, white_background: bool) -> RenderResult:
+                    capacity: int, white_background: bool, field_fn=None) -> RenderResult:
     """Field evaluation on the kept samples only, then compositing
     (`tnerf/render/grid_renderer.py:64`).
 
@@ -61,7 +61,8 @@ def compacted_shade(params, field_cfg, grid_cfg, positions, viewdirs, t, deltas,
     samples were masked or dropped composites to the background.  Nothing
     waits for the device to learn how many were kept: slots beyond the kept
     count hold the masked samples, in order, as stand-ins whose density is
-    set to 0.
+    set to 0.  field_fn: the shade stage in place of `apply_field` (see
+    `make_grid_renderer`).
 
     The field's outputs go back to their [B, S] places (zeros elsewhere)
     and `composite` runs there, so each ray's transmittance is its own
@@ -89,8 +90,8 @@ def compacted_shade(params, field_cfg, grid_cfg, positions, viewdirs, t, deltas,
     slot = torch.where(kept, rank, capacity)        # [N] each kept sample's slot
     valid = torch.arange(capacity, device=dev) < total
 
-    rgb_c, sigma_c = apply_field(params, field_cfg, grid_cfg, positions.reshape(N, 3)[src],
-                                 viewdirs[src // S])
+    field_fn = field_fn or (lambda p, x, v: apply_field(p, field_cfg, grid_cfg, x, v))
+    rgb_c, sigma_c = field_fn(params, positions.reshape(N, 3)[src], viewdirs[src // S])
     sigma_c = torch.where(valid, sigma_c.float(), torch.zeros_like(sigma_c, dtype=torch.float32))
     # back to [B, S]: a dropped sample reads the zero row appended at
     # `capacity`, which takes no gradient (an embedding's padding row: an
@@ -199,9 +200,16 @@ def cdf_occupied_sample_fraction(rays: Rays, occupancy, grid_cfg, sampler_cfg) -
 
 def make_grid_renderer(field_cfg, grid_cfg, sampler_cfg, render_cfg, strategy: str = "march",
                        compact: bool = True, compact_fraction: Optional[float] = None,
-                       compact_capacity: Optional[int] = None, max_hits: Optional[int] = None):
+                       compact_capacity: Optional[int] = None, max_hits: Optional[int] = None,
+                       field_fn=None):
     """render(params, rays, occupancy=None, generator=None) -> RenderResult
     (`tnerf/render/grid_renderer.py:359`).
+
+    field_fn: the shade stage, (params, positions [..., 3], (theta, phi)
+    [..., 2] broadcast against them) -> (rgb [..., 3], sigma [...]); None
+    is the field of field_cfg (`apply_field`).  The baked renderer passes
+    its table lookup here (`render/baked.make_baked_renderer`), as the
+    reference passes a field with `.apply`.
 
     rays: flat Rays on the params' device.  occupancy: the renderer payload
     (`grid/occupancy.renderer_payload`): the [res]^3 bool bitfield, under
@@ -228,6 +236,7 @@ def make_grid_renderer(field_cfg, grid_cfg, sampler_cfg, render_cfg, strategy: s
     res = grid_cfg.resolution
     t_res = min(sampler_cfg.tighten_res or res, res)
     m_res = min(sampler_cfg.occupancy_mask_res or res, res)
+    field_fn = field_fn or (lambda p, x, v: apply_field(p, field_cfg, grid_cfg, x, v))
 
     def render(params, rays: Rays, occupancy=None, generator=None) -> RenderResult:
         occ3, dens3 = split_occupancy_payload(occupancy, grid_cfg)
@@ -246,8 +255,8 @@ def make_grid_renderer(field_cfg, grid_cfg, sampler_cfg, render_cfg, strategy: s
                     else render_cfg.compact_fraction
                 cap = compact_capacity or max(1, int(pts.shape[0] * pts.shape[1] * frac))
                 return compacted_shade(params, field_cfg, grid_cfg, pts, tp_, t, deltas, smask,
-                                       cap, render_cfg.white_background)
-            rgb, sigma = apply_field(params, field_cfg, grid_cfg, pts, tp_[..., None, :])
+                                       cap, render_cfg.white_background, field_fn)
+            rgb, sigma = field_fn(params, pts, tp_[..., None, :])
             return composite(rgb, sigma, deltas, t_mid=t, mask=smask,
                              white_background=render_cfg.white_background)
 

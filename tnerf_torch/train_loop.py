@@ -129,7 +129,6 @@ def validate_ported(cfg: Config, for_eval: bool = True) -> None:
         return
     t, par = cfg.train, cfg.parallel
     refused = {
-        "grid.mesh_path": bool(cfg.grid.mesh_path),
         "parallel.data_parallel > 1": par.data_parallel > 1,
         "parallel.sample_parallel > 1": par.sample_parallel > 1,
         "parallel.table_parallel > 1": par.table_parallel > 1,
@@ -541,7 +540,9 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
     the table priors) -> Adam (train.table_lr_mult scaling the tables'
     updates); every grid.update_every steps after grid.warmup_steps the
     occupancy grid is refreshed from the field's density (the uniform
-    pipeline keeps none).  grid_march with render.compact trains and evals
+    pipeline keeps none), inside the static mask of grid.mesh_path where
+    one is set (`grid/mesh.mesh_occupancy_mask`, rebuilt from the config
+    on resume).  grid_march with render.compact trains and evals
     densely until the grid has pruned and then on the occupied samples
     only: the switch reads the occupied share on the host at each
     occupancy update.  Checkpoints are in the reference's layout
@@ -611,7 +612,17 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
     log.info("field=%s/%s params=%.2fM pipeline=%s device=%s", cfg.field_.encoding, field.arch,
              n_params / 1e6, cfg.render.pipeline, dev)
     use_grid = cfg.render.pipeline != "uniform"
-    occ = init_occupancy(cfg.grid, dev) if use_grid else None
+    # A mesh-bounded scene (grid.mesh_path): the voxelized mesh is a static
+    # mask; the bitfield starts at it and every refresh prunes within it.
+    # It is rebuilt from the config, never checkpointed.
+    occ_mask = None
+    if use_grid and cfg.grid.mesh_path:
+        from tnerf_torch.grid.mesh import mesh_occupancy_mask
+
+        occ_mask = torch.as_tensor(mesh_occupancy_mask(cfg.grid), device=dev)
+        log.info("mesh bound %s: %.1f%% of cells occupied at init", cfg.grid.mesh_path,
+                 100.0 * float(occ_mask.float().mean()))
+    occ = init_occupancy(cfg.grid, dev, occ_mask) if use_grid else None
 
     ckpt_dir = os.path.join(out_dir, "checkpoints")
     start_step = 0
@@ -691,7 +702,7 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
                 window_steps += 1
                 if use_grid and step >= cfg.grid.warmup_steps and step % cfg.grid.update_every == 0:
                     occ = update_occupancy(occ, lambda x: field.density(x, state.params), cfg.grid,
-                                           generator=gen)
+                                           generator=gen, mask=occ_mask)
                     occ_payload = renderer_payload(occ, cfg.sampler, cfg.grid)
                     if switching:
                         with torch.no_grad():
