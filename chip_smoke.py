@@ -153,7 +153,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
      (runs/prims_baked_reference/baked_parity.json), the bake's seconds and
      the npz's size printed; test view 0 through the bake in each lookup
      mode, trilinear and trilinear_brick within BAKE_MODE_ATOL;
- 15. print the kernels' JSON line, then the status line.
+ 15. `parallel`: `tnerf_torch/parallel/` with two ranks sharing the card
+     under gloo (NCCL refuses two ranks on one device; `parallel_rank`),
+     each form against one rank on the same inputs: one fused DP step of
+     the prims model on 8192 rays (loss within PARALLEL_LOSS_RTOL, each
+     gradient leaf within B2_RTOL; B3, B1, B2 on each rank), its test view
+     0 at 400x400 through `dp_render_sharded` (within
+     PARALLEL_RENDER_ATOL; B4, B1), one step of the intervals config at
+     sample_parallel = 2 (S = 768; B5 on each rank) and a render of its
+     rays (SP_RENDER_ATOL), one step of the hash grid at
+     table_parallel = 2 (the segment sum on each rank), the sharded
+     occupancy refresh of the prims model (no bit differing); the
+     gradient all_reduce's and the DP step's times; beside them `cli
+     train` of prims for NCCL_TRAIN_STEPS steps under `python -m
+     torch.distributed.run --nproc-per-node 1` (the group forms under
+     NCCL, the loss falls);
+ 16. print the kernels' JSON line, then the status line.
 In the `kernels` phase B5 (the grid walk) is held bit-equal to its plain
 version, dense at 16^3 and 128^3, with occupancy at 64^3 (the prims
 model's bitfield, coarse factor 4) and 32^3 (a random 8% bitfield, factor
@@ -165,12 +180,15 @@ an intervals eval chunk (a 128 x 128 view) and at 640,000 rays, 128^3,
 dense, 384 steps; B4 is held bit-equal at the march eval's shape (16^3
 pooling, 64 probes, 96 midpoints).
 Each phase prints its seconds.
-`--phases kernels,serve,train,resume,cdf,march,intervals,fields,scenes,options,geometry,bake`
+`--phases kernels,serve,train,resume,cdf,march,intervals,fields,scenes,options,geometry,bake,parallel`
 runs a subset (for development; the kernels' line then lists what ran).
 `--phases march_full` or `cdf_full`, which no default run includes (it
 would not fit the chip call's 1200 s), trains configs/procedural_hard_30db.json
 or configs/procedural_hard_fused_cdf2.json for its full 5000 steps against
-the reference's final record.  Files go under chiprun_out/
+the reference's final record; `--phases parallel_full` trains the prims
+config at parallel.data_parallel=2 and the progressive triplane at
+table_parallel=2 under the launcher with two ranks on the card, each to
+its one-rank gates (`PARALLEL_FULL_RUNS`).  Files go under chiprun_out/
 (git-ignored).
 """
 
@@ -422,12 +440,13 @@ HASH_BAKE_RECORD = os.path.join(REPO, "runs", "hard_r5_hashgrid_diffuse", "baked
 HASH_BAKE_RES = 320
 HASH_BAKE_PARITY_DB = 1.0
 ALL_PHASES = ("kernels", "serve", "train", "resume", "cdf", "march", "intervals", "fields",
-              "scenes", "options", "geometry", "bake")
+              "scenes", "options", "geometry", "bake", "parallel")
 # Not in the default run, which would not fit the chip call's 1200 s with them:
 # `march_full` and `cdf_full` train configs/procedural_hard_30db.json and
 # configs/procedural_hard_fused_cdf2.json for all their 5000 steps against
-# the reference's final records.
-EXTRA_PHASES = ("march_full", "cdf_full")
+# the reference's final records; `parallel_full` trains two configs under
+# the launcher with two ranks (about 310 s).
+EXTRA_PHASES = ("march_full", "cdf_full", "parallel_full")
 # Published H100 SXM peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -1671,7 +1690,8 @@ def profile_train_steps(config, ckpt_dir, tag, n_steps=20, encode=False):
     from tnerf_torch.data.dataset import load_data, scene_proc_kwargs
     from tnerf_torch.fields.nerf_field import NeRFField
     from tnerf_torch.grid.occupancy import renderer_payload
-    from tnerf_torch.train import PixelSampler, init_train_state, make_train_step
+    from tnerf_torch.cameras import Rays, camera_rays
+    from tnerf_torch.train import PixelSampler, RayBatch, init_train_state, make_train_step
     from tnerf_torch.train_loop import build_renderer, resolve_near_far
     from tnerf_torch.utils.checkpoint import load_train_checkpoint
 
@@ -3024,6 +3044,484 @@ def train_march_full():
     return launches
 
 
+# Phase `parallel`: two ranks share the one card under gloo (NCCL refuses two
+# ranks on one device), each check against one rank on the same inputs.
+PARALLEL_RANKS = 2
+PARALLEL_JOIN_S = 300
+PARALLEL_LOSS_RTOL = 1e-5
+PARALLEL_RENDER_ATOL = 1e-5        # the DP render of prims test view 0
+SP_RENDER_ATOL = 5e-5              # the intervals config's render at SP = 2
+# unfused gradients, per leaf, of its largest entry: the TP step runs the
+# one-rank step's products on the same rows (features gathered whole); the
+# SP step's run on half the samples a ray, products of another shape whose
+# f32 sums round in another order and flip single bf16 roundings of the
+# activations (the configs compute in bfloat16), hence B2_RTOL there
+GRAD_RTOL = 1e-4
+NCCL_TRAIN_STEPS = 50
+NCCL_STEP_REPS = 20
+
+
+def _rank_sum(results, key):
+    out = {k: 0 for k in kernel_counters()}
+    for r in results:
+        for k, n in r[key].items():
+            out[k] += n
+    return out
+
+
+def _max_rel(got, want):
+    """max over leaves of max |got - want| / max |want| (the leaves' names)."""
+    worst = 0.0
+    for k, w in want.items():
+        scale = float(w.abs().max()) or 1.0
+        worst = max(worst, float((got[k] - w).abs().max()) / scale)
+    return worst
+
+
+def _mu(state):
+    return {k: v.detach().clone() for k, v in state.optimizer.state["mu"].items()}
+
+
+def parallel_rank(rank, world, store, out, overrides=(), device="cuda"):
+    """The body of one rank of phase `parallel` (torch.multiprocessing.spawn):
+    the process group on a file store, this rank on cuda:0 under gloo.  Rank
+    0 computes every one-rank reference (no collective) and holds the
+    parallel results to it; every rank counts its kernels' launches in the
+    parallel runs alone and writes them to out/parallel_rank<r>.json.
+    (overrides, device="cpu": a rehearsal on the CPU at a small size.)"""
+    sys.path.insert(0, REPO)
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from tnerf_torch.config import Config
+    from tnerf_torch.fields.nerf_field import NeRFField
+    from tnerf_torch.grid.occupancy import init_occupancy, renderer_payload, update_occupancy
+    from tnerf_torch.parallel import comm
+    from tnerf_torch.parallel.mesh import dp_render_sharded, make_dp_train_step, make_mesh
+    from tnerf_torch.parallel.occupancy import sharded_density
+    from tnerf_torch.parallel.sample_parallel import make_sp_interval_renderer
+    from tnerf_torch.parallel.table_parallel import shard_field
+    from tnerf_torch.render.renderer import render_image
+    from tnerf_torch.cameras import Rays, camera_rays
+    from tnerf_torch.train import PixelSampler, RayBatch, init_train_state, make_train_step
+    from tnerf_torch.train_loop import build_renderer, load_datasets
+    from tnerf_torch.utils.checkpoint import load_jax_checkpoint
+
+    dev = comm.init_group(device, init_method=f"file://{store}", rank=rank, world_size=world,
+                          local_world_size=world)
+    main = rank == 0
+    report = {"backend": dist.get_backend(), "device": str(dev), "launches": {},
+              "checks": {}}
+    totals = {k: 0 for k in kernel_counters()}
+
+    def run_counted(name, fn):
+        """fn() with the launch counts set to 0 before and read after, on
+        every rank at once (the barrier keeps a rank's reference work out)."""
+        comm.barrier(dev)
+        result, launches = counted(fn)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        report["launches"][name] = launches
+        for k, n in launches.items():
+            totals[k] += n
+        return result
+
+    def check(name, value, bound):
+        report["checks"][name] = [value, bound]
+        if main and not value <= bound:
+            raise AssertionError(f"parallel {name}: {value} > {bound}")
+
+    def load(path):
+        return Config.from_json_file(path).apply_overrides(list(overrides))
+
+    def state_of(cfg, params=None, seed=0):
+        field = NeRFField(cfg.field_, cfg.grid, torch.Generator().manual_seed(seed)).to(dev)
+        if params is not None:
+            field.load_state_dict(params)
+        return init_train_state(field, cfg.train)
+
+    cfg = load(CONFIG)
+    _, params, occ = load_jax_checkpoint(CKPT, device=dev)
+    payload = renderer_payload(occ, cfg.sampler, cfg.grid)
+    data = load_datasets(cfg, splits=("train", "test"), device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    batch = PixelSampler(data["train"], cfg.scene.scene_scale, cfg.scene.white_background,
+                         dev).sample(gen, cfg.train.batch_size)
+    mesh = make_mesh(world, device=dev)
+
+    # (a) one fused DP step of the prims model: B3, B1, B2 on each rank's half
+    rend = build_renderer(cfg, for_eval=False)
+    if main:
+        one = one_dp = state_of(cfg, params)
+        aux1 = make_train_step(rend)(one, batch, payload)
+    dp = state_of(cfg, params)
+    step = make_dp_train_step(rend, mesh)
+    aux2 = run_counted("dp_step", lambda: step(dp, batch, payload))
+    if main:
+        l1, l2 = float(aux1["loss"]), float(aux2["loss"])
+        check("dp_step_loss_rel", abs(l2 - l1) / abs(l1), PARALLEL_LOSS_RTOL)
+        check("dp_step_grad_rel", _max_rel(_mu(dp), _mu(one)), B2_RTOL)
+
+    # (b) test view 0 at 400 x 400 through dp_render_sharded (B4, B1)
+    ds = data["test"]
+    rays = camera_rays(torch.as_tensor(ds.poses[0], device=dev), ds.width, ds.height, ds.camera,
+                       cfg.scene.scene_scale, device=dev)
+    erend = build_renderer(cfg, for_eval=True)
+    if main:
+        want = render_image(erend, params, rays, cfg.render.chunk_size, payload).rgb
+    got = run_counted("dp_render", lambda: render_image(erend, params, rays,
+                                                        cfg.render.chunk_size, payload,
+                                                        mesh=mesh).rgb)
+    if main:
+        check("dp_render_max_abs", float((got - want).abs().max()), PARALLEL_RENDER_ATOL)
+
+    # (c) the intervals config at SP = 2 (S = 48 x 16 = 768): one step and a
+    # render of its batch's rays, B5 on each rank
+    icfg = load(CONFIG_INTERVALS)
+    sp_mesh = make_mesh(1, "data", "sample", world, device=dev)
+    n = icfg.train.batch_size
+    ibatch = RayBatch(Rays(*(a[:n] for a in batch.rays)), batch.gt_rgb[:n])
+    ipay = renderer_payload(init_occupancy(icfg.grid, dev), icfg.sampler, icfg.grid)
+    irend = build_renderer(icfg, for_eval=False)
+    sprend = make_sp_interval_renderer(icfg.field_, icfg.grid, icfg.sampler, icfg.render, sp_mesh)
+    if main:
+        one = state_of(icfg, seed=icfg.train.seed)
+        with torch.no_grad():
+            want = irend(one.params, ibatch.rays, ipay).rgb
+        aux1 = make_train_step(irend)(one, ibatch, ipay)
+    sp = state_of(icfg, seed=icfg.train.seed)
+    step = make_dp_train_step(sprend, sp_mesh)
+
+    def sp_run():
+        with torch.no_grad():
+            rgb = dp_render_sharded(sprend, sp_mesh)(sp.params, ibatch.rays, ipay).rgb
+        return step(sp, ibatch, ipay), rgb
+
+    aux2, got = run_counted("sp_step", sp_run)
+    if main:
+        l1, l2 = float(aux1["loss"]), float(aux2["loss"])
+        check("sp_step_loss_rel", abs(l2 - l1) / abs(l1), PARALLEL_LOSS_RTOL)
+        check("sp_step_grad_rel", _max_rel(_mu(sp), _mu(one)), B2_RTOL)
+        check("sp_render_max_abs", float((got - want).abs().max()), SP_RENDER_ATOL)
+
+    # (d) the hash grid (L = 12) at TP = 2: one step, the segment sum on each rank
+    hcfg = load(CONFIG_HASH)
+    tp_mesh = make_mesh(1, "data", "model", world, device=dev)
+    hpay = renderer_payload(init_occupancy(hcfg.grid, dev), hcfg.sampler, hcfg.grid)
+    hgen = lambda: torch.Generator(device=dev).manual_seed(1)  # noqa: E731
+    if main:
+        one = state_of(hcfg, seed=hcfg.train.seed)
+        aux1 = make_train_step(build_renderer(hcfg, for_eval=False, compact=False))(
+            one, batch, hpay, hgen())
+    tp = state_of(hcfg, seed=hcfg.train.seed)
+    shard = shard_field(tp.field, tp_mesh)
+    tp = init_train_state(tp.field, hcfg.train)
+    trend = build_renderer(dataclasses.replace(hcfg, field_=tp.field.config), for_eval=False,
+                           compact=False)
+    step = make_dp_train_step(trend, tp_mesh)
+    aux2 = run_counted("tp_step", lambda: step(tp, batch, hpay, hgen()))
+    from tnerf_torch.parallel.table_parallel import full_tree
+
+    mu2 = full_tree(_mu(tp), shard)
+    if main:
+        l1, l2 = float(aux1["loss"]), float(aux2["loss"])
+        check("tp_step_loss_rel", abs(l2 - l1) / abs(l1), PARALLEL_LOSS_RTOL)
+        check("tp_step_grad_rel", _max_rel(mu2, _mu(one)), GRAD_RTOL)
+
+    # (e) the sharded occupancy refresh of the prims model on its grid (64^3)
+    field = state_of(cfg, params).field
+    density = lambda x: field.density(x)  # noqa: E731
+    jit = torch.rand((cfg.grid.resolution,) * 3 + (3,), generator=gen, device=dev) - 0.5
+    got = run_counted("occupancy", lambda: update_occupancy(occ, sharded_density(density, mesh),
+                                                            cfg.grid, jitter=jit))
+    if main:
+        want = update_occupancy(occ, density, cfg.grid, jitter=jit)
+        check("occupancy_bits_differing", int((got.bitfield != want.bitfield).sum()), 0)
+        report["occupancy_ema_max_abs"] = float((got.density_ema - want.density_ema).abs().max())
+    report["totals"] = totals
+
+    # the collectives' cost on this card: the DP step's gradient all_reduce
+    # (the prims model's flat gradient, float32) and the whole DP step
+    def host_ms(fn, reps, together=True):
+        fn()
+        if together:
+            comm.barrier(dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    flat = torch.cat([p.detach().reshape(-1) for p in dp.params.values()])
+    report["allreduce_bytes"] = flat.numel() * flat.element_size()
+    report["allreduce_ms"] = host_ms(lambda: comm.all_reduce_(flat, mesh.replica), 20)
+    step = make_dp_train_step(rend, mesh)
+    report["dp_step_ms"] = host_ms(lambda: step(dp, batch, payload), 10)
+    comm.barrier(dev)
+    if main:  # one rank alone on the card, the other waiting
+        report["one_rank_step_ms"] = host_ms(lambda: make_train_step(rend)(one_dp, batch,
+                                                                          payload), 10, False)
+    comm.barrier(dev)
+    with open(os.path.join(out, f"parallel_rank{rank}.json"), "w") as fh:
+        json.dump(report, fh)
+    dist.destroy_process_group()
+
+
+def spawn_ranks(fn, world, *args):
+    """fn(rank, world, store, *args) on `world` processes
+    (torch.multiprocessing.spawn), each waited for at most PARALLEL_JOIN_S
+    seconds; a rank's exception fails the caller."""
+    import torch.multiprocessing as mp
+
+    store = os.path.join(OUT, "parallel_store")
+    if os.path.exists(store):
+        os.remove(store)
+    ctx = mp.spawn(fn, args=(world, store) + args, nprocs=world, join=False)
+    deadline = time.perf_counter() + PARALLEL_JOIN_S
+    while not ctx.join(timeout=max(1.0, deadline - time.perf_counter())):
+        if time.perf_counter() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"{world} ranks did not finish in {PARALLEL_JOIN_S} s")
+
+
+def launcher_argv(nproc, argv):
+    """`python -m torch.distributed.run --standalone --nproc-per-node nproc`
+    of `argv` (a rendezvous on localhost)."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc-per-node={nproc}"] + list(argv)
+
+
+def run_launched(nproc, argv, timeout):
+    """The launcher's run of argv from the checkout: (stdout, stderr); a
+    non-zero exit fails the phase."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(launcher_argv(nproc, argv), cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(launcher_argv(nproc, argv))} exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-8000:]}")
+    return proc.stdout, proc.stderr
+
+
+def nccl_step_job(result_path, marker, argv):
+    """The body of the launched one-rank run of phase `parallel`
+    (`chip_smoke.py --nccl-job PATH MARKER ARGV...` under
+    torch.distributed.run): `tnerf_torch.cli` with argv, whose run forms
+    the group of one under NCCL; then, once the file MARKER exists (the
+    two gloo ranks are done, so the card is this process's alone), in that
+    group the prims step timed on the mesh of one rank
+    (`make_train_step(mesh=)`: the gradient and aux all_reduces) and off it
+    (the step a run that was not launched takes), in blocks of
+    NCCL_STEP_REPS steps in the order off, on, on, off.  Writes the times
+    to PATH."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    from tnerf_torch.config import Config
+    from tnerf_torch.fields.nerf_field import NeRFField
+    from tnerf_torch.grid.occupancy import renderer_payload
+    from tnerf_torch.parallel.mesh import make_mesh
+    from tnerf_torch.train import PixelSampler, init_train_state, make_train_step
+    from tnerf_torch.train_loop import build_renderer, load_datasets
+    from tnerf_torch.utils.checkpoint import load_jax_checkpoint
+
+    run_cli(argv)
+    deadline = time.perf_counter() + PARALLEL_JOIN_S
+    while not os.path.exists(marker):
+        if time.perf_counter() > deadline:
+            raise TimeoutError(f"{marker} did not appear in {PARALLEL_JOIN_S} s")
+        time.sleep(0.2)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = Config.from_json_file(CONFIG)
+    _, params, occ = load_jax_checkpoint(CKPT, device=dev)
+    payload = renderer_payload(occ, cfg.sampler, cfg.grid)
+    data = load_datasets(cfg, splits=("train",), device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    batch = PixelSampler(data["train"], cfg.scene.scene_scale, cfg.scene.white_background,
+                         dev).sample(gen, cfg.train.batch_size)
+    rend = build_renderer(cfg, for_eval=False)
+
+    def state():
+        field = NeRFField(cfg.field_, cfg.grid, torch.Generator().manual_seed(0)).to(dev)
+        field.load_state_dict(params)
+        return init_train_state(field, cfg.train)
+
+    steps = {"off": (make_train_step(rend), state()),
+             "on": (make_train_step(rend, mesh=make_mesh(-1, device=dev)), state())}
+    times = {"off": [], "on": []}
+    for name in ("off", "on", "on", "off"):
+        step, st = steps[name]
+        step(st, batch, payload)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(NCCL_STEP_REPS):
+            step(st, batch, payload)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3 / NCCL_STEP_REPS)
+    with open(result_path, "w") as fh:
+        json.dump(times, fh)
+
+
+def nccl_train(marker):
+    """`python -m torch.distributed.run --nproc-per-node 1` of `tnerf_torch.cli
+    train` of the prims config for NCCL_TRAIN_STEPS steps: the group forms
+    under NCCL (one rank, one card) and the loss falls; then, once the file
+    `marker` exists, the step on the mesh of one rank against the step off
+    it (`nccl_step_job`).  Returns the step times."""
+    import shutil
+
+    out_dir = os.path.join(OUT, "train_nccl")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    result = os.path.join(OUT, "nccl_steps.json")
+    t0 = time.perf_counter()
+    _, err = run_launched(1, [
+        os.path.join(REPO, "chip_smoke.py"), "--nccl-job", result, marker,
+        "train", "--config", CONFIG, "--out", out_dir,
+        "-o", f"train.steps={NCCL_TRAIN_STEPS}", "-o", "train.log_every=10",
+        "-o", "train.eval_every=0", "-o", "train.checkpoint_every=0",
+        "-o", "scene.proc_n_train=8", "-o", "scene.proc_n_val=1", "-o", "scene.proc_n_test=1",
+        "-o", "train.assert_test_psnr_min=0"],  # 50 steps: the config's 28 dB gate is for 1500
+        timeout=PARALLEL_JOIN_S)
+    _, losses, final = last_window(os.path.join(out_dir, "metrics.jsonl"))
+    backend = "backend nccl" in err
+    with open(result) as fh:
+        times = json.load(fh)
+    os.remove(result)
+    print(f"parallel nccl train ({time.perf_counter() - t0:.1f} s): backend nccl {backend}, "
+          f"losses {['%.3e' % x for x in losses]}, psnr_test {final['psnr_test']:.4f}; the "
+          f"prims step in that group of one, ms over {NCCL_STEP_REPS} steps, blocks off / on / "
+          f"on / off: on the mesh {[round(t, 3) for t in times['on']]}, off it (as a run that "
+          f"was not launched) {[round(t, 3) for t in times['off']]}", flush=True)
+    if not backend or not losses[-1] < losses[0]:
+        raise AssertionError(f"the launched run under NCCL: backend logged {backend}, losses "
+                             f"{losses}")
+    return times
+
+
+def parallel_checks():
+    """Phase `parallel`: two ranks on the one card under gloo
+    (`parallel_rank`), each parallel form against one rank on the same
+    inputs, beside `nccl_train` (a process of its own, started first, which
+    times its steps once the ranks are done)."""
+    import concurrent.futures
+
+    import torch
+
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the ranks' processes
+    marker = os.path.join(OUT, "parallel_ranks_done")
+    if os.path.exists(marker):
+        os.remove(marker)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        nccl = pool.submit(nccl_train, marker)
+        t0 = time.perf_counter()
+        try:
+            spawn_ranks(parallel_rank, PARALLEL_RANKS, OUT)
+        finally:  # the NCCL run goes on to its end either way
+            open(marker, "w").close()
+        ranks_s = time.perf_counter() - t0
+        nccl.result()
+    os.remove(marker)
+    results = []
+    for r in range(PARALLEL_RANKS):
+        path = os.path.join(OUT, f"parallel_rank{r}.json")
+        with open(path) as fh:
+            results.append(json.load(fh))
+        os.remove(path)
+    print(f"parallel: {PARALLEL_RANKS} ranks on one card, backend {results[0]['backend']}, "
+          f"{ranks_s:.1f} s; checks {json.dumps(results[0]['checks'])}", flush=True)
+    print(f"parallel timing (two ranks sharing one card, not a scaling figure): gradient "
+          f"all_reduce of {results[0]['allreduce_bytes']} bytes "
+          f"{[round(r['allreduce_ms'], 3) for r in results]} ms per call on ranks 0 and 1; "
+          f"DP step of 8192 rays {[round(r['dp_step_ms'], 3) for r in results]} ms; one rank "
+          f"alone {results[0]['one_rank_step_ms']:.3f} ms", flush=True)
+    for name, counts in results[0]["launches"].items():
+        print(f"parallel {name}: rank 0 launches {json.dumps(counts)}", flush=True)
+    need = {"dp_step": ("tighten_range", "fused_forward", "fused_backward"),
+            "dp_render": ("fused_forward",), "sp_step": ("dda_march",),
+            "tp_step": ("segment_sum",)}
+    for r in results:
+        for name, kernels in need.items():
+            if min(r["launches"][name][k] for k in kernels) < 1:
+                raise AssertionError(f"parallel {name}: a kernel of {kernels} was not launched "
+                                     f"on every rank: {r['launches'][name]}")
+    return _rank_sum(results, "totals")
+
+
+# Phase `parallel_full`: the entry point under the launcher with two ranks
+# on the one card (gloo), trained to the end against the gates the one-rank
+# runs are held to.  Two processes share one card: the times are not a
+# scaling figure.
+PARALLEL_FULL_RUNS = (
+    ("train_dp2", CONFIG, ["parallel.data_parallel=2"], JAX_PSNR_TEST),
+    ("train_triplane_tp2", CONFIG_TRIPLANE, ["parallel.table_parallel=2"],
+     JAX_TRIPLANE_PSNR_TEST),
+)
+
+
+def cli_rank_job(result_prefix, argv):
+    """The body of a launched rank of phase `parallel_full` (`chip_smoke.py
+    --rank-job PREFIX ARGV...` under torch.distributed.run): the entry
+    point `tnerf_torch.cli` with its kernels' launches counted, written to
+    PREFIX.rank<RANK>.json."""
+    sys.path.insert(0, REPO)
+    text, launches = counted(lambda: run_cli(argv))
+    with open(f"{result_prefix}.rank{os.environ['RANK']}.json", "w") as fh:
+        json.dump({"text": text, "launches": launches}, fh)
+
+
+def parallel_full():
+    """Phase `parallel_full` (not in the default run): `cli train` under the
+    launcher with two ranks of the prims config at parallel.data_parallel=2
+    (1500 steps) and of the progressive triplane at table_parallel=2, each
+    within TRAIN_PSNR_MARGIN_DB of the reference's record and over its
+    config's gate."""
+    import shutil
+
+    launches = {k: 0 for k in kernel_counters()}
+    for name, config, overrides, reference in PARALLEL_FULL_RUNS:
+        out_dir = os.path.join(OUT, name)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        prefix = os.path.join(OUT, f"job_{name}")
+        argv = ["train", "--config", config, "--out", out_dir]
+        for ov in overrides:
+            argv += ["-o", ov]
+        t0 = time.perf_counter()
+        run_launched(PARALLEL_RANKS, [os.path.join(REPO, "chip_smoke.py"), "--rank-job", prefix]
+                     + argv, timeout=3000)
+        seconds = time.perf_counter() - t0
+        cfg = load_config(config, overrides)
+        results = []
+        for r in range(PARALLEL_RANKS):
+            with open(f"{prefix}.rank{r}.json") as fh:
+                results.append(json.load(fh))
+            os.remove(f"{prefix}.rank{r}.json")
+        final = json.loads(results[0]["text"])
+        last, _, _ = last_window(os.path.join(out_dir, "metrics.jsonl"))
+        for r in results:
+            for k, n in r["launches"].items():
+                launches[k] += n
+        print(f"{name}: {PARALLEL_RANKS} ranks sharing one card (not a scaling figure), "
+              f"{seconds:.1f} s in all, last window {last['step_seconds'] * 1e3:.3f} ms/step, "
+              f"psnr_test {final['psnr_test']:.4f} dB (reference {reference:.4f}, worst view "
+              f"{final['psnr_test_min']:.4f}), launches rank 0 {json.dumps(results[0]['launches'])}",
+              flush=True)
+        if config == CONFIG_TRIPLANE:
+            shutil.rmtree(os.path.join(out_dir, "checkpoints"))  # chiprun_out/ must stay small
+        check_trained(name, cfg, final)
+        if abs(final["psnr_test"] - reference) > TRAIN_PSNR_MARGIN_DB:
+            raise AssertionError(f"{name}: test PSNR {final['psnr_test']} is not within "
+                                 f"{TRAIN_PSNR_MARGIN_DB} dB of the reference's {reference}")
+    return launches
+
+
 def run_phases(phases):
     """The phases named in `phases`, in the script's order: (kernels' rows,
     launch counts of the main paths)."""
@@ -3097,6 +3595,12 @@ def run_phases(phases):
     if "cdf_full" in phases:
         add(train_cdf_full())
         phase_done("cdf_full")
+    if "parallel" in phases:
+        add(parallel_checks())
+        phase_done("parallel")
+    if "parallel_full" in phases:
+        add(parallel_full())
+        phase_done("parallel_full")
 
     return rows, launches
 
@@ -3104,6 +3608,12 @@ def run_phases(phases):
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--rank-job"]:  # a launched rank of phase `parallel_full`
+        cli_rank_job(sys.argv[2], sys.argv[3:])
+        return 0
+    if sys.argv[1:2] == ["--nccl-job"]:  # the launched one-rank run of phase `parallel`
+        nccl_step_job(sys.argv[2], sys.argv[3], sys.argv[4:])
+        return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help=f"comma list of {', '.join(ALL_PHASES + EXTRA_PHASES)} (default: "

@@ -296,10 +296,19 @@ def test_training_options_this_slice_does_not_run_are_refused():
     # a mesh-bounded scene is ported: the option validates (the mesh is read
     # when the run builds its occupancy grid)
     validate_ported(cfg.apply_overrides(["grid.mesh_path=mesh.obj"]), for_eval=False)
-    for ov in ("parallel.data_parallel=2", "parallel.sample_parallel=2",
-               "parallel.table_parallel=2"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            validate_ported(cfg.apply_overrides([ov]), for_eval=False)
+    # the parallel axes are ported: each validates where the reference
+    # accepts it, and raises the reference's own error where it raises
+    # (`tnerf/train_loop.py:558-574`)
+    validate_ported(cfg.apply_overrides(["parallel.data_parallel=2"]), for_eval=False)
+    intervals = cfg.apply_overrides(["render.pipeline=grid_intervals"])
+    validate_ported(intervals.apply_overrides(["parallel.sample_parallel=2"]), for_eval=False)
+    hashgrid = cfg.apply_overrides(["render.pipeline=grid_march", "field_.encoding=hashgrid",
+                                    "field_.view_encoding=sh"])
+    validate_ported(hashgrid.apply_overrides(["parallel.table_parallel=2"]), for_eval=False)
+    with pytest.raises(ValueError, match="parallel.sample_parallel shards the grid_intervals"):
+        validate_ported(cfg.apply_overrides(["parallel.sample_parallel=2"]), for_eval=False)
+    with pytest.raises(ValueError, match="parallel.table_parallel shards hash-grid level"):
+        validate_ported(cfg.apply_overrides(["parallel.table_parallel=2"]), for_eval=False)
     # pose refinement is ported: refused on the fused pipeline with the
     # reference's own error (the kernel's VJP has no ray-geometry gradient)
     poses = cfg.apply_overrides(["train.optimize_poses=true", "train.pose_lr_mult=0.5"])

@@ -225,9 +225,12 @@ def main(argv=None) -> int:
             print(line)
         return 0
     if args.cmd == "train":
+        from tnerf_torch.parallel import comm
         from tnerf_torch.train_loop import run_training
 
-        print(json.dumps(run_training(cfg, device=args.device), indent=2))
+        final = run_training(cfg, device=args.device)
+        if comm.global_rank() == 0:
+            print(json.dumps(final, indent=2))
         return 0
     if args.cmd == "suite":
         return _run_suite(cfg, args.scenes.split(","), args.device)
@@ -251,7 +254,8 @@ def main(argv=None) -> int:
     from tnerf_torch.utils.checkpoint import load_jax_checkpoint
 
     validate_ported(cfg)
-    dev = resolve_device(args.device)
+    dev, mesh = _eval_mesh(cfg, resolve_device(args.device))
+    main = mesh is None or mesh.rank == 0
     channels = []
     if args.cmd == "render":
         channels = [c.strip() for c in args.channels.split(",") if c.strip()]
@@ -285,7 +289,8 @@ def main(argv=None) -> int:
     ndc = ndc_near_or_none(cfg)
     ckpt_dir = args.checkpoint or os.path.join(cfg.logging.out_dir, "checkpoints")
     step, params, occ = load_jax_checkpoint(ckpt_dir, device=dev, ema=cfg.train.param_ema > 0)
-    print(f"restored step {step} from {ckpt_dir}", file=sys.stderr)
+    if main:
+        print(f"restored step {step} from {ckpt_dir}", file=sys.stderr)
     payload = renderer_payload(occ, cfg.sampler, cfg.grid)
     renderer = build_renderer(cfg, for_eval=True)
     # Capacity guards: the keep fraction depends on the restored occupancy
@@ -308,7 +313,7 @@ def main(argv=None) -> int:
     kf = 1.0
     if guard_on:
         kf = ray_keep_fraction(probe_rays, occ.bitfield, cfg, guard_pool, guard_mid)
-        if kf > cfg.render.ray_compact_fraction:
+        if kf > cfg.render.ray_compact_fraction and main:
             print(
                 f"WARNING: ray-compaction keep fraction {kf:.3f} on the "
                 f"probe view exceeds render.ray_compact_fraction="
@@ -322,7 +327,7 @@ def main(argv=None) -> int:
 
         sf = float(cdf_occupied_sample_fraction(probe_rays, payload, cfg.grid, cfg.sampler))
         needed = sf / max(kf, 1e-6) if guard_on else sf
-        if needed > cfg.render.compact_fraction:
+        if needed > cfg.render.compact_fraction and main:
             print(
                 f"WARNING: occupancy-CDF occupied-sample fraction "
                 f"{needed:.3f} (probe view, per kept ray) exceeds "
@@ -340,10 +345,13 @@ def main(argv=None) -> int:
             if split in datasets:
                 out.update(evaluate(
                     renderer, params, datasets[split], cfg.scene.scene_scale,
-                    white_background=cfg.scene.white_background, save_dir=args.save_renders,
+                    white_background=cfg.scene.white_background,
+                    save_dir=args.save_renders if main else None,
                     chunk_size=cfg.render.chunk_size, occupancy=payload, device=dev,
-                    ndc_near=ndc,
+                    ndc_near=ndc, mesh=mesh,
                 ))
+        if not main:
+            return 0
         text = json.dumps(out, indent=2)
         print(text)
         if args.out:
@@ -371,16 +379,20 @@ def main(argv=None) -> int:
                 float(np.arcsin(np.clip(eyes[:, 2] / np.maximum(norms, 1e-9), -1, 1)).mean()))
         seq_poses, seq_tag = list(orbit_poses(args.orbit, radius, elev)), "orbit"
     if seq_poses is not None:
-        os.makedirs(args.out, exist_ok=True)
+        if main:
+            os.makedirs(args.out, exist_ok=True)
         results, ms = [], []
         for pose in seq_poses:
             _sync(dev)
             t0 = time.perf_counter()
             results.append(render_pose_result(
                 renderer, params, pose, ds.width, ds.height, ds.camera, cfg.scene.scene_scale,
-                chunk_size=cfg.render.chunk_size, occupancy=payload, device=dev, ndc_near=ndc))
+                chunk_size=cfg.render.chunk_size, occupancy=payload, device=dev, ndc_near=ndc,
+                mesh=mesh))
             _sync(dev)
             ms.append((time.perf_counter() - t0) * 1e3)
+        if not main:
+            return 0
         depth_range = (None, None)
         if "depth" in channels:
             # one exposure for the whole sequence, so frames do not flicker
@@ -427,7 +439,9 @@ def main(argv=None) -> int:
     res = render_pose_result(renderer, params, ds.poses[args.pose_index], ds.width, ds.height,
                              ds.camera, cfg.scene.scene_scale,
                              chunk_size=cfg.render.chunk_size, occupancy=payload, device=dev,
-                             ndc_near=ndc, pose_delta=pose_delta)
+                             ndc_near=ndc, pose_delta=pose_delta, mesh=mesh)
+    if not main:
+        return 0
     base, ext = os.path.splitext(args.out)
     for ch in channels:
         path = args.out if ch == "rgb" or len(channels) == 1 else f"{base}_{ch}{ext or '.png'}"
@@ -569,6 +583,24 @@ def _run_bake(args, cfg: Config) -> int:
     return 0
 
 
+def _eval_mesh(cfg: Config, dev):
+    """(this rank's device, the eval's data-parallel mesh or None) of
+    `eval`, `render` and `suite` (`tnerf/cli.py:436-444`): launched by
+    `python -m torch.distributed.run`, every chunk's rays split over
+    parallel.data_parallel ranks (-1: every rank), rank 0 writing; not
+    launched, parallel.data_parallel = -1 is one device and no mesh."""
+    from tnerf_torch.parallel import comm
+    from tnerf_torch.parallel.mesh import make_mesh
+
+    rank_dev = comm.init_from_env(dev)
+    dev = dev if rank_dev is None else rank_dev
+    n_dp = cfg.parallel.data_parallel
+    n_dp = comm.world_size() if n_dp == -1 else n_dp
+    if rank_dev is None and n_dp == 1:
+        return dev, None
+    return dev, make_mesh(n_dp, cfg.parallel.axis_name, device=dev)
+
+
 def _run_suite(cfg: Config, scenes, device) -> int:
     """`suite` (`tnerf/cli.py:824`): the test split of each scene evaluated
     from <out_dir>/<scene>/checkpoints (the eval parameters: the weight EMA
@@ -588,7 +620,8 @@ def _run_suite(cfg: Config, scenes, device) -> int:
     )
     from tnerf_torch.utils.checkpoint import load_jax_checkpoint
 
-    dev = resolve_device(device)
+    dev, mesh = _eval_mesh(cfg, resolve_device(device))
+    main = mesh is None or mesh.rank == 0
     results = {}
     for scene in scenes:
         scene = scene.strip()
@@ -613,12 +646,15 @@ def _run_suite(cfg: Config, scenes, device) -> int:
         results[scene] = evaluate(
             renderer, params, datasets["test"], scfg.scene.scene_scale,
             white_background=scfg.scene.white_background,
-            save_dir=os.path.join(scfg.logging.out_dir, "suite_renders"),
+            save_dir=os.path.join(scfg.logging.out_dir, "suite_renders") if main else None,
             chunk_size=scfg.render.chunk_size,
             occupancy=renderer_payload(occ, scfg.sampler, scfg.grid), device=dev,
-            ndc_near=ndc_near_or_none(scfg),
+            ndc_near=ndc_near_or_none(scfg), mesh=mesh,
         )
-        print(f"{scene}: {results[scene]}", file=sys.stderr)
+        if main:
+            print(f"{scene}: {results[scene]}", file=sys.stderr)
+    if results and not main:
+        return 0
     if results:
         mean_psnr = sum(r["psnr_test"] for r in results.values()) / len(results)
         print(json.dumps({"scenes": results, "mean_psnr_test": mean_psnr}, indent=2))

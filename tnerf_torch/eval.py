@@ -52,12 +52,13 @@ def ssim(pred: np.ndarray, gt: np.ndarray, window: int = 11, sigma: float = 1.5)
 
 def render_pose_result(renderer, params, pose, width: int, height: int, camera,
                        scene_scale: float, chunk_size: int = 65536, occupancy=None,
-                       device="cuda", ndc_near=None, pose_delta=None) -> RenderResult:
+                       device="cuda", ndc_near=None, pose_delta=None, mesh=None) -> RenderResult:
     """Full RenderResult of one camera pose, as host numpy arrays.
     pose_delta: an [6] SE(3) delta composed onto the pose first (a train
     view of a pose-refined checkpoint, `cli render --refined-poses`);
     ndc_near: scene.ndc's near plane (None = off), the rays warped as the
-    reference's eval warps them (`cameras.ndc_warp`, eager=True)."""
+    reference's eval warps them (`cameras.ndc_warp`, eager=True).  mesh:
+    the rays of each chunk split over its "data" axis (`render_image`)."""
     dev = resolve_device(device)
     pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
     if pose_delta is not None:
@@ -66,27 +67,29 @@ def render_pose_result(renderer, params, pose, width: int, height: int, camera,
     rays = camera_rays(pose, width, height, camera, scene_scale, device=dev)
     if ndc_near is not None:
         rays = ndc_warp(rays, width, height, camera, ndc_near, eager=True)
-    res = render_image(renderer, params, rays, chunk_size=chunk_size, occupancy=occupancy)
+    res = render_image(renderer, params, rays, chunk_size=chunk_size, occupancy=occupancy,
+                       mesh=mesh)
     return RenderResult(*(a.cpu().numpy() for a in res))
 
 
 def render_dataset_view_result(renderer, params, dataset: ImageDataset, index: int,
                                scene_scale: float, chunk_size: int = 65536,
                                occupancy=None, device="cuda", ndc_near=None,
-                               pose_delta=None) -> RenderResult:
+                               pose_delta=None, mesh=None) -> RenderResult:
     """RenderResult (rgb + acc + expected depth) of one dataset pose, as
     host numpy arrays (`tnerf/eval.py:54`)."""
     return render_pose_result(renderer, params, dataset.poses[index], dataset.width,
                               dataset.height, dataset.camera, scene_scale,
                               chunk_size=chunk_size, occupancy=occupancy, device=device,
-                              ndc_near=ndc_near, pose_delta=pose_delta)
+                              ndc_near=ndc_near, pose_delta=pose_delta, mesh=mesh)
 
 
 def render_dataset_view(renderer, params, dataset: ImageDataset, index: int,
                         scene_scale: float, chunk_size: int = 65536, occupancy=None,
-                        device="cuda", ndc_near=None) -> np.ndarray:
+                        device="cuda", ndc_near=None, mesh=None) -> np.ndarray:
     return render_dataset_view_result(renderer, params, dataset, index, scene_scale,
-                                      chunk_size, occupancy, device, ndc_near).rgb
+                                      chunk_size, occupancy, device, ndc_near,
+                                      mesh=mesh).rgb
 
 
 def hit_depths(depth: np.ndarray, acc: np.ndarray, acc_threshold: float = 0.1) -> tuple:
@@ -122,10 +125,12 @@ def acc_image(acc: np.ndarray) -> np.ndarray:
 def evaluate(renderer, params, dataset: ImageDataset, scene_scale: float,
              white_background: bool = True, max_views: Optional[int] = None,
              save_dir: Optional[str] = None, chunk_size: int = 65536, occupancy=None,
-             device="cuda", ndc_near=None) -> Dict[str, float]:
+             device="cuda", ndc_near=None, mesh=None) -> Dict[str, float]:
     """Mean PSNR / SSIM over (up to max_views of) a split, and the mean
     host-clock time to render a view (rays to host numpy); optionally
-    write each view's render as <save_dir>/<split>_###.png."""
+    write each view's render as <save_dir>/<split>_###.png.  mesh: every
+    rank of it calls this alike, each rendering its share of every chunk
+    (`render_image`); pass save_dir on one rank only."""
     gt = dataset.composited(white_background)
     n = len(dataset) if max_views is None else min(max_views, len(dataset))
     if save_dir:
@@ -135,7 +140,8 @@ def evaluate(renderer, params, dataset: ImageDataset, scene_scale: float,
         t0 = time.perf_counter()
         # the copy to host numpy waits for the device, so this times the view
         pred = render_dataset_view(renderer, params, dataset, i, scene_scale, chunk_size,
-                                   occupancy=occupancy, device=device, ndc_near=ndc_near)
+                                   occupancy=occupancy, device=device, ndc_near=ndc_near,
+                                   mesh=mesh)
         ms.append((time.perf_counter() - t0) * 1e3)
         psnrs.append(psnr(pred, gt[i]))
         ssims.append(ssim(pred, gt[i]))

@@ -257,27 +257,33 @@ def apply_hashgrid(tables: torch.Tensor, x01: torch.Tensor, cfg) -> torch.Tensor
 
 
 def apply_hashgrid_gather(tables: torch.Tensor, x01: torch.Tensor, cfg,
-                          lookup_dtype=torch.float32) -> torch.Tensor:
+                          lookup_dtype=torch.float32, levels=None) -> torch.Tensor:
     """The gather form (`tnerf/fields/hashgrid.py:193`): the first K =
     hash_nearest_levels levels read their nearest vertex (weight 1), the
     others sum w * table[idx] over the eight corners in the reference's
     order, starting from zero.  lookup_dtype rounds the table values and
-    their cotangents as the one-hot form does (`rounded_lookup`)."""
+    their cotangents as the one-hot form does (`rounded_lookup`).
+    levels=(l0, l1): the features of levels [l0, l1) only, from `tables`
+    holding just those levels' rows (a table-parallel rank's block)."""
     L, F = cfg.hash_levels, cfg.hash_features_per_level
-    K = cfg.hash_nearest_levels
+    l0, l1 = (0, L) if levels is None else levels
+    K = min(max(cfg.hash_nearest_levels - l0, 0), l1 - l0)  # nearest levels of the block
     T = 1 << cfg.hash_log2_table_size
     _, _, dense_fits, n1, level_off = _constants(cfg, x01.device)
+    dense_fits, n1, level_off = dense_fits[l0:l1], n1[l0:l1], level_off[:l1 - l0]
     i0, frac = _level_geometry(x01, cfg)
+    i0, frac = i0[..., l0:l1, :], frac[..., l0:l1, :]
+    Lb = l1 - l0
     parts = []
     if K:
         idxn = _nearest_index(i0[..., :K, :], frac[..., :K, :], dense_fits[:K], n1[:K], T)
         parts.append(rounded_lookup(tables, idxn + level_off[:K], lookup_dtype))
-    if K < L:
-        lin = torch.zeros((*x01.shape[:-1], L - K, F), dtype=torch.float32, device=x01.device)
+    if K < Lb:
+        lin = torch.zeros((*x01.shape[:-1], Lb - K, F), dtype=torch.float32, device=x01.device)
         geom = (i0[..., K:, :], frac[..., K:, :], dense_fits[K:], n1[K:])
         for c in range(8):
             idx, w = _corner_index_weight(c, *geom, T)
             lin = lin + w[..., None] * rounded_lookup(tables, idx + level_off[K:], lookup_dtype)
         parts.append(lin)
     out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
-    return out.reshape(*x01.shape[:-1], L * F)
+    return out.reshape(*x01.shape[:-1], Lb * F)

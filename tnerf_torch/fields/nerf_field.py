@@ -92,7 +92,9 @@ def encode_positions(params: Dict[str, torch.Tensor], field_cfg, grid_cfg,
     encoding of the [-1, 1]^3 position, BARF-windowed where params hold a
     `freq_alpha` (train.freq_anneal_steps; `nerf_field.py:113`, the alpha
     with its gradient cut), or the table encoding of the [0, 1]^3 position
-    0.5 (normalized + 1) (`nerf_field.py:129`)."""
+    0.5 (normalized + 1) (`nerf_field.py:129`); a field config with a
+    `table_shard` (`parallel/table_parallel.with_table_shard`) encodes
+    from this rank's block of the tables and gathers the features."""
     xn = normalize_positions(positions, grid_cfg)
     enc = field_cfg.encoding
     if enc == "frequency":
@@ -101,6 +103,13 @@ def encode_positions(params: Dict[str, torch.Tensor], field_cfg, grid_cfg,
             window = barf_window(params["freq_alpha"].detach(), field_cfg.n_frequencies)
         return frequency_encoding(xn, field_cfg.n_frequencies, window=window)
     xn01 = 0.5 * (xn + 1.0)
+    shard = getattr(field_cfg, "table_shard", None)
+    if shard is not None:  # table-parallel (`nerf_field.py:64-140`)
+        from tnerf_torch.parallel import table_parallel as tp
+
+        if enc == "hashgrid":
+            return tp.tp_apply_hashgrid(params, xn01, field_cfg, shard)
+        return tp.tp_apply_triplane(params, xn01, field_cfg, shard)
     if enc == "hashgrid":
         return apply_hashgrid(params["hashgrid.tables"], xn01, field_cfg)
     if enc == "triplane":

@@ -38,7 +38,7 @@ def make_uniform_renderer(field_cfg, grid_cfg, sampler_cfg, render_cfg,
 
 @torch.no_grad()
 def render_image(renderer, params, rays: Rays, chunk_size: int = 65536,
-                 occupancy=None) -> RenderResult:
+                 occupancy=None, mesh=None) -> RenderResult:
     """Render an [H, W] ray grid in chunks of chunk_size rays
     (`tnerf/render/renderer.py:101`).
 
@@ -50,7 +50,14 @@ def render_image(renderer, params, rays: Rays, chunk_size: int = 65536,
     so this is what makes a view smaller than a chunk get the reference's
     capacity (render.ray_compact_fraction / compact_fraction of a whole
     chunk) with its real rays first; each ray's result does not depend on
-    its chunk."""
+    its chunk.  With `mesh` (`parallel.mesh.make_mesh`), each chunk's rays
+    are split over its data axis and the results gathered
+    (`parallel.mesh.dp_render_sharded`): every rank of the mesh calls this
+    with the same rays and gets the whole image."""
+    if mesh is not None:
+        from tnerf_torch.parallel.mesh import dp_render_sharded
+
+        renderer = dp_render_sharded(renderer, mesh)
     h, w = rays.origins.shape[:2]
     n = h * w
     n_chunks = max(1, -(-n // chunk_size))

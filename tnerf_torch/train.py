@@ -117,19 +117,29 @@ class Optimizer:
             lr = torch.where(c < self.warmup, cfg.lr * c / self.warmup, lr)
         return lr
 
-    @torch.no_grad()
     def step(self, grads: List[torch.Tensor]) -> None:
         """One loop step from gradients in parameter order."""
+        self.step_flat(torch.cat([x.reshape(-1) for x in grads]).to(torch.float32))
+
+    @torch.no_grad()
+    def step_flat(self, g: torch.Tensor, sync=None) -> None:
+        """One loop step from the gradients flattened in parameter order
+        (float32).  sync: the mesh's `parallel.mesh.GradSync` where the
+        gradients were reduced across ranks: the clip's norm is then the
+        whole gradient's, and the finite check one decision on every
+        rank."""
         cfg = self.cfg
-        g = torch.cat([x.reshape(-1) for x in grads]).to(torch.float32)
         finite = torch.isfinite(g).all()
         emit = None  # every step emits an update without accumulation
         if self.accum > 1:
             g = self.acc + (g - self.acc) / (self.mini_step + 1).to(torch.float32)
             acc = g
             emit = self.mini_step == self.accum - 1
+        sq = None
+        if sync is not None:
+            sq, finite = sync.norm_sq_and_finite(finite, g if cfg.grad_clip > 0.0 else None)
         if cfg.grad_clip > 0.0:
-            norm = torch.sqrt(torch.sum(g * g))
+            norm = torch.sqrt(torch.sum(g * g) if sq is None else sq)
             g = torch.where(norm < cfg.grad_clip, g, (g / norm) * cfg.grad_clip)
         mu = (1 - cfg.beta1) * g + cfg.beta1 * self.mu
         nu = (1 - cfg.beta2) * (g * g) + cfg.beta2 * self.nu
@@ -438,7 +448,7 @@ def make_train_step(renderer: Callable, loss: str = "l2", huber_delta: float = 0
                     table_tv_weight: float = 0.0,
                     pose_setup: Optional[PixelSampler] = None, remat: bool = False,
                     random_bg: bool = False, param_ema: float = 0.0, freq_anneal: int = 0,
-                    debug_nans: bool = False) -> Callable:
+                    debug_nans: bool = False, mesh=None) -> Callable:
     """train_step(state, batch, occupancy, generator=None) -> aux:
     photometric loss through the renderer (plus `distortion` times the
     rays' mean distortion term, where > 0: the caller has divided the
@@ -468,17 +478,41 @@ def make_train_step(renderer: Callable, loss: str = "l2", huber_delta: float = 0
     window (`freq_alpha`) before the loss and again after the update, so
     that no optimizer moves it; debug_nans (logging.debug_nans) waits for
     the device every step and raises FloatingPointError at the first
-    non-finite loss or gradient, before its update."""
+    non-finite loss or gradient, before its update.
+
+    mesh (`parallel.mesh.make_mesh`): the step of one rank of a parallel
+    run: it takes the full batch that every rank draws alike and trains on
+    this rank's shard of it (`parallel.mesh.shard_batch`), through a
+    renderer of its place in the mesh.  The gradient of each leaf
+    is the world-size-1 loss's, formed before the update (`GradSync`):
+    summed over the ranks that hold the same copy of the leaf (every axis
+    but "model") and divided by the "data" size.  The table priors, which
+    every rank of a sample group computes alike, enter the differentiated
+    objective divided by the "sample" size, and a "model" rank's prior of
+    its table block by the "model" size.  aux is the global one, reduced
+    over every rank; debug_nans and the non-finite skip decide once for
+    every rank."""
     photometric_loss(torch.zeros((1, 3)), loss, huber_delta)  # validate early
     if remat:
         renderer = rematerialized(renderer)
     if param_ema > 0.0:
         decay = np.float32(param_ema)
         keep, take = float(decay), float(np.float32(1.0) - decay)
+    n_sp = n_tp = 1
+    if mesh is not None:
+        from tnerf_torch.parallel.mesh import GradSync, reduce_aux, shard_batch
+        from tnerf_torch.parallel.table_parallel import tp_state_sharding
+
+        n_sp, n_tp = mesh.size(mesh.sample_axis), mesh.size(mesh.model_axis)
+        syncs = {}
+    # the priors' share of this rank's differentiated objective (1 off a mesh)
+    prior_share = 1.0 / (n_sp * n_tp)
 
     def train_step(state: TrainState, batch, occupancy=None,
                    generator: Optional[torch.Generator] = None) -> dict:
         params = state.params
+        if mesh is not None:
+            batch = shard_batch(batch, mesh)
         if freq_anneal > 0:
             alpha = freq_alpha(state.step, freq_anneal)
             with torch.no_grad():
@@ -497,27 +531,41 @@ def make_train_step(renderer: Callable, loss: str = "l2", huber_delta: float = 0
         else:
             err = res.rgb - batch.gt_rgb
         mse = torch.mean(torch.square(err))
-        obj = mse if loss == "l2" else photometric_loss(err, loss, huber_delta)
+        obj = photo = mse if loss == "l2" else photometric_loss(err, loss, huber_delta)
+        prior = None
         if table_l1_weight > 0.0:
-            obj = obj + table_l1_weight * table_l1(params)
+            prior = table_l1_weight * table_l1(params)
+            obj = obj + (prior if mesh is None else prior * prior_share)
         if table_tv_weight > 0.0:
-            obj = obj + table_tv_weight * triplane_tv(params["triplane.planes"],
-                                                      params["triplane.lines"])
+            tv = table_tv_weight * triplane_tv(params["triplane.planes"], params["triplane.lines"])
+            obj = obj + (tv if mesh is None else tv * prior_share)
+            prior = tv if prior is None else prior + tv
         if distortion > 0.0:
             dist = torch.mean(res.distortion)
             obj = obj + distortion * dist
-        leaves = [params[k] for k in state.optimizer.names]
+        names = state.optimizer.names
+        leaves = [params[k] for k in names]
         # the window's alpha reaches the field with its gradient cut
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(
+        grads = torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1) for g, p in zip(
             torch.autograd.grad(obj, leaves, allow_unused=freq_anneal > 0), leaves)]
+                          ).to(torch.float32)
+        sync = None
+        if mesh is not None:
+            sync = syncs.get(id(state.optimizer))
+            if sync is None:
+                sharded = tp_state_sharding(names) if n_tp > 1 else {}
+                sync = syncs[id(state.optimizer)] = GradSync(mesh, names, state.optimizer.sizes,
+                                                             sharded)
+            grads = sync.reduce(grads)
         if debug_nans:
-            bad = [k for k, g in zip(state.optimizer.names, grads)
-                   if not bool(torch.isfinite(g).all())]
-            if not bool(torch.isfinite(obj)) or bad:
+            ok = torch.isfinite(obj) & torch.isfinite(grads).all()
+            if not bool(ok if sync is None else sync.decide(ok)):
+                bad = [k for k, g in zip(names, torch.split(grads, state.optimizer.sizes))
+                       if not bool(torch.isfinite(g).all())]
                 raise FloatingPointError(
                     f"logging.debug_nans: non-finite loss ({float(obj.detach())}) or gradient "
                     f"({', '.join(bad) or 'none'}) at step {state.step}")
-        state.optimizer.step(grads)
+        state.optimizer.step_flat(grads, sync)
         if freq_anneal > 0:
             with torch.no_grad():
                 params["freq_alpha"].fill_(alpha)
@@ -527,10 +575,28 @@ def make_train_step(renderer: Callable, loss: str = "l2", huber_delta: float = 0
                 torch._foreach_mul_(ema, keep)
                 torch._foreach_add_(ema, torch._foreach_mul(leaves, take))
         state.step += 1
+        acc_mean = res.acc.detach().mean()
+        if mesh is not None:
+            # the means over the world's ranks (alike within a sample or model
+            # group) are the means over the data shards; a prior's pieces sum
+            # over "model"
+            vals = {"photo": photo, "mse": mse, "acc": acc_mean}
+            if prior is not None:
+                vals["prior"] = prior / n_tp
+            if distortion > 0.0:
+                vals["dist"] = dist
+            g = reduce_aux(vals, {k: 1.0 / mesh.n_ranks if k != "prior"
+                                  else n_tp / mesh.n_ranks for k in vals}, mesh)
+            obj, mse, acc_mean = g["photo"], g["mse"], g["acc"]
+            if prior is not None:
+                obj = obj + g["prior"]
+            if distortion > 0.0:
+                dist = g["dist"]
+                obj = obj + distortion * dist
         aux = {
             "loss": obj.detach(),
             "psnr": -10.0 * torch.log10(torch.clamp_min(mse.detach(), 1e-10)),
-            "acc_mean": res.acc.detach().mean(),
+            "acc_mean": acc_mean,
         }
         if distortion > 0.0:
             aux["distortion"] = dist.detach()

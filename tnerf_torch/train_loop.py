@@ -49,12 +49,9 @@ from tnerf_torch.utils.checkpoint import (
     load_jax_checkpoint,
     read_train_checkpoint,
     save_checkpoint,
+    save_train_state,
 )
 from tnerf_torch.utils.metrics import MetricsWriter, get_logger, maybe_profile
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to tnerf_torch, see ROADMAP.md")
 
 
 PIPELINES = ("fused", "grid_march", "grid_intervals", "uniform")
@@ -127,15 +124,8 @@ def validate_ported(cfg: Config, for_eval: bool = True) -> None:
         )
     if for_eval:
         return
-    t, par = cfg.train, cfg.parallel
-    refused = {
-        "parallel.data_parallel > 1": par.data_parallel > 1,
-        "parallel.sample_parallel > 1": par.sample_parallel > 1,
-        "parallel.table_parallel > 1": par.table_parallel > 1,
-    }
-    for what, hit in refused.items():
-        if hit:
-            raise _not_ported(what)
+    t = cfg.train
+    validate_parallel(cfg)
     if t.freq_anneal_steps > 0:  # `tnerf/train_loop.py:667-681`
         if f.encoding != "frequency":
             raise ValueError(
@@ -184,6 +174,102 @@ def validate_ported(cfg: Config, for_eval: bool = True) -> None:
                 "compositor returns no per-sample weights) — set "
                 "render.compact=false"
             )
+
+
+def validate_parallel(cfg: Config) -> None:
+    """The parallel axes' preconditions (`tnerf/train_loop.py:558-574`,
+    `:653-659`, `:755-759`): sample parallelism shards grid_intervals'
+    samples of whole-ray quadratures, table parallelism hash-grid levels
+    or triplane features, and the two compose on the hash grid only."""
+    n_sp, n_tp = cfg.parallel.sample_parallel, cfg.parallel.table_parallel
+    if n_sp > 1 and cfg.render.pipeline != "grid_intervals":
+        raise ValueError(
+            "parallel.sample_parallel shards the grid_intervals sample "
+            f"axis; render.pipeline={cfg.render.pipeline!r}"
+        )
+    if n_tp > 1 and cfg.field_.encoding not in ("hashgrid", "triplane"):
+        raise ValueError(
+            "parallel.table_parallel shards hash-grid level tables or "
+            f"triplane features; field_.encoding={cfg.field_.encoding!r}"
+        )
+    if n_tp > 1 and n_sp > 1 and cfg.field_.encoding != "hashgrid":
+        raise ValueError(
+            "sample-parallel x table-parallel composition folds the "
+            "table-sharded encode into the SP shard_map (tp_encode_local)"
+            " — hashgrid only; "
+            f"field_.encoding={cfg.field_.encoding!r}"
+        )
+    if n_sp > 1 and cfg.train.random_background:
+        raise ValueError(
+            "train.random_background does not compose with "
+            "parallel.sample_parallel yet (the SP renderer is built "
+            "once with the configured background)"
+        )
+    if n_sp > 1 and cfg.train.distortion_weight > 0.0:
+        raise ValueError(
+            "train.distortion_weight needs whole-ray weight "
+            "distributions; parallel.sample_parallel shards the "
+            "sample axis across chips"
+        )
+
+
+def build_mesh(cfg: Config, device, log):
+    """The run's mesh (`tnerf/train_loop.py:552-608`), or None: a mesh
+    wherever a process group is formed (a launched group of one included)
+    or a parallel axis above 1 is asked for.  parallel.data_parallel = -1 takes
+    world_size // (sample_parallel * table_parallel) ranks.  Raises where
+    the batch or the chunk does not divide, and where the mesh asks for
+    more ranks than were launched."""
+    import torch.distributed as dist
+
+    from tnerf_torch.parallel import comm
+    from tnerf_torch.parallel.mesh import make_mesh
+
+    par = cfg.parallel
+    n_sp, n_tp = par.sample_parallel, par.table_parallel
+    extra_axis, n_extra = None, 1
+    extra_axis2, n_extra2 = None, 1
+    if n_sp > 1:
+        extra_axis, n_extra = par.sample_axis_name, n_sp
+        if n_tp > 1:
+            extra_axis2, n_extra2 = par.table_axis_name, n_tp
+    elif n_tp > 1:
+        extra_axis, n_extra = par.table_axis_name, n_tp
+    n_dp = par.data_parallel
+    n_dp = max(1, comm.world_size() // (n_extra * n_extra2)) if n_dp == -1 else n_dp
+    if not (dist.is_initialized() or n_dp > 1 or n_extra > 1 or n_extra2 > 1):
+        return None
+    if cfg.train.batch_size % n_dp != 0:
+        raise ValueError(
+            f"train.batch_size={cfg.train.batch_size} not divisible by "
+            f"parallel.data_parallel={n_dp}"
+        )
+    if n_sp > 1 and cfg.render.chunk_size % n_dp != 0:
+        raise ValueError(
+            f"render.chunk_size={cfg.render.chunk_size} not divisible "
+            f"by parallel.data_parallel={n_dp} (the sample-parallel "
+            "renderer shards eval chunks over the data axis)"
+        )
+    mesh = make_mesh(n_dp, par.axis_name, extra_axis, n_extra, extra_axis2, n_extra2,
+                     device=device, sample_axis=par.sample_axis_name,
+                     model_axis=par.table_axis_name)
+    log.info("mesh: %s", mesh.shape)
+    return mesh
+
+
+def jitter_generator(cfg: Config, mesh, gen: torch.Generator) -> torch.Generator:
+    """The generator of the renderers' sample jitter.  Off a mesh, and on a
+    mesh of one "data" rank, it is `gen`, which also draws the batches and
+    the occupancy probes.  With more "data" ranks it is one stream per
+    "data" shard, seeded from train.seed and the shard's coordinate, which
+    the ranks that hold that shard's rays draw alike, so that the shards do
+    not repeat each other's jitter."""
+    if mesh is None or mesh.size(mesh.data_axis) == 1:
+        return gen
+    g = torch.Generator(device=gen.device)
+    g.manual_seed(int(np.random.SeedSequence(
+        [cfg.train.seed + 1, mesh.coord(mesh.data_axis)]).generate_state(1)[0]))
+    return g
 
 
 def build_renderer(cfg: Config, for_eval: bool = True, compact: Optional[bool] = None):
@@ -319,26 +405,49 @@ def load_datasets(cfg: Config, splits=("train", "val", "test"), device="cuda"
 
 
 def _eval(cfg, renderer, state, occ, datasets, step, log, metrics, device,
-          save_images: bool = False) -> Dict[str, float]:
+          save_images: bool = False, mesh=None) -> Dict[str, float]:
     """Eval of `eval_params(state)`: two views of each of the val and test
-    splits, or with save_images every view, its render written."""
+    splits, or with save_images every view, its render written (by rank 0
+    of a mesh, over which every chunk's rays are split)."""
     out: Dict[str, float] = {}
     bits = renderer_payload(occ, cfg.sampler, cfg.grid)
     for split in ("val", "test"):
         if split not in datasets or len(datasets[split]) == 0:
             continue
-        save_dir = os.path.join(cfg.logging.out_dir, f"renders_{step}") if save_images else None
+        save_dir = os.path.join(cfg.logging.out_dir, f"renders_{step}") \
+            if save_images and (mesh is None or mesh.rank == 0) else None
         m = evaluate(
             renderer, eval_params(state), datasets[split], cfg.scene.scene_scale,
             white_background=cfg.scene.white_background,
             max_views=None if save_images else 2, save_dir=save_dir,
             chunk_size=cfg.render.chunk_size, occupancy=bits, device=device,
-            ndc_near=ndc_near_or_none(cfg),
+            ndc_near=ndc_near_or_none(cfg), mesh=mesh,
         )
         out.update(m)
         log.info("eval step %d: %s", step, m)
         metrics.write(step, **m)
     return out
+
+
+def _replicate_state(state, occ, mesh) -> None:
+    """`parallel.mesh.replicate` of a train state initialised or resumed on
+    every rank: the leaves every rank holds alike from rank 0, a
+    table-parallel rank's blocks (and the optimizer's flat moments, which
+    hold them) from the first rank of its "model" coordinate."""
+    from tnerf_torch.parallel.mesh import replicate
+    from tnerf_torch.parallel.table_parallel import tp_state_sharding
+
+    sharded = tp_state_sharding(state.params) if mesh.size(mesh.model_axis) > 1 else {}
+    trees = [state.params] + ([] if state.ema is None else [state.ema])
+    for tree in trees:
+        replicate([v for k, v in tree.items() if k not in sharded], mesh)
+        replicate([v for k, v in tree.items() if k in sharded], mesh, mesh.replica)
+    opt = state.optimizer
+    flat = [opt.mu, opt.nu] + ([opt.acc] if opt.accum > 1 else [])
+    replicate(flat, mesh, mesh.replica if sharded else None)
+    replicate([v for v in opt.state.values() if isinstance(v, torch.Tensor)], mesh)
+    if occ is not None:
+        replicate(list(occ), mesh)
 
 
 def _restore_best_psnr(cfg: Config, start_step: int, log) -> float:
@@ -368,15 +477,18 @@ def _restore_best_psnr(cfg: Config, start_step: int, log) -> float:
 
 
 def _maybe_keep_best(cfg: Config, eval_metrics, save, step: int, best: float, log,
-                     metrics) -> float:
+                     metrics, mesh=None) -> float:
     """train.keep_best (`tnerf/train_loop.py:1063`): where this eval's PSNR
     (the val split's, else the test split's) improves on `best`, save the
     state into <out_dir>/checkpoints_best as step_<step> (each improvement
     a higher step, so its newest file is the best) and record best_psnr /
-    best_step; returns the new best."""
+    best_step; returns the new best.  On a mesh rank 0's PSNR decides for
+    every rank (the save is a collective under table parallelism)."""
     if not cfg.train.keep_best:
         return best
     v = eval_metrics.get("psnr_val", eval_metrics.get("psnr_test"))
+    if mesh is not None and v is not None:
+        v = mesh.from_rank0(v)
     if v is None or not np.isfinite(v) or v <= best:
         return best
     bdir = os.path.join(cfg.logging.out_dir, "checkpoints_best")
@@ -390,7 +502,18 @@ def run_training(cfg: Config, datasets: Optional[Dict[str, ImageDataset]] = None
                  device="cuda") -> Dict[str, float]:
     """Train a field per `cfg` on `device`; returns the final metrics.  With
     field_.tri_upsample_steps the triplane trains in stages
-    (`_run_progressive`), each of them a run of `_run_training_single`."""
+    (`_run_progressive`), each of them a run of `_run_training_single`.
+
+    Launched by `python -m torch.distributed.run`, each process is one rank
+    of the run's mesh (`build_mesh`) on cuda:(LOCAL_RANK % cards), or on the
+    CPU for device="cpu" (`parallel.comm.init_group`); every rank runs this
+    alike and rank 0 writes the config, the metrics, the images and the
+    checkpoints."""
+    from tnerf_torch.parallel import comm
+
+    rank_dev = comm.init_from_env(resolve_device(device), get_logger(level=cfg.logging.level))
+    if rank_dev is not None:
+        device = rank_dev
     if cfg.field_.tri_upsample_steps:
         return _run_progressive(cfg, datasets, device)
     return _run_training_single(cfg, datasets, device)
@@ -446,13 +569,16 @@ def _run_progressive(cfg: Config, datasets, device) -> Dict[str, float]:
     planes and lines upsampled and a fresh optimizer (TensoRF resets it, and
     each stage's schedule spans the stage).  The acceptance gate applies to
     the last stage only."""
+    from tnerf_torch.parallel import comm
+
     validate_ported(cfg, for_eval=False)
     log = get_logger(level=cfg.logging.level)
     plan = _tri_stage_plan(cfg)
     out_dir = cfg.logging.out_dir
     os.makedirs(out_dir, exist_ok=True)
+    main = comm.global_rank() == 0
     prov = os.path.join(out_dir, "config.json")
-    if not (cfg.train.resume and os.path.exists(prov)):
+    if main and not (cfg.train.resume and os.path.exists(prov)):
         with open(prov, "w") as fh:
             fh.write(cfg.apply_overrides(["train.resume=false"]).to_json())
     ckpt_dir = os.path.join(out_dir, "checkpoints")
@@ -491,7 +617,9 @@ def _run_progressive(cfg: Config, datasets, device) -> Dict[str, float]:
                              "stage of this config")
         start_k = matched[0]
         if step_got >= plan[start_k][0] and start_k < len(plan) - 1:
-            _upsample_checkpoint(stage_cfg(start_k + 1), ckpt_dir, log)
+            if main:
+                _upsample_checkpoint(stage_cfg(start_k + 1), ckpt_dir, log)
+            comm.barrier(device)
             start_k += 1
         log.info("progressive resume: stage %d/%d", start_k + 1, len(plan))
     final_metrics: Dict[str, float] = {}
@@ -500,7 +628,9 @@ def _run_progressive(cfg: Config, datasets, device) -> Dict[str, float]:
                  plan[k][0])
         final_metrics = _run_training_single(stage_cfg(k), datasets, device)
         if k < len(plan) - 1:
-            _upsample_checkpoint(stage_cfg(k + 1), ckpt_dir, log)
+            if main:
+                _upsample_checkpoint(stage_cfg(k + 1), ckpt_dir, log)
+            comm.barrier(device)
     return final_metrics
 
 
@@ -557,19 +687,39 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
     `eval_params`; train.keep_best keeps the best eval's state under
     <out_dir>/checkpoints_best; logging.profile traces the loop with
     torch.profiler into <out_dir>/profile; logging.debug_nans stops at
-    the first non-finite loss or gradient."""
+    the first non-finite loss or gradient.
+
+    On a mesh (`build_mesh`, the reference's `:552-866`): every rank draws
+    the same batch from one generator seeded alike and trains on its "data"
+    shard (`train.make_train_step(mesh=)`), the gradients reduced before
+    the update; its sample jitter comes from `jitter_generator`.
+    sample_parallel > 1 trains and evals through the
+    sample-parallel renderer (no compaction); table_parallel > 1 holds each
+    rank's block of the tables and their optimizer state and checkpoints
+    the full layout from rank 0; the occupancy refresh probes its cells
+    sharded over the ranks (replicated under table parallelism); each
+    eval chunk's rays split over "data".  Every host decision (the
+    dense-to-compact switch, keep_best) is rank 0's, broadcast; the
+    non-finite skip and debug_nans decide on every rank's gradients."""
     dev = resolve_device(device)
     validate_ported(cfg, for_eval=False)
     log = get_logger(level=cfg.logging.level)
+    mesh = build_mesh(cfg, dev, log)
+    main = mesh is None or mesh.rank == 0
+    if not main:
+        log.setLevel("WARNING")
+    par = cfg.parallel
+    n_sp = par.sample_parallel if mesh is not None else 1
+    n_tp = par.table_parallel if mesh is not None else 1
     out_dir = cfg.logging.out_dir
     os.makedirs(out_dir, exist_ok=True)
     # Provenance: the resolved config rides with the run; resume is run
     # state, not part of the experiment, and a resumed run keeps the file.
     prov = os.path.join(out_dir, "config.json")
-    if not (cfg.train.resume and os.path.exists(prov)):
+    if main and not (cfg.train.resume and os.path.exists(prov)):
         with open(prov, "w") as fh:
             fh.write(cfg.apply_overrides(["train.resume=false"]).to_json())
-    metrics = MetricsWriter(os.path.join(out_dir, cfg.logging.metrics_file))
+    metrics = MetricsWriter(os.path.join(out_dir, cfg.logging.metrics_file) if main else None)
 
     if datasets is None:
         t0 = time.perf_counter()
@@ -585,6 +735,13 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
     init_gen = torch.Generator()  # parameters are drawn on the host, then moved
     init_gen.manual_seed(cfg.train.seed)
     field = NeRFField(cfg.field_, cfg.grid, init_gen).to(dev)
+    shard = None
+    cfg_r = cfg  # the renderers' config: under table parallelism its sharded field config
+    if n_tp > 1:
+        from tnerf_torch.parallel.table_parallel import shard_field
+
+        shard = shard_field(field, mesh, par.table_axis_name)
+        cfg_r = dataclasses.replace(cfg, field_=field.config)
     # Dense variant while the occupancy grid is still mostly occupied (the
     # compaction capacity would overflow and drop samples); compacted
     # variant once the grid has pruned below the capacity with headroom.
@@ -593,18 +750,26 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
     # train.random_background: the training renderers add no background
     # (the step composites prediction and ground truth over one random
     # colour per ray); the eval renderers keep the configured one
-    cfg_train_r = cfg
+    cfg_train_r = cfg_r
     if cfg.train.random_background:
         cfg_train_r = dataclasses.replace(
-            cfg, scene=dataclasses.replace(cfg.scene, white_background=False),
+            cfg_r, scene=dataclasses.replace(cfg.scene, white_background=False),
             render=dataclasses.replace(cfg.render, white_background=False))
-    renderer_dense = build_renderer(cfg_train_r, for_eval=False, compact=False)
+    if n_sp > 1:  # the sample-parallel renderer trains and evals; it never compacts
+        from tnerf_torch.parallel.sample_parallel import make_sp_interval_renderer
+
+        renderer_dense = make_sp_interval_renderer(
+            cfg_r.field_, cfg.grid, cfg.sampler, cfg.render, mesh,
+            sample_axis=par.sample_axis_name,
+            model_axis=par.table_axis_name if n_tp > 1 else None)
+    else:
+        renderer_dense = build_renderer(cfg_train_r, for_eval=False, compact=False)
     renderer_compact = build_renderer(cfg_train_r, for_eval=False, compact=True) if switching \
         else renderer_dense
     eval_dense, eval_compact = renderer_dense, renderer_compact
     if cfg.train.random_background:
-        eval_dense = build_renderer(cfg, for_eval=False, compact=False)
-        eval_compact = build_renderer(cfg, for_eval=False, compact=True) if switching \
+        eval_dense = build_renderer(cfg_r, for_eval=False, compact=False)
+        eval_compact = build_renderer(cfg_r, for_eval=False, compact=True) if switching \
             else eval_dense
     renderer = eval_dense
     state = init_train_state(field, cfg.train, pose_extra_params(cfg, len(train_ds), dev))
@@ -633,6 +798,13 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
             log.info("train.resume: no checkpoint in %s, starting from step 0", ckpt_dir)
         else:
             start_step, params, opt_state, occ, ema = read_train_checkpoint(ckpt_dir, dev)
+            if shard is not None:  # the full layout, cut to this rank's blocks
+                from tnerf_torch.parallel.table_parallel import shard_tree
+
+                params = shard_tree(params, shard)
+                opt_state = {k: shard_tree(v, shard) if isinstance(v, dict) else v
+                             for k, v in opt_state.items()}
+                ema = None if ema is None else shard_tree(ema, shard)
             if (ema is None) != (state.ema is None):
                 raise ValueError(f"{ckpt_dir}: the checkpoint "
                                  f"{'has no' if ema is None else 'holds a'} weight EMA, but "
@@ -646,9 +818,12 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
             state.step = start_step
             log.info("resumed from step %d", start_step)
 
+    if mesh is not None:
+        _replicate_state(state, occ, mesh)
+
     def save(step: int, where: str = ckpt_dir) -> None:
-        save_checkpoint(where, step, state.params, state.optimizer.state, occ, cfg.train,
-                        ema=state.ema)
+        save_train_state(where, step, state.params, state.optimizer.state, occ, cfg.train,
+                         ema=state.ema, mesh=mesh, shard=shard)
 
     sampler = PixelSampler(train_ds, cfg.scene.scene_scale, cfg.scene.white_background, dev,
                            ndc_near=ndc_near_or_none(cfg),
@@ -664,6 +839,8 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
                    random_bg=cfg.train.random_background, param_ema=cfg.train.param_ema,
                    freq_anneal=cfg.train.freq_anneal_steps,
                    debug_nans=cfg.logging.debug_nans)
+    if mesh is not None:
+        loss_kw["mesh"] = mesh
     step_dense = make_train_step(renderer_dense, **loss_kw)
     step_compact = make_train_step(renderer_compact, **loss_kw) if switching else step_dense
     train_step = step_dense
@@ -674,6 +851,13 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
     cdf_switch = switching and cfg.sampler.placement in ("occupancy_cdf", "density_cdf")
     gen = torch.Generator(device=dev)  # batches, sample jitter and occupancy probes
     gen.manual_seed(cfg.train.seed + 1)
+    render_gen = jitter_generator(cfg, mesh, gen)
+    density = lambda x: field.density(x, state.params)
+    if mesh is not None and n_tp == 1:
+        from tnerf_torch.parallel.occupancy import sharded_density
+
+        density = sharded_density(density, mesh)
+    update_occ = lambda o: update_occupancy(o, density, cfg.grid, generator=gen, mask=occ_mask)
     rays_per_step = cfg.train.batch_size
     steps_per_epoch = max(1, len(train_ds) * train_ds.height * train_ds.width // rays_per_step)
     final_metrics: Dict[str, float] = {}
@@ -690,7 +874,7 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
     sync()
     window_t0 = time.perf_counter()
     window_steps = 0
-    with maybe_profile(cfg.logging.profile, os.path.join(out_dir, "profile")):
+    with maybe_profile(cfg.logging.profile and main, os.path.join(out_dir, "profile")):
         try:
             for step in range(start_step, cfg.train.steps):
                 if cfg.train.shuffle == "epoch":
@@ -698,11 +882,10 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
                                                  step % steps_per_epoch, rays_per_step, meta=poses)
                 else:
                     batch = sampler.sample(gen, rays_per_step, meta=poses)
-                aux = train_step(state, batch, occ_payload, gen)
+                aux = train_step(state, batch, occ_payload, render_gen)
                 window_steps += 1
                 if use_grid and step >= cfg.grid.warmup_steps and step % cfg.grid.update_every == 0:
-                    occ = update_occupancy(occ, lambda x: field.density(x, state.params), cfg.grid,
-                                           generator=gen, mask=occ_mask)
+                    occ = update_occ(occ)
                     occ_payload = renderer_payload(occ, cfg.sampler, cfg.grid)
                     if switching:
                         with torch.no_grad():
@@ -712,7 +895,10 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
                             frac = cdf_occupied_sample_fraction(probe, occ_payload, cfg.grid,
                                                                 cfg.sampler) \
                                 if cdf_switch else occupancy_fraction(occ)
-                        compacted = float(frac) < compact_switch_frac  # waits for the device
+                        frac = float(frac)  # waits for the device
+                        if mesh is not None:
+                            frac = mesh.from_rank0(frac)
+                        compacted = frac < compact_switch_frac
                         train_step = step_compact if compacted else step_dense
                         renderer = eval_compact if compacted else eval_dense
 
@@ -744,9 +930,11 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
 
                 did_barrier = False
                 if cfg.train.eval_every and (step + 1) % cfg.train.eval_every == 0:
-                    em = _eval(cfg, renderer, state, occ, datasets, step, log, metrics, dev)
+                    em = _eval(cfg, renderer, state, occ, datasets, step, log, metrics, dev,
+                               mesh=mesh)
                     final_metrics.update(em)
-                    best_psnr = _maybe_keep_best(cfg, em, save, step + 1, best_psnr, log, metrics)
+                    best_psnr = _maybe_keep_best(cfg, em, save, step + 1, best_psnr, log, metrics,
+                                                 mesh)
                     did_barrier = True
                 if cfg.train.checkpoint_every and (step + 1) % cfg.train.checkpoint_every == 0:
                     save(step + 1)
@@ -765,9 +953,9 @@ def _run_training_single(cfg: Config, datasets: Optional[Dict[str, ImageDataset]
             raise
     save(cfg.train.steps)
     em = _eval(cfg, renderer, state, occ, datasets, cfg.train.steps, log, metrics, dev,
-               save_images=True)
+               save_images=True, mesh=mesh)
     final_metrics.update(em)
-    _maybe_keep_best(cfg, em, save, cfg.train.steps, best_psnr, log, metrics)
+    _maybe_keep_best(cfg, em, save, cfg.train.steps, best_psnr, log, metrics, mesh)
     metrics.close()
     floor = cfg.train.assert_test_psnr_min
     if floor > 0 and "psnr_test_min" in final_metrics:

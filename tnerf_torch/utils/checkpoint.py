@@ -463,3 +463,27 @@ def save_checkpoint(ckpt_dir: str, step: int, params: Dict[str, torch.Tensor], o
     with open(os.path.join(ckpt_dir, "treedef.json"), "w") as fh:
         json.dump({"treedef": treedef, "n_leaves": len(leaves), "last_step": step}, fh)
     return path
+
+
+def save_train_state(ckpt_dir: str, step: int, params: Dict[str, torch.Tensor], opt_state: dict,
+                     occupancy: Optional[OccupancyGridState], train_cfg,
+                     ema: Optional[Dict[str, torch.Tensor]] = None, mesh=None,
+                     shard=None) -> None:
+    """`save_checkpoint` of a run on a mesh (`parallel.mesh.make_mesh`; None:
+    one process): under table parallelism (shard, a
+    `parallel.table_parallel.TableShard`) every rank first gathers its
+    blocks of the sharded leaves, with their Adam moments, accumulated
+    gradient and EMA mirrors, into the full layout; rank 0 writes the
+    checkpoint a one-rank run writes, which both packages load, while the
+    other ranks wait at a barrier."""
+    if shard is not None:
+        from tnerf_torch.parallel.table_parallel import full_tree
+
+        params = full_tree(params, shard)
+        opt_state = {k: full_tree(v, shard) if isinstance(v, dict) else v
+                     for k, v in opt_state.items()}
+        ema = None if ema is None else full_tree(ema, shard)
+    if mesh is None or mesh.rank == 0:
+        save_checkpoint(ckpt_dir, step, params, opt_state, occupancy, train_cfg, ema=ema)
+    if mesh is not None:
+        mesh.barrier()
