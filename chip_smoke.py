@@ -22,11 +22,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
      at 64, 256 (four chunks per ray: the saved transmittance and the dL/dT
      carry), 32 (two rays per tile) and 100 samples per ray (a ragged last
      chunk), on batches that leave the kernel's persistent grid a ragged
-     last round, and with a 2-layer MLP of random weights.  B1 / B1t beyond
-     that: 2 and 12 layers of random weights (forward only: the backward
-     holds at most 9), a ragged batch of 1001 rays, two launches bit for
-     bit, and at 256 samples under the config's term_eps the chunks B1
-     leaves unshaded equal to those B2 skips and to the rule
+     last round, and with a 2-layer MLP of random weights; at depth
+     (check_deep_backward), B2 and B2t at 9, 10, 13 and 17 layers of random
+     weights at the committed model's widths on the training batch's rays
+     (past 9 the kernel spills layer inputs to its scratch), each leaf and
+     each layer whose input or output gradient passes through the
+     scratch's slots, a ragged batch at 13, two launches at 17 within
+     B2_RTOL of each other, times at 13 and 17 (b2_deep.json); at 256
+     samples and 13 layers of a dense random model under the config's
+     term_eps (check_deep_skip), the chunks B1 leaves unshaded equal to
+     those B2 skips and the rule's, and B2's gradient within B2_RTOL of
+     the plain version's with the same chunks masked.
+     B1 / B1t beyond that: 2 and 12 layers of random weights, a ragged
+     batch of 1001 rays, two launches bit for bit, and at 256 samples
+     under the config's term_eps the chunks B1 leaves unshaded equal to
+     those B2 skips and to the rule
      `unshaded_chunks` states; the forward's branch-free sine bit-equal to
      sinf over 2.1e7 arguments.  B3 and B4 beyond that (check_probe_kernels):
      bit-equal at the training batch of both uses, at res_c = 1, 7, 16, 32
@@ -50,6 +60,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
      1500 steps at full width: B1, B2 and B3 each at least once per step,
      test PSNR within TRAIN_PSNR_MARGIN_DB of the reference's record and
      over the config's own gate; ms/step and rays/s of the last window;
+  5b. `deep`: `tnerf_torch.cli train` of the same config at
+     field_.hidden_layers=12 (13 layers; DEEP_OVERRIDES), all 1500 steps:
+     B1, B2 and B3 each at least once per step, test PSNR no more than
+     TRAIN_PSNR_MARGIN_DB under the 9-layer record (a sanity bar: no
+     record of this depth exists); its `cli eval` (the run's own PSNR) and
+     one 800x800 `cli render` frame; configs/procedural_hard_fused_cdf2.json
+     at the same depth for DEEP_CDF_STEPS steps: B2t every step, the loss
+     falling;
   6. `resume`: the committed reference checkpoint (step 1500, with its Adam
      moments) resumed for 50 steps: the train loss must stay under
      RESUME_LOSS_MAX; then 20 steps under torch.profiler;
@@ -73,10 +91,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
      reference's at that step, the final eval over the config's gate, B4
      launched by its evals; 20 steps under torch.profiler;
   9. `intervals`: `cli train` of runs/hard_r4_intervals16/config.json
-     (2500 steps, train.seed=3: see INTERVALS_OVERRIDES): B5 at least once
-     per step and per eval chunk,
-     the same PSNR checks; its `cli eval`; one 800x800 orbit frame; 20
-     steps under torch.profiler;
+     (train.seed=3: see INTERVALS_OVERRIDES), its first 250 of 2500 steps
+     under the full schedule: B5 at least once per step, the loss falling;
+     `cli eval` of its checkpoint: B5 at least once per eval chunk, the
+     test PSNR the run's own within PSNR_TOL_DB (the PSNR gate against the
+     reference's record is `intervals_full`'s);
  10. `fields`: the table-backed fields through grid_march: `cli train` of
      runs/hard_r5_hashgrid_diffuse (hash grid, SH view encoding,
      occupancy-CDF placement), runs/hard_r4_cp and
@@ -179,13 +198,17 @@ it is timed at the intervals training shape (4096 rays, 16^3, 49 steps),
 an intervals eval chunk (a 128 x 128 view) and at 640,000 rays, 128^3,
 dense, 384 steps; B4 is held bit-equal at the march eval's shape (16^3
 pooling, 64 probes, 96 midpoints).
-Each phase prints its seconds.
-`--phases kernels,serve,train,resume,cdf,march,intervals,fields,scenes,options,geometry,bake,parallel`
+Each phase prints its seconds, and the run its total.
+`--phases kernels,serve,train,deep,resume,cdf,march,intervals,fields,scenes,options,geometry,bake,parallel`
 runs a subset (for development; the kernels' line then lists what ran).
 `--phases march_full` or `cdf_full`, which no default run includes (it
 would not fit the chip call's 1200 s), trains configs/procedural_hard_30db.json
 or configs/procedural_hard_fused_cdf2.json for its full 5000 steps against
-the reference's final record; `--phases parallel_full` trains the prims
+the reference's final record; `--phases intervals_full` trains
+runs/hard_r4_intervals16/config.json (train.seed=3) for its 2500 steps
+against its record JAX_INTERVALS_PSNR_TEST, then its `cli eval` (B5 on
+every chunk), one 800x800 orbit frame and 20 profiled steps;
+`--phases parallel_full` trains the prims
 config at parallel.data_parallel=2 and the progressive triplane at
 table_parallel=2 under the launcher with two ranks on the card, each to
 its one-rank gates (`PARALLEL_FULL_RUNS`).  Files go under chiprun_out/
@@ -275,6 +298,27 @@ JAX_CP_FROM_PORT_INIT_PSNR_TEST = 43.79805301785407
 # 31.77: the 29.59 came from the initial weights.  The phase trains seed 3
 # and holds it to the same margin and gate as every other run.
 INTERVALS_OVERRIDES = ["train.seed=3"]
+# The default run's `intervals` phase trains that config and seed for its
+# first 250 of 2500 steps under the full schedule (the whole run, 2500
+# steps at about 117 ms, was 30% of the default run's time): the loss must
+# fall, B5 launch every step and every eval chunk, `cli eval` equal the
+# run's own eval.  The PSNR gate is `intervals_full`'s.  A run cut this
+# short of its config's steps is not held to the config's final gate
+# (train.assert_test_psnr_min, which `cli train` itself raises on): the
+# full runs are (`intervals_full` here, `cdf` / `cdf_full` for the deep CDF
+# run below).
+SHORT_RUN = ["train.assert_test_psnr_min=0"]
+INTERVALS_SHORT_STEPS = 250
+INTERVALS_SHORT_OVERRIDES = INTERVALS_OVERRIDES + SHORT_RUN + [
+    f"train.steps={INTERVALS_SHORT_STEPS}", "train.schedule_total_steps=2500"]
+# Phase `deep`: the prims config at 13 layers of 128 (field_.hidden_layers=12).
+# No reference record of a fused model this deep exists, so its gate is a
+# sanity bar, not parity: the final test PSNR no more than
+# TRAIN_PSNR_MARGIN_DB under the 9-layer record JAX_PSNR_TEST (34.393 dB).
+# Written before the first run.  The CDF config at that depth trains
+# DEEP_CDF_STEPS steps (B2t every step, the loss falling).
+DEEP_OVERRIDES = ["field_.hidden_layers=12"]
+DEEP_CDF_STEPS = 300
 # The prims model, trained on the fused path (64 uniform samples of the
 # tightened span), served through grid_march at 96 samples on the 16^3
 # pooling: another quadrature of the same field.  The reference's own
@@ -439,14 +483,16 @@ BAKE_MODE_ATOL = 2.0 ** -8
 HASH_BAKE_RECORD = os.path.join(REPO, "runs", "hard_r5_hashgrid_diffuse", "baked_parity.json")
 HASH_BAKE_RES = 320
 HASH_BAKE_PARITY_DB = 1.0
-ALL_PHASES = ("kernels", "serve", "train", "resume", "cdf", "march", "intervals", "fields",
-              "scenes", "options", "geometry", "bake", "parallel")
+ALL_PHASES = ("kernels", "serve", "train", "deep", "resume", "cdf", "march", "intervals",
+              "fields", "scenes", "options", "geometry", "bake", "parallel")
 # Not in the default run, which would not fit the chip call's 1200 s with them:
 # `march_full` and `cdf_full` train configs/procedural_hard_30db.json and
 # configs/procedural_hard_fused_cdf2.json for all their 5000 steps against
-# the reference's final records; `parallel_full` trains two configs under
-# the launcher with two ranks (about 310 s).
-EXTRA_PHASES = ("march_full", "cdf_full", "parallel_full")
+# the reference's final records; `intervals_full` trains
+# runs/hard_r4_intervals16/config.json for all its 2500 steps against its
+# record (about 340 s); `parallel_full` trains two configs under the
+# launcher with two ranks (about 310 s).
+EXTRA_PHASES = ("march_full", "cdf_full", "intervals_full", "parallel_full")
 # Published H100 SXM peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -662,9 +708,8 @@ def forward_err(out_k, out_p):
 
 def check_forward_cases(tag, args, placed):
     """B1 (B1t with placed) at the training shape beyond the committed
-    model: 2 and 12 layers of random weights (the forward takes any depth;
-    the backward at most MAX_BWD_LAYERS), a ragged batch, and two launches
-    bit for bit."""
+    model: 2 and 12 layers of random weights, a ragged batch, and two
+    launches bit for bit."""
     import torch
 
     from tnerf_torch.render import fused as fz
@@ -909,16 +954,19 @@ def check_kernels():
     return rows
 
 
-def backward_rel(tag, args, tchk, gout, placed):
-    """B2 (or, with placed, B2t) against its plain version at term_eps = 0:
-    (max |kernel - plain| / max |plain| per leaf, kernel dW, dBias, plain
-    dW, dBias); fails beyond B2_RTOL."""
+def backward_rel(tag, args, tchk, gout, placed, gated=(), eps=0.0, plain_args=None):
+    """B2 (or, with placed, B2t) against its plain version, by default at
+    term_eps = 0 and on the same arguments (plain_args: the plain
+    version's, where the kernel skips chunks under eps): (max |kernel -
+    plain| / max |plain| per leaf, kernel dW, dBias, plain dW, dBias);
+    fails beyond B2_RTOL in a leaf or in the dW of a layer in `gated`,
+    against that layer's largest entry."""
     import torch
 
     from tnerf_torch.render import fused as fz
 
-    dW_k, dB_k = fz.fused_backward(*args, tchk, gout, term_eps=0.0, **placed)
-    dW_p, dB_p = fz.fused_backward_plain(*args, tchk, gout, **placed)
+    dW_k, dB_k = fz.fused_backward(*args, tchk, gout, term_eps=eps, **placed)
+    dW_p, dB_p = fz.fused_backward_plain(*(plain_args or args), tchk, gout, **placed)
     torch.cuda.synchronize()
     rel = {}
     for name, k, p in (("dW", dW_k, dW_p), ("dBias", dB_k, dB_p)):
@@ -930,7 +978,45 @@ def backward_rel(tag, args, tchk, gout, placed):
     log(f"{tag}: max |kernel - plain| / max |plain|: {rel}; per layer dW {per_layer}")
     if max(rel.values()) > B2_RTOL:
         raise AssertionError(f"{tag} backward disagrees with its plain version: {rel}")
+    worst = {l: per_layer[l] for l in gated if not per_layer[l] <= B2_RTOL}
+    if worst:
+        raise AssertionError(f"{tag} backward: the dW of layers {worst} (relative to each "
+                             f"layer's largest entry) disagree with the plain version")
     return rel, dW_k, dB_k, dW_p, dB_p
+
+
+def check_deep_skip(tag, args, placed, gout, eps, widths):
+    """At 256 samples per ray under the config's term_eps, a dense random
+    model of DEEP_SKIP_LAYERS layers (its inputs spilled): the chunks B1
+    leaves unshaded are those B2 skips and the rule's, some of them for
+    their transmittance; B2's gradient within B2_RTOL (each leaf and
+    `spilled_layers`' dW) of the plain version's on the same rays with the
+    skipped chunks' samples masked out."""
+    import torch
+
+    from tnerf_torch.render import fused as fz
+
+    dev = args[2].device
+    B, S = args[8].shape
+    NL = DEEP_SKIP_LAYERS
+    W, Bias = random_mlp(NL, 200 + NL, dev, widths)
+    Bias[-1, 3] += DEEP_SKIP_DENSITY_BIAS
+    deep = (W, Bias) + tuple(args[2:])
+    check_skip_contract(f"{tag} NL={NL}", deep, placed, gout, eps)
+    _, tchk = fz.fused_forward(*deep, term_eps=eps, return_tchk=True, **placed)
+    shaded = torch.empty((B, fz.n_bwd_chunks(S)), dtype=torch.uint8, device=dev)
+    fz.fused_backward(*deep, tchk, gout, term_eps=eps, shaded=shaded, **placed)
+    by_t = int((fz.unshaded_chunks(live_mask(deep, placed), tchk, eps) &
+                ~fz.unshaded_chunks(live_mask(deep, placed), tchk, 0.0)).sum())
+    if by_t == 0:
+        raise AssertionError(f"{tag} NL={NL}: no chunk skipped for its transmittance")
+    keep = shaded.repeat_interleave(min(S, fz.BWD_CHUNK), dim=1)[:, :S].to(args[8].dtype)
+    masked = deep[:8] + (deep[8] * keep,) + deep[9:]
+    rel = backward_rel(f"{tag} NL={NL} S={S} at term_eps={eps}", deep, tchk, gout, placed,
+                       spilled_layers(NL), eps=eps, plain_args=masked)[0]
+    print(f"{tag} at {NL} layers, {B}x{S} under term_eps={eps}: {by_t} (ray, chunk) pairs "
+          f"skipped for their transmittance, {int((shaded == 0).sum())} in all; gradient "
+          f"against the plain version with them masked {rel}", flush=True)
 
 
 PROBE_TIMES = []
@@ -1165,6 +1251,112 @@ def check_probe_kernels():
                 256, 64, bins)
 
 
+# B2 / B2t at depth: 9 layers (every layer input of a tile in shared
+# memory), 10 (the first spilled to the scratch), 13 (the `deep` phase's
+# model) and 17 (eight spilled; the scratch 17 MB on 132 CTAs).  Random
+# weights at the ReLU (He) scale sqrt(2 / 128), biases at 0.01, so the
+# signal neither dies nor blows up across 17 layers; at the reference's 0.1
+# of the 2-layer check the gradient of the first layers vanishes in bf16.
+# The widths are the committed model's: the first layer reads the encoding
+# only, the head writes lanes 0..3 (rgb, density); the rest is zero, as
+# `pack_params_f32` pads it.
+DEEP_LAYERS = (9, 10, 13, 17)
+DEEP_W_SCALE = (2.0 / 128) ** 0.5
+DEEP_ROWS = []  # B2 / B2t at depth, timed at the training batch (b2_deep.json)
+# check_deep_skip's density lane bias: softplus(x + 15) makes most rays
+# through the occupied cells opaque within their first 128 samples, so the
+# skip rule drops chunks for their transmittance (the check prints how
+# many), not only for holding no live sample.
+DEEP_SKIP_LAYERS = 13
+DEEP_SKIP_DENSITY_BIAS = 16.0
+
+
+def deep_widths(NL, widths):
+    """[(in, out)] of an NL-layer MLP at the committed model's widths."""
+    return [widths[0]] + [widths[1]] * (NL - 2) + [widths[-1]]
+
+
+def random_mlp(NL, seed, dev, widths):
+    """(W [NL, 128, 128], Bias [NL, 128]) f32 of random weights at the deep
+    checks' scale, zero outside the first layer's input width and the
+    head's output width (widths: the committed model's [(in, out)])."""
+    import torch
+
+    from tnerf_torch.render import fused as fz
+
+    g = torch.Generator().manual_seed(seed)
+    W = torch.randn((NL, fz.LANES, fz.LANES), generator=g) * DEEP_W_SCALE
+    Bias = torch.randn((NL, fz.LANES), generator=g) * 0.01
+    W[0, widths[0][0]:] = 0.0
+    W[-1, :, widths[-1][1]:] = 0.0
+    Bias[-1, widths[-1][1]:] = 0.0
+    return W.to(dev), Bias.to(dev)
+
+
+def spilled_layers(NL):
+    """Layers whose dW reads a tile the scratch's ring of slots held: input
+    v <= NL - 9 (spilled) and, two layers down, the gradient at layer m's
+    output for m <= NL - 11; layer 0's gradient comes through them all."""
+    from tnerf_torch.render import fused as fz
+
+    return list(range(max(0, NL - fz.MAX_BWD_LAYERS) + 1))
+
+
+def check_deep_backward(tag, args, placed, gout, eps, widths):
+    """B2 (B2t with placed) past shared memory, on the training batch's
+    rays: within B2_RTOL of the plain version at every depth of
+    DEEP_LAYERS, in each leaf and in each of `spilled_layers`' dW, on a
+    ragged batch at 13 layers, two launches at 17 layers within B2_RTOL of
+    each other; device times at 13 and 17 layers under the config's
+    term_eps, with the bound and the scratch's bytes."""
+    import torch
+
+    from tnerf_torch.render import fused as fz
+
+    dev = args[2].device
+    B, S = args[8].shape
+    for NL in DEEP_LAYERS:
+        W, Bias = random_mlp(NL, 100 + NL, dev, widths)
+        deep = (W, Bias) + tuple(args[2:])
+        gated = spilled_layers(NL)
+        _, tchk = fz.fused_forward(*deep, term_eps=0.0, return_tchk=True, **placed)
+        _, dW_k, _, _, _ = backward_rel(f"{tag} NL={NL}", deep, tchk, gout, placed, gated)
+        if NL == 13:
+            n = 1001
+            cut = tuple(a[:n] if torch.is_tensor(a) and a.dim() >= 1 and a.shape[0] == B else a
+                        for a in deep[2:])
+            backward_rel(f"{tag} NL={NL} B={n}", deep[:2] + cut, tchk[:n], gout[:n],
+                         {k: v[:n] for k, v in placed.items()}, gated)
+        if NL == max(DEEP_LAYERS):
+            again = fz.fused_backward(*deep, tchk, gout, term_eps=0.0, **placed)[0]
+            rel = float((again - dW_k).abs().max() / dW_k.abs().max())
+            log(f"{tag} NL={NL}: two launches differ by {rel:.2e} of the largest dW entry")
+            if not rel <= B2_RTOL:
+                raise AssertionError(f"{tag} NL={NL}: two launches differ by {rel}")
+        if NL in (13, 17):
+            _, tchk_e = fz.fused_forward(*deep, term_eps=eps, return_tchk=True, **placed)
+            shaded = torch.zeros((B, fz.n_bwd_chunks(S)), dtype=torch.uint8, device=dev)
+            fz.fused_backward(*deep, tchk_e, gout, term_eps=eps, shaded=shaded, **placed)
+            run = lambda: fz.fused_backward(*deep, tchk_e, gout, term_eps=eps, **placed)
+            ms = device_ms(run, "fused_backward_kernel", reps=20)
+            live = int((live_mask(deep, placed) &
+                        shaded.repeat_interleave(min(S, fz.BWD_CHUNK), dim=1)[:, :S].bool()).sum())
+            # forward again, weight and input gradients at the model's widths,
+            # less the first layer's input gradient (as check_backward's bound)
+            wd = deep_widths(NL, widths)
+            ops = live * 2 * (3 * sum(a * b for a, b in wd) - wd[0][0] * wd[0][1])
+            # each shaded tile stores and reloads its spilled inputs, 16 KB each way
+            tiles = int(shaded.sum()) // fz.bwd_tiles(B, S)[1]
+            spill = tiles * (NL - fz.MAX_BWD_LAYERS) * 2 * fz.BWD_CHUNK * fz.LANES * 2
+            row = {"tag": tag, "layers": NL, "batch": [B, S], "ms": ms, "live_samples": live,
+                   "bound_ms": ops / PEAK_BF16 * 1e3, "bound_by": "operations",
+                   "spill_bytes": spill, "spill_ms_at_hbm_rate": spill / PEAK_BYTES * 1e3}
+            DEEP_ROWS.append(row)
+            print(f"{tag} at {NL} layers, training batch {B}x{S}: {ms:.4f} ms (bound "
+                  f"{row['bound_ms']:.4f} by operations; scratch traffic {spill / 1e6:.1f} MB, "
+                  f"{row['spill_ms_at_hbm_rate']:.4f} ms at the HBM rate)", flush=True)
+
+
 def check_backward():
     """Phase 3, training shape: B2 and B2t (and B1's / B1t's tchk) against
     the plain versions on a batch drawn from the train views, at S = 64
@@ -1232,9 +1424,11 @@ def check_backward():
                     raise AssertionError(f"{tag}: term_eps={eps} changed the S={S} result: dW "
                                          f"{rel_e}, out {err_e}")
                 check_skip_contract(tag, args, placed, gout, eps)
+                check_deep_skip(tag, args, placed, gout, eps, widths)
             if S != cfg.sampler.samples_per_ray:
                 continue
             check_forward_cases(tag, args, placed)
+            check_deep_backward(tag, args, placed, gout, eps, widths)
             # a batch that leaves the persistent grid's last round ragged, and (uniform
             # placement) a 2-layer MLP of random weights on the same rays
             n = B - 3 if tmode else 1001
@@ -1487,8 +1681,9 @@ def train_from_scratch(config, out_name, steps, per_step, reference_psnr, overri
     `config` (with `overrides`): every kernel named in per_step at least
     once per step, no step skipped, test PSNR within TRAIN_PSNR_MARGIN_DB
     of the reference's (the final eval's, or with gate_step the eval
-    the run logged at that step; with at_least, not under it by more).
-    Returns (launch counts, final metrics, output directory)."""
+    the run logged at that step; with at_least, not under it by more; no
+    PSNR gate where reference_psnr is None).  Returns (launch counts, final
+    metrics, output directory)."""
     import shutil
 
     out_dir = os.path.join(OUT, out_name)
@@ -1512,8 +1707,9 @@ def train_from_scratch(config, out_name, steps, per_step, reference_psnr, overri
                              f"step: {launches}")
     if last["step"] != steps - 1 or last.get("skipped_steps", 0) > 0:
         raise AssertionError(f"{out_name}: training ended at {last}")
-    print(f"{out_name} {steps} steps: psnr_test {final['psnr_test']:.4f} dB (reference "
-          f"{reference_psnr:.4f}, worst view {final['psnr_test_min']:.4f}), ssim_test "
+    ref = "no reference" if reference_psnr is None else f"reference {reference_psnr:.4f}"
+    print(f"{out_name} {steps} steps: psnr_test {final['psnr_test']:.4f} dB ({ref}, worst view "
+          f"{final['psnr_test_min']:.4f}), ssim_test "
           f"{final['ssim_test']:.4f}, last window {last['step_seconds'] * 1e3:.3f} ms/step, "
           f"{last['rays_per_sec']:.0f} rays/s, loss {last['loss']:.3e}, whole run {train_s:.1f} s",
           flush=True)
@@ -1521,7 +1717,7 @@ def train_from_scratch(config, out_name, steps, per_step, reference_psnr, overri
         print(f"{out_name}: its eval at step {gate_step}: psnr_test {gated['psnr_test']:.4f} dB "
               f"on {gated['n_views_test']:.0f} views (the reference's at that step "
               f"{reference_psnr:.4f})", flush=True)
-    gap = gated["psnr_test"] - reference_psnr
+    gap = 0.0 if reference_psnr is None else gated["psnr_test"] - reference_psnr
     if (-gap if at_least else abs(gap)) > TRAIN_PSNR_MARGIN_DB:
         raise AssertionError(f"{out_name}: trained test PSNR {gated['psnr_test']} is not within "
                              f"{TRAIN_PSNR_MARGIN_DB} dB of the reference's {reference_psnr}"
@@ -1996,18 +2192,30 @@ def serve_and_train_march():
     return {k: launches[k] + trained[k] for k in launches}
 
 
-def train_and_serve_intervals():
-    """Phase 9: the intervals pipeline, trained and served through the
-    entry points: every step and every eval chunk walks the grid in B5."""
-    from tnerf_torch.config import Config
-
-    cfg = Config.from_json_file(CONFIG_INTERVALS)
+def train_intervals_short():
+    """Phase 9: the intervals pipeline on the card, briefly: the config at
+    INTERVALS_OVERRIDES trained INTERVALS_SHORT_STEPS steps through `cli
+    train` (B5 every step, the loss falling), then its checkpoint served by
+    `cli eval` (`serve_intervals`).  Its PSNR gate is `intervals_full`'s."""
     launches, final, out_dir = train_from_scratch(
-        CONFIG_INTERVALS, "train_intervals", cfg.train.steps, ("dda_march",),
-        JAX_INTERVALS_PSNR_TEST, INTERVALS_OVERRIDES)
-    check_trained("train_intervals", cfg, final)
-    ckpt = os.path.join(out_dir, "checkpoints")
-    m, served, _ = eval_cli(CONFIG_INTERVALS, ckpt, "eval_intervals")
+        CONFIG_INTERVALS, "train_intervals", INTERVALS_SHORT_STEPS, ("dda_march",), None,
+        INTERVALS_SHORT_OVERRIDES)
+    _, losses, _ = last_window(os.path.join(out_dir, "metrics.jsonl"))
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"intervals: the loss did not fall in {INTERVALS_SHORT_STEPS} "
+                             f"steps: {losses}")
+    print(f"intervals {INTERVALS_SHORT_STEPS} steps: loss {losses[0]:.4e} -> {losses[-1]:.4e}",
+          flush=True)
+    served = serve_intervals(os.path.join(out_dir, "checkpoints"), final, "eval_intervals")
+    return {k: launches[k] + served[k] for k in launches}
+
+
+def serve_intervals(ckpt, final, name):
+    """`cli eval` of an intervals checkpoint with the config as committed:
+    every eval chunk walks the grid in B5, and the test PSNR is the
+    training run's own final eval's within PSNR_TOL_DB.  Returns the launch
+    counts."""
+    m, served, _ = eval_cli(CONFIG_INTERVALS, ckpt, name)
     views = m["n_views_val"] + m["n_views_test"]
     if served["dda_march"] < views:
         raise AssertionError(f"the intervals eval did not walk every chunk in B5: {served}")
@@ -2017,10 +2225,64 @@ def train_and_serve_intervals():
     print(f"intervals eval: psnr_test {m['psnr_test']:.4f} dB, ssim_test {m['ssim_test']:.4f}, "
           f"render_ms_test {m['render_ms_test']:.2f}, {served['dda_march'] / views:.1f} B5 "
           f"launches per view", flush=True)
+    return served
+
+
+def train_and_serve_intervals():
+    """Phase `intervals_full` (not in the default run): the intervals
+    pipeline trained for all its 2500 steps at INTERVALS_OVERRIDES and
+    served through the entry points: every step and every eval chunk walks
+    the grid in B5, the test PSNR within TRAIN_PSNR_MARGIN_DB of the
+    reference's record and over the config's gate; one 800x800 orbit frame;
+    20 steps under torch.profiler."""
+    cfg = load_config(CONFIG_INTERVALS, INTERVALS_OVERRIDES)
+    launches, final, out_dir = train_from_scratch(
+        CONFIG_INTERVALS, "train_intervals_full", cfg.train.steps, ("dda_march",),
+        JAX_INTERVALS_PSNR_TEST, INTERVALS_OVERRIDES)
+    check_trained("train_intervals_full", cfg, final)
+    ckpt = os.path.join(out_dir, "checkpoints")
+    served = serve_intervals(ckpt, final, "eval_intervals_full")
     print(f"intervals render 800x800: "
           f"{orbit_frame(CONFIG_INTERVALS, ckpt, 'orbit800_intervals'):.2f} ms/frame", flush=True)
-    profile_train_steps(CONFIG_INTERVALS, ckpt, "train_intervals")
+    profile_train_steps(CONFIG_INTERVALS, ckpt, "train_intervals_full")
     return {k: launches[k] + served[k] for k in launches}
+
+
+def train_deep():
+    """Phase `deep`: fused training past shared memory, through the entry
+    points.  `cli train` of the prims config at DEEP_OVERRIDES (13 layers:
+    B2 keeps 8 layer inputs of a tile in shared memory and spills 4), all
+    its 1500 steps: B3, B1 and B2 at least once per step, the final test
+    PSNR no more than TRAIN_PSNR_MARGIN_DB under JAX_PSNR_TEST; `cli eval`
+    of its checkpoint equal to the run's own eval within PSNR_TOL_DB and
+    one 800x800 `cli render` frame; then `cli train` of
+    configs/procedural_hard_fused_cdf2.json at the same depth,
+    DEEP_CDF_STEPS steps under its full schedule: B4, B1t and B2t every
+    step and the loss falling."""
+    launches, final, out_dir = train_from_scratch(
+        CONFIG, "train_deep", 1500, ("tighten_range", "fused_forward", "fused_backward"),
+        JAX_PSNR_TEST, DEEP_OVERRIDES, at_least=True)
+    config = os.path.join(out_dir, "config.json")
+    ckpt = os.path.join(out_dir, "checkpoints")
+    m, served, _ = eval_cli(config, ckpt, "eval_deep")
+    if served["fused_forward"] < 1 or abs(m["psnr_test"] - final["psnr_test"]) > PSNR_TOL_DB:
+        raise AssertionError(f"deep eval: {m['psnr_test']} dB against the run's "
+                             f"{final['psnr_test']}, launches {served}")
+    ms = orbit_frame(config, ckpt, "orbit800_deep")
+    print(f"deep eval: psnr_test {m['psnr_test']:.4f} dB (the run's {final['psnr_test']:.4f}); "
+          f"render 800x800 {ms:.2f} ms/frame", flush=True)
+    add = {k: launches[k] + served[k] for k in launches}
+    cdf = DEEP_OVERRIDES + SHORT_RUN + [f"train.steps={DEEP_CDF_STEPS}",
+                                        "train.schedule_total_steps=5000"]
+    cdf_launches, _, cdf_dir = train_from_scratch(
+        CONFIG_CDF, "train_deep_cdf", DEEP_CDF_STEPS,
+        ("tighten_sample_mask", "fused_forward_tmode", "fused_backward_tmode"), None, cdf)
+    _, losses, _ = last_window(os.path.join(cdf_dir, "metrics.jsonl"))
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"deep CDF: the loss did not fall: {losses}")
+    print(f"deep CDF {DEEP_CDF_STEPS} steps: loss {losses[0]:.4e} -> {losses[-1]:.4e}",
+          flush=True)
+    return {k: add[k] + cdf_launches[k] for k in add}
 
 
 def train_and_serve_fields():
@@ -3540,6 +3802,8 @@ def run_phases(phases):
             rows[r["name"]] = r
         with open(os.path.join(OUT, "probe_kernels.json"), "w") as fh:
             json.dump(PROBE_TIMES, fh, indent=1)
+        with open(os.path.join(OUT, "b2_deep.json"), "w") as fh:
+            json.dump(DEEP_ROWS, fh, indent=1)
         phase_done("kernels")
     launches = {k: 0 for k in kernel_counters()}
 
@@ -3555,6 +3819,9 @@ def run_phases(phases):
                                ("tighten_range", "fused_forward", "fused_backward"),
                                JAX_PSNR_TEST)[0])
         phase_done("train")
+    if "deep" in phases:
+        add(train_deep())
+        phase_done("deep")
     if "resume" in phases:
         add(resume_reference_checkpoint())
         profile_train_steps(CONFIG, CKPT, "train")
@@ -3571,7 +3838,7 @@ def run_phases(phases):
             start_job("mesh", mesh_argv(obj), stats_of=obj)
         if "bake" in phases:
             start_job("bake", bake_argv(CONFIG, CKPT, "bake", BAKE_RES))
-        add(train_and_serve_intervals())
+        add(train_intervals_short())
         phase_done("intervals")
     if "fields" in phases:
         add(train_and_serve_fields())
@@ -3595,6 +3862,9 @@ def run_phases(phases):
     if "cdf_full" in phases:
         add(train_cdf_full())
         phase_done("cdf_full")
+    if "intervals_full" in phases:
+        add(train_and_serve_intervals())
+        phase_done("intervals_full")
     if "parallel" in phases:
         add(parallel_checks())
         phase_done("parallel")
@@ -3606,6 +3876,7 @@ def run_phases(phases):
 
 
 def main() -> int:
+    start = time.perf_counter()
     import torch
 
     if sys.argv[1:2] == ["--rank-job"]:  # a launched rank of phase `parallel_full`
@@ -3659,6 +3930,8 @@ def main() -> int:
     if phases >= set(ALL_PHASES) and (len(rows) != 8
                                       or min(r["launches"] for r in rows.values()) < 1):
         raise AssertionError(f"a kernel of the main paths was not launched: {launches}")
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all (phases "
+          f"{','.join(p for p in ALL_PHASES + EXTRA_PHASES if p in phases)})", flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

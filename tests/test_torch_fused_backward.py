@@ -31,12 +31,12 @@ AUTOGRAD_RTOL = 5e-3
 REFERENCE_RTOL = 3e-2
 
 
-def _workload(S, coarse_res=16, NL=4, B=64):
+def _workload(S, coarse_res=16, NL=4, B=64, w_scale=0.3):
     """The reference test's workload (tests/test_pallas_fused2.py:22-36)
     plus ray geometry, a random coarse bitfield and a cotangent on all six
     output columns."""
     rng = np.random.default_rng(0)
-    W = rng.normal(0, 0.3, (NL, 128, 128)).astype(np.float32)
+    W = rng.normal(0, w_scale, (NL, 128, 128)).astype(np.float32)
     Bias = rng.normal(0, 0.1, (NL, 128)).astype(np.float32)
     gamma = rng.normal(0, 1.0, (B, 128)).astype(np.float32)
     beta = rng.normal(0, 0.02, (B, 128)).astype(np.float32)
@@ -101,12 +101,26 @@ def test_plain_backward_matches_reference_custom_vjp(coarse):
     """Against the Pallas backward kernel (interpret mode) through its
     custom VJP, and against jax.grad of the jnp mirror (no coarse test
     there)."""
-    NK, res_c = 2, 16
-    W, Bias, gamma, beta, te, dt, o, d, mask, occ, cot = _workload(NK * 128, res_c)
+    _check_against_reference_custom_vjp(coarse, NL=4, NK=2)
+
+
+@pytest.mark.parametrize("coarse", [False, True])
+def test_deep_plain_backward_matches_reference_custom_vjp(coarse):
+    """The same at 11 layers (hidden_layers = 10), past the 9 whose inputs
+    the card's kernel keeps in shared memory: the depth its scratch serves.
+    Weights at the ReLU scale sqrt(2 / 128), so the gradient reaches the
+    first layers; one 128-sample chunk per ray.  The tolerance stays 3e-2."""
+    _check_against_reference_custom_vjp(coarse, NL=11, NK=1, w_scale=(2.0 / 128) ** 0.5)
+
+
+def _check_against_reference_custom_vjp(coarse, NL, NK, w_scale=0.3):
+    res_c = 16
+    W, Bias, gamma, beta, te, dt, o, d, mask, occ, cot = _workload(NK * 128, res_c, NL=NL,
+                                                                   w_scale=w_scale)
     lo = np.asarray(JGrid().aabb_min, np.float32)
     hi = np.asarray(JGrid().aabb_max, np.float32)
     jcoarse = (res_c, 1, tuple(lo), tuple((hi - lo) / res_c)) if coarse else None
-    fused = jf.make_fused_trainable(4, NK, b_tile=32, b_tile_bwd=16, term_eps=0.0,
+    fused = jf.make_fused_trainable(NL, NK, b_tile=32, b_tile_bwd=16, term_eps=0.0,
                                     interpret=True, coarse=jcoarse)
     rays8 = np.concatenate([te[:, None], dt[:, None], o, d], axis=1)
     words = jf.pack_occupancy_words(jnp.asarray(occ), res_c, res_c)
@@ -114,6 +128,7 @@ def test_plain_backward_matches_reference_custom_vjp(coarse):
     jW, jB = jax.grad(loss_k, argnums=(0, 1))(jnp.asarray(W), jnp.asarray(Bias))
     args = _torch_args(W, Bias, gamma, beta, te, dt, o, d, mask, occ, coarse)
     (dW, dB), _ = _function_grads(args, cot)
+    assert float(np.abs(jW[0]).max()) > 0 and float(np.abs(jB[0]).max()) > 0  # reaches layer 0
     assert _rel(dW, jW) <= REFERENCE_RTOL, ("dW vs custom VJP", _rel(dW, jW))
     assert _rel(dB, jB) <= REFERENCE_RTOL, ("dBias vs custom VJP", _rel(dB, jB))
     if not coarse:

@@ -6,14 +6,20 @@ and runs its Pallas kernels in interpret mode):
 - one train step on a fixed ray batch: loss within 1e-4 relative (a mean
   over 384 squared errors, each output within the kernels' 5e-3), every
   parameter's gradient within 3e-2 of its largest entry (the bound of the
-  reference's own kernel-against-autodiff test);
+  reference's own kernel-against-autodiff test); the same at 11 layers,
+  past the 9 whose inputs the card's backward kernel keeps in shared
+  memory;
 - the pixel -> ray / ground-truth gather of `PixelSampler` (atol 1e-6);
 - `cli train --device cpu` on a 32x32 procedural scene: the loss falls and
   a checkpoint is written;
 - checkpoints both ways: a reference TrainState (with Adam moments) saved
   by `tnerf`, resumed by the port, steps on with the moments intact; a
   port checkpoint restored by `tnerf.utils.checkpoint.restore_checkpoint`
-  into the reference's template and rendered equal (atol 5e-3).
+  into the reference's template and rendered equal (atol 5e-3); the same
+  for a 13-layer model, and a 13-layer reference checkpoint read and
+  served by the port's `cli eval` / `cli render`;
+- fused training validates at any depth; a layer wider than 128 is refused
+  with the reference's error where the reference raises it.
 """
 
 import json
@@ -85,15 +91,28 @@ def _port_field(cfg, jparams):
 
 
 def test_one_train_step_matches_reference():
+    _check_one_train_step()
+
+
+def test_one_deep_train_step_matches_reference():
+    """The same at hidden_layers = 10 (11 layers): past the 9 whose inputs
+    the card's backward kernel keeps in shared memory, the depth its
+    scratch of spilled inputs serves.  Same tolerances: the gradient of
+    every layer within 3e-2 of its largest entry."""
+    _check_one_train_step(["field_.hidden_layers=10"], n_rays=64)
+
+
+def _check_one_train_step(extra=(), n_rays=128):
     from tnerf.cameras import Rays as JRays, viewdirs_to_thetaphi as j_tp
     from tnerf.train import RayBatch as JBatch, make_train_step as j_make
     from tnerf_torch.cameras import Rays, viewdirs_to_thetaphi
     from tnerf_torch.train import RayBatch, init_train_state, make_train_step
     from tnerf_torch.train_loop import build_renderer
 
-    jcfg, cfg = _cfgs()
+    jcfg, cfg = _cfgs(extra)
+    NL = cfg.field_.hidden_layers + 1
     jfield, joptimizer, jrenderer, jstate, jocc = _reference_state(jcfg)
-    o, d, gt = _rays(128)
+    o, d, gt = _rays(n_rays)
     jrays = JRays(jnp.asarray(o), jnp.asarray(d), j_tp(jnp.asarray(d)))
 
     def jloss(p):
@@ -112,7 +131,7 @@ def test_one_train_step_matches_reference():
     params = state.params
     loss = torch.mean(torch.square(renderer(params, batch.rays, occ).rgb - batch.gt_rgb))
     grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-    for l in range(3):
+    for l in range(NL):
         for kind in ("w", "b"):
             a, b = grads[f"trunk.{kind}.{l}"].numpy(), np.asarray(jgrads["trunk"][kind][l])
             assert np.abs(b).max() > 0
@@ -129,10 +148,10 @@ def test_one_train_step_matches_reference():
     # Adam's first update is -lr * sign(g) wherever |g| >> eps: the two
     # packages move nearly every weight the same way
     moved = np.concatenate([(params[f"trunk.w.{l}"].detach() - before[f"trunk.w.{l}"])
-                            .numpy().ravel() for l in range(3)])
+                            .numpy().ravel() for l in range(NL)])
     jmoved = np.concatenate([np.asarray(jnew.params["trunk"]["w"][l]
                                         - jstate.params["trunk"]["w"][l]).ravel()
-                             for l in range(3)])
+                             for l in range(NL)])
     assert np.abs(moved).max() <= cfg.train.lr * 1.001
     assert np.mean(np.abs(moved - jmoved) < 1e-5) > 0.97
 
@@ -208,22 +227,86 @@ def test_cli_train_on_cpu(trained, capsys):
 def test_port_checkpoint_restores_into_the_reference(trained):
     """`tnerf`'s restore_checkpoint reads the port's checkpoint into its own
     template; the restored model renders what the port renders."""
+    _check_restores_into_the_reference(trained, (), 40)
+
+
+# A 13-layer model on the fused pipeline (hidden_layers = 12, as chip_smoke's
+# `deep` phase trains at width 128), here at the small width.
+DEEP = ["field_.hidden_layers=12"]
+
+
+@pytest.fixture(scope="module")
+def deep_trained(tmp_path_factory):
+    """`cli train --device cpu` of the 13-layer model for 4 steps; the run's out_dir."""
+    from tnerf_torch.cli import main
+
+    out = str(tmp_path_factory.mktemp("deep"))
+    argv = ["train", "--device", "cpu", "--out", out]
+    for ov in SMALL + DEEP + ["train.steps=4", "render.fused_tighten=false"]:
+        argv += ["-o", ov]
+    assert main(argv) == 0
+    return out
+
+
+def test_deep_port_checkpoint_restores_into_the_reference(deep_trained):
+    _check_restores_into_the_reference(deep_trained, DEEP, 4)
+
+
+def test_deep_reference_checkpoint_is_read_and_served_by_the_port(tmp_path):
+    """A 13-layer TrainState saved by `tnerf` is read by the port leaf for
+    leaf, and `cli eval` / `cli render --device cpu` serve it: the eval's
+    PSNR is what the port's renderer gives the loaded weights, the render a
+    PNG of the view's size."""
+    from tnerf.utils.checkpoint import save_checkpoint
+    from tnerf_torch.cli import main
+    from tnerf_torch.utils.checkpoint import load_train_checkpoint
+
+    jcfg, cfg = _cfgs(DEEP)
+    _, _, _, jstate, jocc = _reference_state(jcfg)
+    ckpt = str(tmp_path / "checkpoints")
+    save_checkpoint(ckpt, 0, (jstate, jocc))
+    step, params, opt, occ = load_train_checkpoint(ckpt, "cpu")
+    assert step == 0 and len(params) == 2 * 13
+    for l in range(13):
+        for kind in ("w", "b"):
+            k = f"trunk.{kind}.{l}"
+            np.testing.assert_array_equal(params[k].numpy(), jstate.params["trunk"][kind][l])
+            np.testing.assert_array_equal(opt["nu"][k].numpy(),
+                                          jstate.opt_state.inner_state[0].nu["trunk"][kind][l])
+    cfg_path = str(tmp_path / "config.json")
+    with open(cfg_path, "w") as fh:
+        fh.write(cfg.to_json())
+    common = ["--device", "cpu", "--config", cfg_path, "--checkpoint", ckpt,
+              "-o", "render.fused_tighten=false"]
+    metrics = str(tmp_path / "eval.json")
+    assert main(["eval", *common, "--out", metrics]) == 0
+    m = json.load(open(metrics))
+    assert m["n_views_test"] == 2.0 and np.isfinite(m["psnr_test"]) and m["psnr_test"] > 5.0
+    png = str(tmp_path / "view.png")
+    assert main(["render", *common, "--out", png]) == 0
+    from PIL import Image
+
+    assert Image.open(png).size == (32, 32)
+
+
+def _check_restores_into_the_reference(out, extra, steps):
     from tnerf.cameras import Rays as JRays, viewdirs_to_thetaphi as j_tp
     from tnerf.utils.checkpoint import restore_checkpoint
     from tnerf_torch.cameras import Rays, viewdirs_to_thetaphi
     from tnerf_torch.train_loop import build_renderer
     from tnerf_torch.utils.checkpoint import load_train_checkpoint
 
-    jcfg, cfg = _cfgs()
+    jcfg, cfg = _cfgs(extra)
+    NL = cfg.field_.hidden_layers + 1
     _, _, jrenderer, template, jocc = _reference_state(jcfg)
-    ckpt = os.path.join(trained, "checkpoints")
+    ckpt = os.path.join(out, "checkpoints")
     meta = json.load(open(os.path.join(ckpt, "treedef.json")))
     assert meta["treedef"] == str(jax.tree_util.tree_structure((template, jocc)))
     step, (jstate, jocc) = restore_checkpoint(ckpt, (template, jocc))
     _, params, opt, occ = load_train_checkpoint(ckpt, "cpu")
-    assert step == 40 and int(jstate.step) == 40
-    assert int(jstate.opt_state.inner_state[0].count) == 40
-    for l in range(3):
+    assert step == steps and int(jstate.step) == steps
+    assert int(jstate.opt_state.inner_state[0].count) == steps
+    for l in range(NL):
         np.testing.assert_array_equal(jstate.params["trunk"]["w"][l], params[f"trunk.w.{l}"].numpy())
         np.testing.assert_array_equal(jstate.opt_state.inner_state[0].nu["trunk"]["b"][l],
                                       opt["nu"][f"trunk.b.{l}"].numpy())
@@ -317,15 +400,29 @@ def test_training_options_this_slice_does_not_run_are_refused():
     validate_ported(poses.apply_overrides(["render.pipeline=grid_march"]), for_eval=False)
 
 
-def test_fused_training_deeper_than_the_backward_kernel_holds_is_refused_at_config_time():
-    from tnerf_torch.render.fused import MAX_BWD_LAYERS
+def test_fused_training_validates_at_any_depth_and_refuses_width_past_128():
+    """Fused training takes any depth, as the reference's does (its backward
+    kernel keeps every layer input of a block in VMEM); what both refuse is
+    a layer wider than the kernels' 128 lanes, with the same error where
+    the reference raises it, when the weights are packed for the kernel."""
+    from tnerf.render import pallas_fused2 as jf
+    from tnerf.train_loop import build_field
+    from tnerf_torch.fields.nerf_field import NeRFField
+    from tnerf_torch.render.fused import MAX_BWD_LAYERS, pack_params_f32
+    from tnerf_torch.render.fused_common import _norm_affine
     from tnerf_torch.train_loop import validate_ported
 
     _, cfg = _cfgs()
-    deep = cfg.apply_overrides([f"field_.hidden_layers={MAX_BWD_LAYERS}"])
-    with pytest.raises(ValueError, match=f"field_.hidden_layers={MAX_BWD_LAYERS}: fused training"):
-        validate_ported(deep, for_eval=False)
-    validate_ported(deep)  # served: the forward kernel takes any depth
-    validate_ported(deep.apply_overrides(["render.pipeline=grid_march"]), for_eval=False)
-    validate_ported(cfg.apply_overrides([f"field_.hidden_layers={MAX_BWD_LAYERS - 1}"]),
-                    for_eval=False)
+    for hidden in (MAX_BWD_LAYERS, 12, 16):
+        validate_ported(cfg.apply_overrides([f"field_.hidden_layers={hidden}"]), for_eval=False)
+    jcfg, cfg = _cfgs(["field_.hidden_width=129", "field_.hidden_layers=1"])
+    validate_ported(cfg, for_eval=False)  # the config validates in both: the pack raises
+    s_aff, b_aff = _norm_affine(cfg.grid)
+    jparams = build_field(jcfg).init(jax.random.PRNGKey(0))
+    with pytest.raises(ValueError) as want:
+        jf.pack_params_f32(jparams, jcfg.field_, s_aff, b_aff)
+    field = NeRFField(cfg.field_, cfg.grid, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError) as got:
+        pack_params_f32(field.params(), cfg.field_, s_aff, b_aff)
+    assert "fused kernel supports layer dims <= 128" in str(want.value)
+    assert str(got.value) == str(want.value)

@@ -76,12 +76,30 @@
 //   along a ray (exclusive tau sum, suffix sum of G, sum of dw E F) are
 //   segmented warp scans (__shfl_*) with a carry across the two warps.
 //
-// Shared memory at NL = 9 (232,448 bytes a block can have):
+// - Depth past shared memory.  A tile keeps at most kResident = 8 layer
+//   inputs in shared memory (MAX_BWD_LAYERS - 1 in render/fused.py).  A
+//   deeper model (the kDeep instantiation) keeps its last kResident inputs
+//   there and spills each of the n_spilled = NL - 9 earlier ones, 16 KB of
+//   a 64 x 128 tile as wgmma reads it, to a per-CTA scratch in device
+//   memory during the forward recompute (one cp.async.bulk store by thread
+//   0, its shared-memory read waited at the end of the layer that reads the
+//   input); the grid is
+//   persistent, so the scratch is [n_ctas, NL - 9, 64, 128] bf16 (17 MB at
+//   NL = 17 on 132 CTAs, inside the 50 MB L2), allocated by the caller.
+//   The backward brings input l - 1 back by cp.async.bulk on an mbarrier as
+//   layer l starts, so the copy overlaps layer l's products.  Inputs and
+//   gradients rotate through four of the slots below the resident ones
+//   (`slot`): input v, and the gradient at layer v - 2's output, lie in
+//   slot (v - NL + 8) mod 4 for v <= NL - 5, which is free by the time
+//   either is written.  Biases of layers past the ninth are read from
+//   global memory.  A chunk the skip rule drops stores and reloads nothing.
+//
+// Shared memory at NL = 9, and at every deeper NL (232,448 bytes a block
+// can have):
 //   layer inputs 1..8: 8 x 16,384 = 131,072; gradient tile 16,384; weight
 //   ring 2 x 32,768 = 65,536; biases 4,608, coarse words 4,096, per-row
-//   scalars, head, bias column sums and mbarriers 4,624; alignment slack
-//   1,024: 227,344 in all.  Nine layers is the most that fits
-//   (MAX_BWD_LAYERS in render/fused.py).
+//   scalars, head, bias column sums and mbarriers 4,640; alignment slack
+//   1,024: 227,360 in all.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -104,22 +122,35 @@ constexpr int kThreads = 256;           // two consumer warpgroups
 constexpr int kTileBytes = kRows * kLanes * 2;
 constexpr int kWBytes = kLanes * kLanes * 2;
 constexpr int kMaxSmem = 232448;  // bytes a block can have on sm_90
-constexpr int kMaxLayers = 9;     // MAX_BWD_LAYERS in render/fused.py
+constexpr int kMaxLayers = 9;     // layers whose inputs all stay resident (MAX_BWD_LAYERS)
+constexpr int kResident = kMaxLayers - 1;  // layer inputs of a tile in shared memory
+constexpr int kRing = 4;                   // slots the spilled inputs rotate through
+// Built with -DTNERF_NO_SPILL (for tools/torch_b2_spill_cost.py only) the
+// kernel leaves out its traffic to and from the scratch: the same products
+// and slots, the spill's cost taken away, a wrong gradient past 9 layers.
+#ifdef TNERF_NO_SPILL
+constexpr bool kSpill = false;
+#else
+constexpr bool kSpill = true;
+#endif
 
 static_assert(kRows == 64 && kLanes == 128, "the wgmma tilings below assume 64 x 128 tiles");
 
 struct Fixed {
-  float bias[kMaxLayers][kLanes];
+  float bias[kMaxLayers][kLanes];  // layers 0..8; deeper ones from global memory
   uint32_t words[tnerf::kWords];  // coarse bitfield
   float head[kRows][4];  // last layer's lanes 0..3, raw
   float t[kRows], m[kRows], step[kRows], buf[kRows];
   float T0[kRows], gT[kRows];  // per ray of the tile
   float colsum[2][2][kLanes];  // bias gradient of two layers in turn, row halves
   uint64_t full[2];            // weight slot holds its load (TMA bytes arrived)
+  uint64_t reload[2];          // a spilled layer input is back in its slot (reloads in turn)
 };
 
+static_assert(kResident >= kRing, "a spilled input's slot must be free one layer ahead");
+
 constexpr size_t smem_bytes(int n_layers) {
-  const int slots = n_layers > 1 ? n_layers - 1 : 1;
+  const int slots = n_layers > kMaxLayers ? kResident : (n_layers > 1 ? n_layers - 1 : 1);
   return 1024 + (size_t)(slots + 1) * kTileBytes + 2 * (size_t)kWBytes + sizeof(Fixed);
 }
 
@@ -249,7 +280,7 @@ __device__ __forceinline__ void encode_tile(unsigned char* dst, const float* __r
   }
 }
 
-template <bool kTmode>
+template <bool kTmode, bool kDeep>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_backward_kernel(const __grid_constant__ CUtensorMap wmap, const float* __restrict__ bias,
                       const float* __restrict__ gamma, const float* __restrict__ beta,
@@ -257,19 +288,33 @@ fused_backward_kernel(const __grid_constant__ CUtensorMap wmap, const float* __r
                       const float* __restrict__ d, const float* __restrict__ mask,
                       const uint32_t* __restrict__ words, const float* __restrict__ tchk,
                       const float* __restrict__ gout, float* __restrict__ dW,
-                      float* __restrict__ dB, uint8_t* __restrict__ shaded, int B, int S,
-                      int n_layers, int use_coarse, Coarse cg, float term_eps) {
+                      float* __restrict__ dB, uint8_t* __restrict__ shaded,
+                      unsigned char* __restrict__ spill, int B, int S, int n_layers,
+                      int use_coarse, Coarse cg, float term_eps) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
       reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
-  const int n_slots = n_layers > 1 ? n_layers - 1 : 1;
-  unsigned char* acts = base;                                  // layer l's input in slot l - 1
+  const int n_slots = kDeep ? kResident : (n_layers > 1 ? n_layers - 1 : 1);
+  // layer inputs 1..n_spilled go to the scratch, the others stay; 0 at
+  // compile time up to 9 layers, so no deep-only step is left in that code
+  const int n_spilled = kDeep ? n_layers - 1 - kResident : 0;
+  unsigned char* acts = base;                                  // layer inputs
   unsigned char* gt = base + (size_t)n_slots * kTileBytes;     // gradient tile (encoding in the forward)
   unsigned char* wring = gt + kTileBytes;                      // two weight slots
   Fixed& sm = *reinterpret_cast<Fixed*>(wring + 2 * kWBytes);
+  // Layer v's input (v >= 1): slot v - 1, or with spilled inputs slot
+  // v - n_spilled - 1 for a resident one and the ring of slots 0..3 below.
+  auto slot = [&](int v) {
+    const int k = v - n_spilled - 1;
+    return acts + (size_t)(kDeep && k < 0 ? k & (kRing - 1) : k) * kTileBytes;
+  };
+  // This CTA's scratch tile of spilled input v.
+  auto spilled = [&](int v) {
+    return spill + ((size_t)blockIdx.x * n_spilled + (v - 1)) * kTileBytes;
+  };
   // Where the gradient at layer m's output lies: the gradient tile for the
   // last two layers, else the slot of layer m + 2's input, free by then.
-  auto g_at = [&](int m) { return m >= n_layers - 2 ? gt : acts + (size_t)(m + 1) * kTileBytes; };
+  auto g_at = [&](int m) { return m >= n_layers - 2 ? gt : slot(m + 2); };
   // Layer 0's input for its weight gradient: the gradient tile once the
   // gradient has moved to the slots, else slot 0.
   unsigned char* enc = n_layers > 2 ? gt : acts;
@@ -305,18 +350,28 @@ fused_backward_kernel(const __grid_constant__ CUtensorMap wmap, const float* __r
     prefetch_tensormap(&wmap);
     mbar_init(&sm.full[0], 1);
     mbar_init(&sm.full[1], 1);
+    if (n_spilled > 0) {
+      mbar_init(&sm.reload[0], 1);
+      mbar_init(&sm.reload[1], 1);
+    }
     fence_mbar_init();
     for (int s = 0; s < 2 && s < n_loads; ++s) {
       mbar_expect_tx(&sm.full[s], kWBytes);
       issue(s);
     }
   }
-  for (int i = tid; i < n_layers * kLanes; i += kThreads) sm.bias[i / kLanes][i % kLanes] = bias[i];
+  for (int i = tid; i < (n_layers < kMaxLayers ? n_layers : kMaxLayers) * kLanes; i += kThreads)
+    sm.bias[i / kLanes][i % kLanes] = bias[i];
   if (use_coarse)
     for (int i = tid; i < tnerf::kWords; i += kThreads) sm.words[i] = words[i];
   __syncthreads();
 
-  long long li = 0;  // index of the chunk's first weight load
+  long long li = 0;     // index of the chunk's first weight load
+  uint32_t reloads = 0;  // spilled inputs brought back by earlier chunks
+  // Reload j (layer v's input is the chunk's (n_spilled - v)-th) completes
+  // on barrier j % 2 in its phase j / 2: reload j + 2 is issued a block
+  // barrier after every thread has waited for reload j.
+  auto reload_id = [&](int v) { return reloads + (uint32_t)(n_spilled - v); };
   for (int tile = (int)blockIdx.x; tile < n_tiles; tile += (int)gridDim.x) {
     const int ray0 = tile * R;
     for (int j = tid; j < kRows; j += kThreads)
@@ -369,7 +424,7 @@ fused_backward_kernel(const __grid_constant__ CUtensorMap wmap, const float* __r
       for (int l = 0; l < n_layers; ++l) {
         acquire(li + l);
         if (compute && (l + 1 < n_layers || wg == 0)) {  // the head's lanes 0..3 are warpgroup 0's
-          const unsigned char* a = l == 0 ? gt : acts + (size_t)(l - 1) * kTileBytes;
+          const unsigned char* a = l == 0 ? gt : slot(l);
           const unsigned char* w = wring + ((li + l) & 1) * kWBytes;
           float acc[32];
           wgmma_fence();
@@ -381,9 +436,9 @@ fused_backward_kernel(const __grid_constant__ CUtensorMap wmap, const float* __r
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(acc);
-          const float* bl = sm.bias[l];
+          const float* bl = kDeep && l >= kMaxLayers ? bias + (size_t)l * kLanes : sm.bias[l];
           if (l + 1 < n_layers) {
-            unsigned char* out = acts + (size_t)l * kTileBytes;
+            unsigned char* out = slot(l + 1);
 #pragma unroll
             for (int i = 0; i < 8; ++i) {
               const int col = 64 * wg + 8 * i + cq;
@@ -401,8 +456,15 @@ fused_backward_kernel(const __grid_constant__ CUtensorMap wmap, const float* __r
             sm.head[r0 + 8][cq + 1] = acc[3] + bl[cq + 1];
           }
         }
+        // a spilled input's slot is written again four layers on: its store
+        // has read it once this layer, the last to read it, is done
+        if (kSpill && compute && tid == 0 && l >= 1 && l <= n_spilled) bulk_wait_all<true>();
         __syncthreads();
         if (l + 1 < n_layers) release(li + l);  // the last layer's tile serves its input gradient
+        if (kSpill && compute && tid == 0 && l + 1 <= n_spilled) {
+          bulk_store(spilled(l + 1), slot(l + 1), kTileBytes);
+          bulk_commit();
+        }
       }
       if (n_layers == 1) release(li);
 
@@ -471,9 +533,25 @@ fused_backward_kernel(const __grid_constant__ CUtensorMap wmap, const float* __r
       __syncthreads();
 
       // Phase 5: the MLP backward, last layer first.
+      if (kSpill && n_spilled > 0 && compute && tid == 0) {  // the spilled inputs are in the scratch
+        bulk_wait_all<false>();
+        fence_async_all();
+      }
       for (int l = n_layers - 1; l >= 0; --l) {
         const bool last = l == n_layers - 1;  // only columns 0..3 of g are set
         const long long wl = last ? li + n_layers - 1 : li + 2 * n_layers - 2 - l;
+        // layer l - 1's input back from the scratch while this layer runs:
+        // its slot last held layer l + 3's input and layer l + 1's gradient
+        if (kSpill && compute && tid == 0 && l - 1 >= 1 && l - 1 <= n_spilled) {
+          const uint32_t j = reload_id(l - 1);
+          fence_async_smem();
+          mbar_expect_tx(&sm.reload[j & 1], kTileBytes);
+          bulk_load(slot(l - 1), spilled(l - 1), kTileBytes, &sm.reload[j & 1]);
+        }
+        if (kSpill && compute && l >= 1 && l <= n_spilled) {
+          const uint32_t j = reload_id(l);
+          mbar_wait(&sm.reload[j & 1], (j >> 1) & 1);
+        }
         if (l > 0 && !last) acquire(wl);
         if (l == 0 && compute) {  // layer 0's input, the encoding, again
           encode_tile(enc, gamma, beta, place, sm.t, tid, c, ch, R, ray0, B, S);
@@ -487,7 +565,7 @@ fused_backward_kernel(const __grid_constant__ CUtensorMap wmap, const float* __r
         const bool apart = gn != g;
         float e[32], f0[32], f1[32];
         if (compute) {
-          const unsigned char* a = l == 0 ? enc : acts + (size_t)(l - 1) * kTileBytes;
+          const unsigned char* a = l == 0 ? enc : slot(l);
           const unsigned char* w = wring + (wl & 1) * kWBytes;
           if (l > 0 && last)  // the head: g has 4 columns, one contraction step
             bwd_products<true, 1, false>(e, f0, f1, a, g, w, wg);
@@ -515,7 +593,7 @@ fused_backward_kernel(const __grid_constant__ CUtensorMap wmap, const float* __r
           red_partial(dwl, f0, 64 * wg + 16 * w4, 0, lane);
           if (!last) red_partial(dwl, f1, 64 * wg + 16 * w4, 64, lane);
           // g at layer l - 1's output, into another tile: no barrier first
-          if (l > 0 && apart) relu_grad(gn, acts + (size_t)(l - 1) * kTileBytes, e, wg, r0, cq);
+          if (l > 0 && apart) relu_grad(gn, slot(l), e, wg, r0, cq);
         }
         __syncthreads();  // every read of g and W is done; the next g and the column sums are written
         if (l > 0) release(wl);
@@ -524,28 +602,39 @@ fused_backward_kernel(const __grid_constant__ CUtensorMap wmap, const float* __r
           if (v != 0.f) atomicAdd(dB + l * kLanes + tid, v);
         }
         if (l > 0 && !apart) {
-          if (compute) relu_grad(gn, acts + (size_t)(l - 1) * kTileBytes, e, wg, r0, cq);
+          if (compute) relu_grad(gn, slot(l), e, wg, r0, cq);
           __syncthreads();  // g rewritten
         }
       }
+      if (compute) reloads += n_spilled;
     }
   }
+}
+
+// The kernel for n_layers: the instantiation with spilled inputs past
+// kMaxLayers.  Up to kMaxLayers the kernel is compiled with none (n_spilled
+// = 0 at compile time): one instantiation for every depth measured 3.5%
+// slower at 9 layers (PERF.md, PR 14).
+template <bool kTmode>
+auto kernel_for(int n_layers) {
+  return n_layers > kMaxLayers ? fused_backward_kernel<kTmode, true>
+                               : fused_backward_kernel<kTmode, false>;
 }
 
 // CTAs of the kernel the card holds at once (negative: a CUDA error).
 template <bool kTmode>
 int max_ctas(int n_layers) {
   const size_t smem = smem_bytes(n_layers);
-  if (n_layers > kMaxLayers || smem > kMaxSmem) return -(int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(fused_backward_kernel<kTmode>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (n_layers < 1 || smem > kMaxSmem) return -(int)cudaErrorInvalidValue;
+  const auto kernel = kernel_for<kTmode>(n_layers);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return -(int)err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return -(int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return -(int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_backward_kernel<kTmode>,
-                                                      kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   return err == cudaSuccess ? sms * per_sm : -(int)err;
 }
 
@@ -553,20 +642,24 @@ template <bool kTmode>
 int launch_backward(const void* w, const float* bias, const float* gamma, const float* beta,
                     const tnerf::Placement<kTmode>& place, const float* o, const float* d,
                     const float* mask, const int32_t* words, const float* tchk,
-                    const float* gout, float* dW, float* dB, uint8_t* shaded, int B, int S,
-                    int n_layers, int n_ctas, int use_coarse, const Coarse& cg, float term_eps,
-                    void* stream) {
+                    const float* gout, float* dW, float* dB, uint8_t* shaded, void* spill,
+                    int B, int S, int n_layers, int n_ctas, int use_coarse, const Coarse& cg,
+                    float term_eps, void* stream) {
   const size_t smem = smem_bytes(n_layers);
-  if (n_layers > kMaxLayers || smem > kMaxSmem || n_ctas < 1) return (int)cudaErrorInvalidValue;
+  if (n_layers < 1 || smem > kMaxSmem || n_ctas < 1 ||
+      (n_layers > kMaxLayers && spill == nullptr))
+    return (int)cudaErrorInvalidValue;
   CUtensorMap wmap;
   const int map_err = weight_map(&wmap, w, n_layers);
   if (map_err != (int)cudaSuccess) return map_err;
-  cudaError_t err = cudaFuncSetAttribute(fused_backward_kernel<kTmode>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const auto kernel = kernel_for<kTmode>(n_layers);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fused_backward_kernel<kTmode><<<n_ctas, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<n_ctas, kThreads, smem, (cudaStream_t)stream>>>(
       wmap, bias, gamma, beta, place, o, d, mask, reinterpret_cast<const uint32_t*>(words), tchk,
-      gout, dW, dB, shaded, B, S, n_layers, use_coarse, cg, term_eps);
+      gout, dW, dB, shaded, static_cast<unsigned char*>(spill), B, S, n_layers, use_coarse, cg,
+      term_eps);
   return (int)cudaGetLastError();
 }
 
@@ -582,12 +675,12 @@ extern "C" int tnerf_fused_backward(const void* w, const float* bias, const floa
                                     const float* beta, const float* te, const float* dt,
                                     const float* o, const float* d, const float* mask,
                                     const int32_t* words, const float* tchk, const float* gout,
-                                    float* dW, float* dB, uint8_t* shaded, int B, int S,
-                                    int n_layers, int n_ctas, int use_coarse, int res_c,
-                                    float lo_x, float lo_y, float lo_z, float rcp_x,
+                                    float* dW, float* dB, uint8_t* shaded, void* spill,
+                                    int B, int S, int n_layers, int n_ctas, int use_coarse,
+                                    int res_c, float lo_x, float lo_y, float lo_z, float rcp_x,
                                     float rcp_y, float rcp_z, float term_eps, void* stream) {
   return launch_backward<false>(w, bias, gamma, beta, {te, dt, nullptr, nullptr}, o, d, mask,
-                                words, tchk, gout, dW, dB, shaded, B, S, n_layers, n_ctas,
+                                words, tchk, gout, dW, dB, shaded, spill, B, S, n_layers, n_ctas,
                                 use_coarse, Coarse{res_c, lo_x, lo_y, lo_z, rcp_x, rcp_y, rcp_z},
                                 term_eps, stream);
 }
@@ -598,13 +691,13 @@ extern "C" int tnerf_fused_backward_tmode(const void* w, const float* bias, cons
                                           const float* o, const float* d, const float* mask,
                                           const int32_t* words, const float* tchk,
                                           const float* gout, float* dW, float* dB,
-                                          uint8_t* shaded, int B, int S, int n_layers,
-                                          int n_ctas, int use_coarse, int res_c,
+                                          uint8_t* shaded, void* spill, int B, int S,
+                                          int n_layers, int n_ctas, int use_coarse, int res_c,
                                           float lo_x, float lo_y, float lo_z, float rcp_x,
                                           float rcp_y, float rcp_z, float term_eps,
                                           void* stream) {
   return launch_backward<true>(w, bias, gamma, beta, {nullptr, nullptr, ts, dts}, o, d, mask,
-                               words, tchk, gout, dW, dB, shaded, B, S, n_layers, n_ctas,
+                               words, tchk, gout, dW, dB, shaded, spill, B, S, n_layers, n_ctas,
                                use_coarse, Coarse{res_c, lo_x, lo_y, lo_z, rcp_x, rcp_y, rcp_z},
                                term_eps, stream);
 }

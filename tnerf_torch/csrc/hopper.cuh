@@ -221,6 +221,32 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from `src`
+// into global memory, in this thread's current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                   reinterpret_cast<uint64_t>(dst)),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// This thread's bulk stores have read their shared memory (kRead), or are
+// complete and visible in global memory.
+template <bool kRead>
+__device__ __forceinline__ void bulk_wait_all() {
+  if constexpr (kRead)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// Every earlier memory access of this thread ordered before its later
+// asynchronous-proxy ones, in any state space.
+__device__ __forceinline__ void fence_async_all() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
 // The tensor map's descriptor into the cache ahead of its first load.
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");

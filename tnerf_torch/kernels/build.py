@@ -43,9 +43,9 @@ PROTOTYPES = {
     # x, fast, exact, n, stream: the forward's branch-free sine against sinf
     "tnerf_sin_fast_check": [P, P, P, I, P],
     # w, bias, gamma, beta, te, dt, o, d, mask, words, tchk, gout, dW, dB, shaded (may be
-    # null), B, S, n_layers, n_ctas, use_coarse, res_c, lo xyz, 1 / cell xyz, term_eps,
-    # stream
-    "tnerf_fused_backward": [P] * 15 + [I, I, I, I, I, I] + [F] * 7 + [P],
+    # null), spill (the deep models' scratch; null up to 9 layers), B, S, n_layers, n_ctas,
+    # use_coarse, res_c, lo xyz, 1 / cell xyz, term_eps, stream
+    "tnerf_fused_backward": [P] * 16 + [I, I, I, I, I, I] + [F] * 7 + [P],
     # n_layers, tmode -> CTAs the card holds at once (negative: a cudaError_t)
     "tnerf_fused_backward_max_ctas": [I, I],
     # o, d_safe, inv_d, te, tx, words (may be null), t0, cell, n, steps, res, cfactor, use_occ,

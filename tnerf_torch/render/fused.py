@@ -144,10 +144,12 @@ SKIP_CHUNK = 128
 # (`kGroups`, `kPair` in csrc/fused_forward.cu).
 FWD_GROUPS = 2
 FWD_TILES_PER_GROUP = 2
-# Layers the backward kernel can hold: 227 KB of shared memory less 94 KB of
-# fixed buffers (two-slot weight ring, gradient tile, biases, coarse words,
-# per-row scalars), over 16 KB per stored layer input of a tile
-# (csrc/fused_backward.cu's header).
+# Layers whose every input the backward kernel keeps in shared memory: 227 KB
+# less 94 KB of fixed buffers (two-slot weight ring, gradient tile, biases,
+# coarse words, per-row scalars), over 16 KB per layer input of a tile
+# (csrc/fused_backward.cu's header).  A deeper model keeps its last
+# MAX_BWD_LAYERS - 1 inputs there and spills the earlier ones to a scratch
+# in device memory (`bwd_spill_shape`).
 MAX_BWD_LAYERS = 9
 
 
@@ -178,6 +180,15 @@ def bwd_grid(n_tiles: int, max_active: int) -> int:
 def fwd_grid(n_tiles: int, max_active: int) -> int:
     """CTAs of the forward kernel's persistent grid, sized as `bwd_grid`'s."""
     return _persistent_grid(n_tiles, max_active, "fused_forward")
+
+
+def bwd_spill_shape(NL: int, n_ctas: int):
+    """Shape of the backward kernel's scratch of spilled layer inputs: one
+    bf16 [BWD_CHUNK, 128] tile per CTA of the persistent grid and per layer
+    input beyond what shared memory keeps (inputs 1 .. NL - MAX_BWD_LAYERS),
+    or None where every input stays resident."""
+    n_spilled = NL - MAX_BWD_LAYERS
+    return (n_ctas, n_spilled, BWD_CHUNK, LANES) if n_spilled > 0 else None
 
 
 def bwd_schedule(B: int, S: int, n_ctas: int) -> list[list[tuple[int, int]]]:
@@ -493,7 +504,9 @@ def fused_backward(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, tchk
     `fused_forward`, receives its decisions).  The kernel runs a persistent
     grid, one CTA per SM (`bwd_schedule`), and adds each tile's partial
     gradient into the result with atomic adds, which land in no fixed
-    order: the result is not bit-reproducible from run to run."""
+    order: the result is not bit-reproducible from run to run.  Any depth:
+    past MAX_BWD_LAYERS the kernel spills the earlier layer inputs of each
+    tile to a scratch of `bwd_spill_shape` that this call allocates."""
     if gamma.device.type == "cpu":
         if shaded is not None:
             shaded.fill_(1)
@@ -513,13 +526,17 @@ def fused_backward(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, tchk
     lib = build.library()
     tmode = ts is not None
     n_ctas = bwd_grid(bwd_tiles(B, S)[0], _max_bwd_ctas(dev.index, NL, tmode))
+    spill_shape = bwd_spill_shape(NL, n_ctas)
+    spill = None if spill_shape is None else torch.empty(spill_shape, dtype=torch.bfloat16,
+                                                         device=dev)
     launch = lib.tnerf_fused_backward_tmode if tmode else lib.tnerf_fused_backward
     with torch.cuda.device(dev):
         err = launch(
             Wk.data_ptr(), Bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
             *_placement_ptrs(te, dt, ts, dts), o.data_ptr(), d.data_ptr(), mask.data_ptr(),
             words.data_ptr(), tchk.data_ptr(), gout.data_ptr(), dW.data_ptr(), dB.data_ptr(),
-            shaded_ptr, B, S, NL, n_ctas, *_coarse_args(coarse), float(np.float32(term_eps)),
+            shaded_ptr, None if spill is None else spill.data_ptr(), B, S, NL, n_ctas,
+            *_coarse_args(coarse), float(np.float32(term_eps)),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(err, "tnerf_fused_backward_tmode" if tmode else "tnerf_fused_backward")
@@ -539,17 +556,14 @@ def _check_backward_inputs(W, Bias, gamma, beta, te, dt, o, d, mask, words, tchk
     NL = W.shape[0]
     build.check_tensor("tchk", tchk, (B, n_bwd_chunks(S)), torch.float32, gamma.device)
     build.check_tensor("gout", gout, (B, 6), torch.float32, gamma.device)
-    if NL > MAX_BWD_LAYERS:
-        raise ValueError(
-            f"fused_backward: {NL} layers; the kernel keeps every layer's input of a tile in "
-            f"shared memory, which holds at most {MAX_BWD_LAYERS}")
     return B, S, NL
 
 
 @functools.lru_cache(maxsize=None)
 def _max_bwd_ctas(device_index: int, NL: int, tmode: bool) -> int:
-    """CTAs of the backward kernel the card holds at once (the CUDA
-    occupancy query); raises with the CUDA error if the query fails."""
+    """CTAs of the backward kernel the card holds at once for NL layers (the
+    CUDA occupancy query; past MAX_BWD_LAYERS the shared memory is that of
+    MAX_BWD_LAYERS); raises with the CUDA error if the query fails."""
     with torch.cuda.device(device_index):
         n = build.library().tnerf_fused_backward_max_ctas(NL, int(tmode))
     if n < 0:

@@ -33,7 +33,7 @@ from tnerf_torch.grid.occupancy import (
     renderer_payload,
     update_occupancy,
 )
-from tnerf_torch.render.fused import MAX_BWD_LAYERS, make_fused_renderer
+from tnerf_torch.render.fused import make_fused_renderer
 from tnerf_torch.render.grid_renderer import cdf_occupied_sample_fraction, make_grid_renderer
 from tnerf_torch.render.renderer import make_uniform_renderer
 from tnerf_torch.train import (
@@ -140,13 +140,6 @@ def validate_ported(cfg: Config, for_eval: bool = True) -> None:
                 "fused kernel bakes the full-frequency encoding algebra "
                 "— use grid_march, grid_intervals or uniform"
             )
-    if p == "fused" and cfg.field_.hidden_layers + 1 > MAX_BWD_LAYERS:
-        raise ValueError(
-            f"field_.hidden_layers={cfg.field_.hidden_layers}: fused training runs at most "
-            f"{MAX_BWD_LAYERS - 1} hidden layers (the backward kernel keeps every layer's input "
-            f"of a tile in shared memory, which holds {MAX_BWD_LAYERS} layers); a deeper model "
-            "is served on the fused path and trains on grid_march or grid_intervals"
-        )
     if t.table_tv_weight > 0.0 and f.encoding != "triplane":
         raise ValueError(
             "train.table_tv_weight is the triplane family's smoothness "
