@@ -308,6 +308,15 @@ INTERVALS_OVERRIDES = ["train.seed=3"]
 # full runs are (`intervals_full` here, `cdf` / `cdf_full` for the deep CDF
 # run below).
 SHORT_RUN = ["train.assert_test_psnr_min=0"]
+# Phase `train`: two `cli train` runs of the prims config from one seed
+# (B2), REPEAT_STEPS steps each, past grid.warmup_steps (256) so that the
+# occupancy refreshes at steps 256, 272 and 288 run too, and two of the CDF
+# config (B2t), CDF_REPEAT_STEPS each: every step's loss and every leaf of
+# the final checkpoint (parameters, Adam moments and counts, occupancy)
+# equal to the bit.
+REPEAT_STEPS = 300
+CDF_REPEAT_STEPS = 100
+REPEAT_OVERRIDES = SHORT_RUN + ["train.log_every=1", "train.eval_every=0"]
 INTERVALS_SHORT_STEPS = 250
 INTERVALS_SHORT_OVERRIDES = INTERVALS_OVERRIDES + SHORT_RUN + [
     f"train.steps={INTERVALS_SHORT_STEPS}", "train.schedule_total_steps=2500"]
@@ -387,6 +396,16 @@ B1_ATOL, B1_DEPTH_ATOL = 5e-3, 2e-2
 # gradients; a gradient entry sums ~5e5 samples, so flips average out.  The
 # reference's own kernel-against-autodiff test allows 3e-2.
 B2_RTOL = 1e-2
+# B2 / B2t sum dW and dBias in 64-bit fixed point, so their gradient
+# repeats bit for bit: every backward_rel case launches twice and must get
+# the same bits, and one launch on a grid of SMALL_GRID CTAs (the
+# occupancy query gives 132 on an H100) must equal the full grid's.
+SMALL_GRID = 37
+# The overflow flag, driven on the card: the cotangent times FLAG_GOUT_SCALE
+# puts a tile's partial far past the wrapper's bound (512 in gradient units
+# at the training batch, where partials stay under 1e-1: PERF.md), so the
+# gradient must come back non-finite.
+FLAG_GOUT_SCALE = 1e9
 # The trained model against the reference's record (34.393 dB): the two
 # packages draw other batches and other initial weights from the same seed,
 # so there is no bit parity; written down before the first run.
@@ -960,19 +979,21 @@ def backward_rel(tag, args, tchk, gout, placed, gated=(), eps=0.0, plain_args=No
     version's, where the kernel skips chunks under eps): (max |kernel -
     plain| / max |plain| per leaf, kernel dW, dBias, plain dW, dBias);
     fails beyond B2_RTOL in a leaf or in the dW of a layer in `gated`,
-    against that layer's largest entry."""
+    against that layer's largest entry, and where a second launch does not
+    give the same bits (`check_repeats`)."""
     import torch
 
     from tnerf_torch.render import fused as fz
 
     dW_k, dB_k = fz.fused_backward(*args, tchk, gout, term_eps=eps, **placed)
     dW_p, dB_p = fz.fused_backward_plain(*(plain_args or args), tchk, gout, **placed)
-    torch.cuda.synchronize()
+    again = fz.fused_backward(*args, tchk, gout, term_eps=eps, **placed)
     rel = {}
     for name, k, p in (("dW", dW_k, dW_p), ("dBias", dB_k, dB_p)):
         if not torch.isfinite(k).all():
             raise AssertionError(f"{tag} backward: non-finite {name}")
         rel[name] = float((k - p).abs().max() / p.abs().max())
+    check_repeats(tag, again, (dW_k, dB_k))
     per_layer = [float((dW_k[l] - dW_p[l]).abs().max() / dW_p[l].abs().max().clamp_min(1e-30))
                  for l in range(dW_p.shape[0])]
     log(f"{tag}: max |kernel - plain| / max |plain|: {rel}; per layer dW {per_layer}")
@@ -983,6 +1004,50 @@ def backward_rel(tag, args, tchk, gout, placed, gated=(), eps=0.0, plain_args=No
         raise AssertionError(f"{tag} backward: the dW of layers {worst} (relative to each "
                              f"layer's largest entry) disagree with the plain version")
     return rel, dW_k, dB_k, dW_p, dB_p
+
+
+def check_repeats(tag, got, want):
+    """Two launches' (dW, dBias), bit-equal in both leaves (the fixed-point
+    sums do not depend on the order of the adds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    diff = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{tag}: two launches of the backward differ (max |diff| dW, dBias "
+                             f"{diff})")
+
+
+def check_grid_and_flag(tag, args, tchk, gout, placed, want):
+    """B2 (B2t with placed) at the training shape on a grid of SMALL_GRID
+    CTAs (by replacing the occupancy query) bit-equal to `want`, the full
+    grid's (dW, dBias); then under the cotangent times FLAG_GOUT_SCALE, the
+    overflow flag fires and both leaves come back non-finite."""
+    import torch
+
+    from tnerf_torch.render import fused as fz
+
+    B, S = args[8].shape
+    full = fz.bwd_grid(fz.bwd_tiles(B, S)[0], fz._max_bwd_ctas(args[2].device.index,
+                                                                 args[0].shape[0], bool(placed)))
+    chosen = fz._max_bwd_ctas
+    try:
+        fz._max_bwd_ctas = lambda *_: SMALL_GRID
+        small = fz.fused_backward(*args, tchk, gout, **placed)
+    finally:
+        fz._max_bwd_ctas = chosen
+    check_repeats(f"{tag}: {SMALL_GRID} CTAs against {full}", small, want)
+    flagged = fz.fused_backward(*args, tchk, gout * FLAG_GOUT_SCALE, **placed)
+    torch.cuda.synchronize()
+    finite = [int(torch.isfinite(g).sum()) for g in flagged]
+    log(f"{tag}: {SMALL_GRID} CTAs bit-equal to {full}; under gout x {FLAG_GOUT_SCALE:g} the "
+        f"flag leaves {finite} finite entries of dW, dBias")
+    if any(finite):
+        raise AssertionError(f"{tag}: the overflow flag did not make the gradient non-finite "
+                             f"under gout x {FLAG_GOUT_SCALE:g}: {finite} finite entries")
+    print(f"{tag}: the fixed-point gradient on {SMALL_GRID} CTAs equals the full grid's "
+          f"({full}) to the bit; a cotangent x {FLAG_GOUT_SCALE:g} sets the overflow flag "
+          f"(dW, dBias all non-finite)", flush=True)
 
 
 def check_deep_skip(tag, args, placed, gout, eps, widths):
@@ -1306,8 +1371,8 @@ def check_deep_backward(tag, args, placed, gout, eps, widths):
     """B2 (B2t with placed) past shared memory, on the training batch's
     rays: within B2_RTOL of the plain version at every depth of
     DEEP_LAYERS, in each leaf and in each of `spilled_layers`' dW, on a
-    ragged batch at 13 layers, two launches at 17 layers within B2_RTOL of
-    each other; device times at 13 and 17 layers under the config's
+    ragged batch at 13 layers, two launches bit-equal at every depth
+    (`backward_rel`); device times at 13 and 17 layers under the config's
     term_eps, with the bound and the scratch's bytes."""
     import torch
 
@@ -1320,19 +1385,13 @@ def check_deep_backward(tag, args, placed, gout, eps, widths):
         deep = (W, Bias) + tuple(args[2:])
         gated = spilled_layers(NL)
         _, tchk = fz.fused_forward(*deep, term_eps=0.0, return_tchk=True, **placed)
-        _, dW_k, _, _, _ = backward_rel(f"{tag} NL={NL}", deep, tchk, gout, placed, gated)
+        backward_rel(f"{tag} NL={NL}", deep, tchk, gout, placed, gated)
         if NL == 13:
             n = 1001
             cut = tuple(a[:n] if torch.is_tensor(a) and a.dim() >= 1 and a.shape[0] == B else a
                         for a in deep[2:])
             backward_rel(f"{tag} NL={NL} B={n}", deep[:2] + cut, tchk[:n], gout[:n],
                          {k: v[:n] for k, v in placed.items()}, gated)
-        if NL == max(DEEP_LAYERS):
-            again = fz.fused_backward(*deep, tchk, gout, term_eps=0.0, **placed)[0]
-            rel = float((again - dW_k).abs().max() / dW_k.abs().max())
-            log(f"{tag} NL={NL}: two launches differ by {rel:.2e} of the largest dW entry")
-            if not rel <= B2_RTOL:
-                raise AssertionError(f"{tag} NL={NL}: two launches differ by {rel}")
         if NL in (13, 17):
             _, tchk_e = fz.fused_forward(*deep, term_eps=eps, return_tchk=True, **placed)
             shaded = torch.zeros((B, fz.n_bwd_chunks(S)), dtype=torch.uint8, device=dev)
@@ -1364,7 +1423,9 @@ def check_backward():
     and the dL/dT carry), 32 (two rays per tile) and 100 (a ragged last
     chunk); a 2-layer MLP of random weights; batches that leave the
     kernel's persistent grid a ragged last round; the skip rule under the
-    config's term_eps.  Returns the two backward rows."""
+    config's term_eps; two launches bit-equal in every case, a smaller grid
+    bit-equal to the full one, the overflow flag.  Returns the two
+    backward rows."""
     import torch
 
     from tnerf_torch.config import Config
@@ -1428,6 +1489,7 @@ def check_backward():
             if S != cfg.sampler.samples_per_ray:
                 continue
             check_forward_cases(tag, args, placed)
+            check_grid_and_flag(tag, args, tchk, gout, placed, (dW_k, dB_k))
             check_deep_backward(tag, args, placed, gout, eps, widths)
             # a batch that leaves the persistent grid's last round ragged, and (uniform
             # placement) a 2-layer MLP of random weights on the same rays
@@ -1467,14 +1529,10 @@ def check_backward():
                            live * 2 * macs / PEAK_BF16) * 1e3
             # the kernel's dense work: 26 products of 64 x 128 x 128 per tile
             dense_ms = fz.bwd_tiles(B, S)[0] * 26 * 2 * 64 * 128 * 128 / PEAK_BF16 * 1e3
-            # run-to-run reproducibility of the atomic sums
-            again = fz.fused_backward(*args, tchk, gout, term_eps=0.0, **placed)[0]
             log(f"{tag}: training batch of {B} rays x {S} samples: {live} live samples "
                 f"({live / (B * S):.3f}); backward {b2_ms:.3f} ms (plain {b2_plain:.1f}, bound "
                 f"{row['bound_ms']:.4f} by {row['bound_by']}, dense tiles {dense_ms:.4f}), forward "
-                f"with tchk {b1_ms:.3f} ms (plain {b1_plain:.1f}, bound {b1_bound:.4f}); two "
-                f"backward runs bit-equal: {bool(torch.equal(again, dW_k))}, max |diff| "
-                f"{float((again - dW_k).abs().max()):.3e}")
+                f"with tchk {b1_ms:.3f} ms (plain {b1_plain:.1f}, bound {b1_bound:.4f})")
             print(f"train shape {B}x{S}, {'CDF' if tmode else 'uniform'} placement: live share "
                   f"{live / (B * S):.4f}, {row['name']} {b2_ms:.4f} ms (bound "
                   f"{row['bound_ms']:.4f}, dense tiles {dense_ms:.4f}), forward+tchk "
@@ -1723,6 +1781,45 @@ def train_from_scratch(config, out_name, steps, per_step, reference_psnr, overri
                              f"{TRAIN_PSNR_MARGIN_DB} dB of the reference's {reference_psnr}"
                              f"{' or over it' if at_least else ''}")
     return launches, final, out_dir
+
+
+def train_repeats():
+    """Two `cli train` runs of the prims config (B2) from one seed, and two
+    of the CDF config (B2t): every logged loss (every step's) and every leaf
+    of the final checkpoint (parameters, Adam moments and counts, the
+    occupancy grid) equal to the bit.  Returns the runs' launch counts."""
+    import numpy as np
+
+    total = {}
+    for config, name, steps, per_step in (
+            (CONFIG, "repeat", REPEAT_STEPS, ("tighten_range", "fused_forward", "fused_backward")),
+            (CONFIG_CDF, "repeat_cdf", CDF_REPEAT_STEPS,
+             ("tighten_sample_mask", "fused_forward_tmode", "fused_backward_tmode"))):
+        runs = []
+        for i in range(2):
+            launches, final, out_dir = train_from_scratch(
+                config, f"{name}_{i}", steps, per_step, None,
+                REPEAT_OVERRIDES + [f"train.steps={steps}", f"train.checkpoint_every={steps}"])
+            losses = last_window(os.path.join(out_dir, "metrics.jsonl"))[1]
+            ckpt = os.path.join(out_dir, "checkpoints")
+            npz = [f for f in sorted(os.listdir(ckpt)) if f.endswith(".npz")][-1]
+            with np.load(os.path.join(ckpt, npz)) as z:
+                leaves = {k: z[k] for k in z.files}
+            runs.append((losses, leaves, final["psnr_test"]))
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+        (l0, z0, p0), (l1, z1, p1) = runs
+        loss_diff = [i for i, (a, b) in enumerate(zip(l0, l1)) if a != b]
+        leaf_diff = [k for k in z0 if k not in z1 or z0[k].tobytes() != z1[k].tobytes()]
+        print(f"{name}: two `cli train` runs of {os.path.relpath(config, REPO)} from one seed, "
+              f"{steps} steps: {len(l0)} logged losses, {len(loss_diff)} differ; {len(z0)} "
+              f"checkpoint leaves, {len(leaf_diff)} differ; psnr_test {p0:.6f} / {p1:.6f} dB",
+              flush=True)
+        if len(l0) != steps or len(l0) != len(l1) or loss_diff or leaf_diff \
+                or set(z0) != set(z1) or p0 != p1:
+            raise AssertionError(f"{name}: two runs from one seed parted: losses at steps "
+                                 f"{loss_diff[:10]}, leaves {leaf_diff[:10]}")
+    return total
 
 
 def resume_reference_checkpoint():
@@ -3818,6 +3915,7 @@ def run_phases(phases):
         add(train_from_scratch(CONFIG, "train", 1500,
                                ("tighten_range", "fused_forward", "fused_backward"),
                                JAX_PSNR_TEST)[0])
+        add(train_repeats())
         phase_done("train")
     if "deep" in phases:
         add(train_deep())

@@ -125,6 +125,23 @@ def test_wrapper_accepts_any_depth_on_meta_tensors(NL):
     assert tf._check_backward_inputs(*args, tchk, gout, None, None) == (64, 64, NL)
 
 
+@pytest.mark.parametrize("NL", [1, 2, 9, 13, 17])
+def test_grad_sums_on_meta_tensors(NL):
+    """The kernel's fixed-point sums: int64 qW [NL, 128, 128] and qB [NL,
+    128] and the float32 flag, back to back in one buffer (one fill), and
+    the f32 gradient the wrapper makes of them."""
+    buf, qW, qB, flag = tf.bwd_grad_sums(NL, "meta")
+    assert (qW.shape, qW.dtype) == ((NL, 128, 128), torch.int64)
+    assert (qB.shape, qB.dtype) == ((NL, 128), torch.int64)
+    assert (flag.shape, flag.dtype) == ((1,), torch.float32)
+    assert (buf.shape, buf.dtype) == ((NL * 128 * 129 + 1,), torch.int64)
+    assert all(t.is_contiguous() for t in (qW, qB, flag))
+    assert [t.storage_offset() * t.element_size() for t in (qW, qB, flag)] == \
+        [0, NL * 128 * 128 * 8, NL * 128 * 129 * 8]
+    g = tf.dequantize_grad(buf[:-1], flag)
+    assert (g.shape, g.dtype, g.device.type) == ((NL * 128 * 129,), torch.float32, "meta")
+
+
 @pytest.mark.parametrize("NL, n_ctas, want", [
     (1, 132, None), (9, 132, None), (10, 132, (132, 1, 64, 128)), (13, 7, (7, 4, 64, 128)),
     (17, 132, (132, 8, 64, 128))])

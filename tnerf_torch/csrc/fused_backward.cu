@@ -8,7 +8,8 @@
 // `tchk` at which each ray enters each chunk of kBwdRows samples (saved by
 // the forward kernel) and the cotangent `gout` [B, 6] of (r, g, b, acc,
 // depth, T_final), it adds dL/dW [NL, 128, 128] (in-major, as W) and
-// dL/dBias [NL, 128] into zeroed buffers.  Per tile, chunks last to first:
+// dL/dBias [NL, 128] into zeroed int64 sums in fixed point (below).  Per
+// tile, chunks last to first:
 //   1. mask = mask_in * coarse_bit, and the forward kernel's skip rule: a
 //      chunk whose rays were all at or below term_eps when the forward
 //      entered its (128-sample) chunk, or that has no live sample, was not
@@ -21,7 +22,8 @@
 //      w g_c c (1 - c), and the carry gT <- sum(dw E F) + gT Texp toward
 //      earlier chunks, starting from gout[:, 5];
 //   4. the MLP backward, last layer first: gb = bf16(g); dW[l] += a_in^T gb
-//      and dBias[l] += colsum(gb) in f32; g = (gb @ W[l]^T) * (a_in > 0).
+//      and dBias[l] += colsum(gb), each tile's partial formed in f32;
+//      g = (gb @ W[l]^T) * (a_in > 0).
 // No gradient reaches gamma, beta, the ray or the mask (as on the TPU).
 // Per-sample placement (the TPU kernel's tmode=True) is the kernel's second
 // instantiation: depth ts[ray, s] and step dts[ray, s] take the place of
@@ -31,8 +33,8 @@
 // What bounds it on an H100: the tensor cores do 26 products of 64 x 128 x
 // 128 per 64-row tile (forward again, weight gradient, input gradient):
 // 54.5 MFLOP, 7.4 us of one SM at the card's 989 TFLOP/s.  Against that,
-// per tile: 16 weight tiles of 32 KB to bring in, and a 64 KB f32 partial
-// dW per layer to add into one sum shared by every SM.
+// per tile: 16 weight tiles of 32 KB to bring in, and a partial dW of
+// 16,384 entries per layer to add into one int64 sum shared by every SM.
 //
 // Design (redesigned for Hopper; the first version ran mma.sync from
 // padded rows and restaged both weight orientations per layer):
@@ -61,17 +63,40 @@
 //   (PERF.md, section 6): the CTAs of a cluster must then release every slot
 //   together, and that lockstep cost more than the L2 reads it saves
 //   (4.30 ms at 8 CTAs a cluster, 4.11 at 4, 3.44 at 2, 2.87 without).
-// - The dW reduction.  Each warp adds its f32 partial into the one dW with
-//   red.global.add.v4.f32 (four neighbouring columns gathered by a lane
-//   shuffle), skipping quads that are all zero (dead ReLU units, masked
-//   samples, the head's unused columns), as soon as the layer's products
-//   are done (issuing them under the next layer's products measured
-//   slower).  A reduction inside a cluster over distributed shared memory was
-//   measured first and dropped (PERF.md, section 6): with every SM reducing at
-//   once, red.shared::cluster took 57 us per tile and layer, ordered
-//   st.shared::cluster with a fixed-order sum 9.2 us, red.global.add.v4
-//   4.6 us, a cluster barrier alone 0.7 us.  The adds land in no fixed
-//   order, so the gradient is not bit-reproducible from run to run.
+// - The dW reduction, in 64-bit fixed point.  The reference adds each
+//   block's weight gradient into one dW held in VMEM across a sequential
+//   grid, so its gradient is the same on every run.  Here every CTA adds
+//   its tiles' partials into one sum in device memory, in no fixed order,
+//   so the adds must not depend on order: each element of a warp's f32
+//   partial (and each tile's bias column sum) is scaled by 2^shift (exact),
+//   rounded once to an integer (__float2ll_rn) and added with
+//   red.global.add.u64 into an int64 sum, skipped where it rounds to zero
+//   (dead ReLU units, masked samples, the head's unused columns).  Integer
+//   addition is associative, so the sums, and the f32 gradient the wrapper
+//   makes of them, are the same bits for any order of adds, grid size or
+//   tile-to-CTA schedule.  The wrapper picks shift (render/fused.py
+//   GRAD_SHIFT = 40: a quantum of 2^-40 = 9.1e-13, 1e-4 of Adam's eps, a
+//   range of +-2^23 = 8.4e6, where the first 100 steps of the prims, CDF
+//   and 13-layer runs kept every sum under 0.2 and every partial under
+//   7.3e-5: tools/torch_grad_range.py, PERF.md) and the
+//   bound `grad_limit` on one partial in quanta, 2^62 over the launch's
+//   (tile, chunk) count rounded up to a power of two, so no sum can wrap.
+//   A partial beyond it, or not finite, sets the flag word to a quiet
+//   NaN's bits instead, which the wrapper turns into a non-finite gradient.
+//   The L2 serves these atomics by the 32-byte sector, and PTX has no
+//   vector form of a 64-bit integer red: an int64 entry is twice the bytes
+//   of the f32 it replaced, so the adds go out a whole sector at a time
+//   (`red_partial`); even so B2 takes about 30% longer than with f32
+//   red.global.add.v4 of the same partials, which do not repeat (PERF.md,
+//   section 6, with the variants measured: every other column per add,
+//   private per-CTA f32 slices).
+//   Reductions inside a cluster over distributed shared memory were
+//   measured first and dropped (PERF.md): with every SM reducing at once,
+//   red.shared::cluster took 57 us per tile and layer, ordered
+//   st.shared::cluster with a fixed-order sum 9.2 us, red.global.add.v4.f32
+//   4.6 us, a cluster barrier alone 0.7 us.  The adds are issued as soon as
+//   the layer's products are done (issuing them under the next layer's
+//   products measured slower).
 // - The compositing VJP runs on the tile's 64 rows (two warps); its scans
 //   along a ray (exclusive tau sum, suffix sum of G, sum of dw E F) are
 //   segmented warp scans (__shfl_*) with a carry across the two warps.
@@ -178,27 +203,51 @@ __device__ __forceinline__ float seg_scan(float v, int row, int ch, float* buf) 
   return v;
 }
 
-// dW rows k0 + (lane / 4) (+ 8), columns n0 + 8 i + 2 (lane % 4) (+ 1) hold
-// f[4 i + j]: added four neighbouring columns at a time (lane pairs trade
-// halves; even lanes send row k, odd lanes row k + 8), all-zero quads skipped.
-__device__ __forceinline__ void red_partial(float* dw, const float (&f)[32], int k0, int n0,
-                                           int lane) {
-  const bool odd = lane & 1;
-  const int k = k0 + (lane >> 2) + (odd ? 8 : 0);
-  const int n = n0 + 2 * (lane & 3) - (odd ? 2 : 0);
+// The flag word once a partial is out of range: a quiet NaN read as float32.
+constexpr uint32_t kFlagNaN = 0x7fc00000u;
+
+// x added into the int64 sum at p in fixed point: rounded once to a
+// multiple of 1 / scale (scale = 2^shift, an exact multiply), nothing added
+// where that is zero; `over` set where |x| scale exceeds `limit` or is not
+// finite.
+__device__ __forceinline__ void red_fixed(unsigned long long* p, float x, float scale,
+                                          float limit, bool& over) {
+  const float y = x * scale;
+  over |= !(fabsf(y) <= limit);
+  const long long q = __float2ll_rn(y);
+  if (q != 0) asm volatile("red.global.add.u64 [%0], %1;\n" ::"l"(p), "l"(q) : "memory");
+}
+
+// dW rows k0 + (lane / 4) (+ 8 h), columns n0 + 8 i + 2 m (+ 1) hold
+// f[4 i + 2 h] (f[4 i + 2 h + 1]), m = lane % 4: added into the fixed-point
+// sums a whole 32-byte sector at a time.  The four lanes of a row hold its
+// eight columns in pairs; lanes m and m ^ 2 trade their second columns, so
+// that the first add of each (i, h) covers columns 0 .. 3 (lanes 0, 1
+// their own first columns, lanes 2, 3 the second columns of lanes 0, 1)
+// and the second add columns 4 .. 7.  The L2 serves atomics by the sector:
+// adding the pairs as they lie (every other column per instruction)
+// measured twice the cost (PERF.md).
+__device__ __forceinline__ void red_partial(unsigned long long* dw, const float (&f)[32], int k0,
+                                           int n0, int lane, float scale, float limit,
+                                           uint32_t* flag) {
+  const int m = lane & 3;
+  const bool high = m & 2;
+  const int own = 2 * m, got = 2 * (m ^ 2) + 1;  // this lane's first column, the traded second
+  unsigned long long* p = dw + (size_t)(k0 + (lane >> 2)) * kLanes + n0;
+  unsigned long long* p0 = p + (high ? got : own);  // columns 0 .. 3 of the eight
+  unsigned long long* p1 = p + (high ? own : got);  // columns 4 .. 7
+  bool over = false;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float x0 = odd ? f[4 * i] : f[4 * i + 2], x1 = odd ? f[4 * i + 1] : f[4 * i + 3];
-    const float y0 = __shfl_xor_sync(0xffffffffu, x0, 1), y1 = __shfl_xor_sync(0xffffffffu, x1, 1);
-    const float a = odd ? y0 : f[4 * i], b = odd ? y1 : f[4 * i + 1];
-    const float c = odd ? f[4 * i + 2] : y0, d = odd ? f[4 * i + 3] : y1;
-    if (a != 0.f || b != 0.f || c != 0.f || d != 0.f) {
-      float* p = dw + (size_t)k * kLanes + n + 8 * i;
-      asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "f"(a), "f"(b),
-                   "f"(c), "f"(d)
-                   : "memory");
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float a = f[4 * i + 2 * h], b = f[4 * i + 2 * h + 1];
+      const float y = __shfl_xor_sync(0xffffffffu, b, 2);
+      const size_t at = (size_t)8 * h * kLanes + 8 * i;
+      red_fixed(p0 + at, high ? y : a, scale, limit, over);
+      red_fixed(p1 + at, high ? a : y, scale, limit, over);
     }
-  }
+  if (over) atomicOr(flag, kFlagNaN);
 }
 
 // The backward products of one layer for this warpgroup, issued and
@@ -287,10 +336,11 @@ fused_backward_kernel(const __grid_constant__ CUtensorMap wmap, const float* __r
                       const tnerf::Placement<kTmode> place, const float* __restrict__ o,
                       const float* __restrict__ d, const float* __restrict__ mask,
                       const uint32_t* __restrict__ words, const float* __restrict__ tchk,
-                      const float* __restrict__ gout, float* __restrict__ dW,
-                      float* __restrict__ dB, uint8_t* __restrict__ shaded,
-                      unsigned char* __restrict__ spill, int B, int S, int n_layers,
-                      int use_coarse, Coarse cg, float term_eps) {
+                      const float* __restrict__ gout, unsigned long long* __restrict__ dW,
+                      unsigned long long* __restrict__ dB, uint32_t* __restrict__ flag,
+                      uint8_t* __restrict__ shaded, unsigned char* __restrict__ spill, int B,
+                      int S, int n_layers, int use_coarse, Coarse cg, float term_eps,
+                      float grad_scale, float grad_limit) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
       reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
@@ -589,17 +639,20 @@ fused_backward_kernel(const __grid_constant__ CUtensorMap wmap, const float* __r
           fence_regs(e);
           fence_regs(f0);
           fence_regs(f1);
-          float* dwl = dW + (size_t)l * kLanes * kLanes;
-          red_partial(dwl, f0, 64 * wg + 16 * w4, 0, lane);
-          if (!last) red_partial(dwl, f1, 64 * wg + 16 * w4, 64, lane);
+          unsigned long long* dwl = dW + (size_t)l * kLanes * kLanes;
+          red_partial(dwl, f0, 64 * wg + 16 * w4, 0, lane, grad_scale, grad_limit, flag);
+          if (!last)
+            red_partial(dwl, f1, 64 * wg + 16 * w4, 64, lane, grad_scale, grad_limit, flag);
           // g at layer l - 1's output, into another tile: no barrier first
           if (l > 0 && apart) relu_grad(gn, slot(l), e, wg, r0, cq);
         }
         __syncthreads();  // every read of g and W is done; the next g and the column sums are written
         if (l > 0) release(wl);
         if (compute && tid < kLanes) {
-          const float v = sm.colsum[l & 1][0][tid] + sm.colsum[l & 1][1][tid];
-          if (v != 0.f) atomicAdd(dB + l * kLanes + tid, v);
+          bool over = false;
+          red_fixed(dB + l * kLanes + tid, sm.colsum[l & 1][0][tid] + sm.colsum[l & 1][1][tid],
+                    grad_scale, grad_limit, over);
+          if (over) atomicOr(flag, kFlagNaN);
         }
         if (l > 0 && !apart) {
           if (compute) relu_grad(gn, slot(l), e, wg, r0, cq);
@@ -642,9 +695,10 @@ template <bool kTmode>
 int launch_backward(const void* w, const float* bias, const float* gamma, const float* beta,
                     const tnerf::Placement<kTmode>& place, const float* o, const float* d,
                     const float* mask, const int32_t* words, const float* tchk,
-                    const float* gout, float* dW, float* dB, uint8_t* shaded, void* spill,
-                    int B, int S, int n_layers, int n_ctas, int use_coarse, const Coarse& cg,
-                    float term_eps, void* stream) {
+                    const float* gout, unsigned long long* dW, unsigned long long* dB,
+                    uint32_t* flag, uint8_t* shaded, void* spill, int B, int S, int n_layers,
+                    int n_ctas, int use_coarse, const Coarse& cg, float term_eps,
+                    float grad_scale, float grad_limit, void* stream) {
   const size_t smem = smem_bytes(n_layers);
   if (n_layers < 1 || smem > kMaxSmem || n_ctas < 1 ||
       (n_layers > kMaxLayers && spill == nullptr))
@@ -658,8 +712,8 @@ int launch_backward(const void* w, const float* bias, const float* gamma, const 
   if (err != cudaSuccess) return (int)err;
   kernel<<<n_ctas, kThreads, smem, (cudaStream_t)stream>>>(
       wmap, bias, gamma, beta, place, o, d, mask, reinterpret_cast<const uint32_t*>(words), tchk,
-      gout, dW, dB, shaded, static_cast<unsigned char*>(spill), B, S, n_layers, use_coarse, cg,
-      term_eps);
+      gout, dW, dB, flag, shaded, static_cast<unsigned char*>(spill), B, S, n_layers, use_coarse,
+      cg, term_eps, grad_scale, grad_limit);
   return (int)cudaGetLastError();
 }
 
@@ -671,18 +725,24 @@ extern "C" int tnerf_fused_backward_max_ctas(int n_layers, int tmode) {
   return tmode ? max_ctas<true>(n_layers) : max_ctas<false>(n_layers);
 }
 
+// dW, dB: zeroed int64 sums of the gradient times grad_scale (= 2^shift);
+// flag: a zeroed word, set to a quiet NaN's bits where a partial exceeds
+// grad_limit quanta or is not finite.
 extern "C" int tnerf_fused_backward(const void* w, const float* bias, const float* gamma,
                                     const float* beta, const float* te, const float* dt,
                                     const float* o, const float* d, const float* mask,
                                     const int32_t* words, const float* tchk, const float* gout,
-                                    float* dW, float* dB, uint8_t* shaded, void* spill,
-                                    int B, int S, int n_layers, int n_ctas, int use_coarse,
-                                    int res_c, float lo_x, float lo_y, float lo_z, float rcp_x,
-                                    float rcp_y, float rcp_z, float term_eps, void* stream) {
+                                    unsigned long long* dW, unsigned long long* dB,
+                                    uint32_t* flag, uint8_t* shaded, void* spill, int B, int S,
+                                    int n_layers, int n_ctas, int use_coarse, int res_c,
+                                    float lo_x, float lo_y, float lo_z, float rcp_x, float rcp_y,
+                                    float rcp_z, float term_eps, float grad_scale,
+                                    float grad_limit, void* stream) {
   return launch_backward<false>(w, bias, gamma, beta, {te, dt, nullptr, nullptr}, o, d, mask,
-                                words, tchk, gout, dW, dB, shaded, spill, B, S, n_layers, n_ctas,
-                                use_coarse, Coarse{res_c, lo_x, lo_y, lo_z, rcp_x, rcp_y, rcp_z},
-                                term_eps, stream);
+                                words, tchk, gout, dW, dB, flag, shaded, spill, B, S, n_layers,
+                                n_ctas, use_coarse,
+                                Coarse{res_c, lo_x, lo_y, lo_z, rcp_x, rcp_y, rcp_z}, term_eps,
+                                grad_scale, grad_limit, stream);
 }
 
 // Per-sample placement: ts, dts [B, S] in the place of te, dt [B].
@@ -690,14 +750,16 @@ extern "C" int tnerf_fused_backward_tmode(const void* w, const float* bias, cons
                                           const float* beta, const float* ts, const float* dts,
                                           const float* o, const float* d, const float* mask,
                                           const int32_t* words, const float* tchk,
-                                          const float* gout, float* dW, float* dB,
+                                          const float* gout, unsigned long long* dW,
+                                          unsigned long long* dB, uint32_t* flag,
                                           uint8_t* shaded, void* spill, int B, int S,
                                           int n_layers, int n_ctas, int use_coarse, int res_c,
                                           float lo_x, float lo_y, float lo_z, float rcp_x,
                                           float rcp_y, float rcp_z, float term_eps,
-                                          void* stream) {
+                                          float grad_scale, float grad_limit, void* stream) {
   return launch_backward<true>(w, bias, gamma, beta, {nullptr, nullptr, ts, dts}, o, d, mask,
-                               words, tchk, gout, dW, dB, shaded, spill, B, S, n_layers, n_ctas,
-                               use_coarse, Coarse{res_c, lo_x, lo_y, lo_z, rcp_x, rcp_y, rcp_z},
-                               term_eps, stream);
+                               words, tchk, gout, dW, dB, flag, shaded, spill, B, S, n_layers,
+                               n_ctas, use_coarse,
+                               Coarse{res_c, lo_x, lo_y, lo_z, rcp_x, rcp_y, rcp_z}, term_eps,
+                               grad_scale, grad_limit, stream);
 }

@@ -42,10 +42,11 @@ PROTOTYPES = {
     "tnerf_fused_forward_max_ctas": [I],
     # x, fast, exact, n, stream: the forward's branch-free sine against sinf
     "tnerf_sin_fast_check": [P, P, P, I, P],
-    # w, bias, gamma, beta, te, dt, o, d, mask, words, tchk, gout, dW, dB, shaded (may be
-    # null), spill (the deep models' scratch; null up to 9 layers), B, S, n_layers, n_ctas,
-    # use_coarse, res_c, lo xyz, 1 / cell xyz, term_eps, stream
-    "tnerf_fused_backward": [P] * 16 + [I, I, I, I, I, I] + [F] * 7 + [P],
+    # w, bias, gamma, beta, te, dt, o, d, mask, words, tchk, gout, dW, dB (int64 sums in
+    # fixed point), flag, shaded (may be null), spill (the deep models' scratch; null up to
+    # 9 layers), B, S, n_layers, n_ctas, use_coarse, res_c, lo xyz, 1 / cell xyz, term_eps,
+    # 2^shift, the bound on a partial in quanta, stream
+    "tnerf_fused_backward": [P] * 17 + [I, I, I, I, I, I] + [F] * 9 + [P],
     # n_layers, tmode -> CTAs the card holds at once (negative: a cudaError_t)
     "tnerf_fused_backward_max_ctas": [I, I],
     # o, d_safe, inv_d, te, tx, words (may be null), t0, cell, n, steps, res, cfactor, use_occ,

@@ -191,6 +191,56 @@ def bwd_spill_shape(NL: int, n_ctas: int):
     return (n_ctas, n_spilled, BWD_CHUNK, LANES) if n_spilled > 0 else None
 
 
+# The backward kernel sums dW and dBias across its CTAs in 64-bit fixed
+# point: each (tile, chunk)'s f32 partial is rounded once to a multiple of
+# 2^-GRAD_SHIFT and added as an integer, so the sums do not depend on the
+# order of the adds, the grid size or the schedule, and repeat bit for bit
+# as the reference's sequential grid does (csrc/fused_backward.cu's
+# header).  The quantum 2^-40 = 9.1e-13 is 1e-4 of Adam's eps; a sum may
+# reach 2^23 = 8.4e6, over 2^25 times the largest the first 100 steps of
+# the prims, CDF and 13-layer runs gave (0.196; tools/torch_grad_range.py,
+# PERF.md), and a tile's partial stayed under 7.3e-5 against the flag's
+# bound of 512 at the training batch.
+GRAD_SHIFT = 40
+
+
+def bwd_grad_limit(B: int, S: int) -> float:
+    """The bound on one partial, in quanta of 2^-GRAD_SHIFT, past which the
+    backward kernel sets its flag: 2^62 over the launch's count of (tile,
+    chunk) pairs, each of which adds at most one partial to a sum, rounded
+    up to a power of two; so no int64 sum can wrap."""
+    n_terms = bwd_tiles(B, S)[0] * n_bwd_chunks(S)
+    return float(2 ** (62 - (n_terms - 1).bit_length()))
+
+
+def bwd_grad_sums(NL: int, device):
+    """The zeroed int64 buffer one backward launch sums into (one fill), and
+    its views: (buffer, qW [NL, 128, 128], qB [NL, 128], flag), the flag
+    being the low half of the last word read as float32: 0.0 until the
+    kernel sets it to a quiet NaN's bits."""
+    n_w, n_b = NL * LANES * LANES, NL * LANES
+    buf = torch.zeros(n_w + n_b + 1, dtype=torch.int64, device=device)
+    return (buf, buf[:n_w].view(NL, LANES, LANES), buf[n_w:n_w + n_b].view(NL, LANES),
+            buf[n_w + n_b:].view(torch.float32)[:1])
+
+
+def quantize_grad(x, shift: int = GRAD_SHIFT):
+    """The backward kernel's rounding of an f32 partial to fixed point, in
+    plain PyTorch: x 2^shift (exact) rounded half to even (as
+    `__float2ll_rn`), int64."""
+    return torch.round(x * 2.0 ** shift).to(torch.int64)
+
+
+def dequantize_grad(q, flag, shift: int = GRAD_SHIFT):
+    """The f32 gradient of int64 fixed-point sums q in units of 2^-shift:
+    each sum rounded once to f32 (the integer's conversion is correctly
+    rounded and the power-of-two scale exact, so this is the exact sum
+    rounded once), and every entry NaN where `flag` (float32, 0.0 or NaN)
+    is set, so that the optimizer's skip_nonfinite skips the step.  One
+    elementwise op: flag + 2^-shift q."""
+    return torch.add(flag, q, alpha=2.0 ** -shift)
+
+
 def bwd_schedule(B: int, S: int, n_ctas: int) -> list[list[tuple[int, int]]]:
     """What the backward kernel's persistent grid does, in order: for CTA
     k, the (ray, chunk) pairs it shades.  CTA k takes tiles k, k + n_ctas,
@@ -325,42 +375,56 @@ def fused_backward_plain(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse
     the running dL/dT carry; the MLP backward with the gradient rounded to
     bf16 at every layer and f32 sums.  No chunk is skipped.  Returns
     (dW [NL, 128, 128], dBias [NL, 128]) f32."""
+    NL = W.shape[0]
+    dW = torch.zeros((NL, LANES, LANES), dtype=torch.float32, device=W.device)
+    dB = torch.zeros((NL, LANES), dtype=torch.float32, device=W.device)
+    with full_f32_matmul():
+        for l, a_in, gb in backward_terms(W, Bias, gamma, beta, te, dt, o, d, mask, words,
+                                          coarse, tchk, gout, ts, dts):
+            dW[l] += a_in.T @ gb
+            dB[l] += gb.sum(dim=0)
+    return dW, dB
+
+
+def backward_terms(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, tchk, gout,
+                   ts=None, dts=None):
+    """What `fused_backward_plain` sums, in its order: for each chunk of
+    BWD_CHUNK samples, last first, and each layer l, last first, (l, a_in,
+    gb): layer l's bf16 input and the bf16 gradient at its output,
+    both as f32 [B * chunk samples, 128], rows ray-major, so that dW[l] +=
+    a_in^T gb and dBias[l] += the column sums of gb.  Run it where full-f32
+    matrix products are on (`full_f32_matmul`)."""
     B, S = mask.shape
     NL = W.shape[0]
     Wb = W.to(torch.bfloat16).float()
-    dW = torch.zeros_like(Wb)
-    dB = torch.zeros((NL, LANES), dtype=torch.float32, device=W.device)
     ch = min(S, BWD_CHUNK)
     gT = gout[:, 5].clone()
-    with full_f32_matmul():
-        for c in reversed(range(n_bwd_chunks(S))):
-            s0, s1 = c * ch, min(S, (c + 1) * ch)
-            acts, rgb, sig, t, m, tau, step = _chunk_forward(
-                Wb, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, s0, s1, ts, dts)
-            T0 = tchk[:, c:c + 1]
-            E = torch.exp(-(torch.cumsum(tau, dim=1) - tau))
-            emt = torch.exp(-tau)
-            F = 1.0 - emt
-            w = T0 * E * F
-            Texp = torch.exp(-torch.sum(tau, dim=1, keepdim=True))
-            dw = torch.sum(gout[:, None, 0:3] * rgb, dim=-1) + gout[:, 3:4] + gout[:, 4:5] * t
-            G = dw * w
-            suffix = torch.flip(torch.cumsum(torch.flip(G, [1]), dim=1), [1]) - G
-            dtau = -suffix + dw * (T0 * E * emt) - gT[:, None] * (T0 * Texp)
-            dsig = dtau * step * m
-            g = torch.zeros((B, s1 - s0, LANES), dtype=torch.float32, device=W.device)
-            g[..., 0:3] = (w[..., None] * gout[:, None, 0:3]) * rgb * (1.0 - rgb)
-            g[..., 3] = dsig * (1.0 - torch.exp(-sig))  # softplus' = 1 - exp(-softplus)
-            gT = torch.sum(dw * E * F, dim=1) + gT * Texp[:, 0]
-            g = g.reshape(B * (s1 - s0), LANES)
-            for l in range(NL - 1, -1, -1):
-                gb = g.to(torch.bfloat16).float()
-                a_in = acts[l].float()
-                dW[l] += a_in.T @ gb
-                dB[l] += gb.sum(dim=0)
-                if l > 0:
-                    g = (gb @ Wb[l].T) * (a_in > 0)
-    return dW, dB
+    for c in reversed(range(n_bwd_chunks(S))):
+        s0, s1 = c * ch, min(S, (c + 1) * ch)
+        acts, rgb, sig, t, m, tau, step = _chunk_forward(
+            Wb, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, s0, s1, ts, dts)
+        T0 = tchk[:, c:c + 1]
+        E = torch.exp(-(torch.cumsum(tau, dim=1) - tau))
+        emt = torch.exp(-tau)
+        F = 1.0 - emt
+        w = T0 * E * F
+        Texp = torch.exp(-torch.sum(tau, dim=1, keepdim=True))
+        dw = torch.sum(gout[:, None, 0:3] * rgb, dim=-1) + gout[:, 3:4] + gout[:, 4:5] * t
+        G = dw * w
+        suffix = torch.flip(torch.cumsum(torch.flip(G, [1]), dim=1), [1]) - G
+        dtau = -suffix + dw * (T0 * E * emt) - gT[:, None] * (T0 * Texp)
+        dsig = dtau * step * m
+        g = torch.zeros((B, s1 - s0, LANES), dtype=torch.float32, device=W.device)
+        g[..., 0:3] = (w[..., None] * gout[:, None, 0:3]) * rgb * (1.0 - rgb)
+        g[..., 3] = dsig * (1.0 - torch.exp(-sig))  # softplus' = 1 - exp(-softplus)
+        gT = torch.sum(dw * E * F, dim=1) + gT * Texp[:, 0]
+        g = g.reshape(B * (s1 - s0), LANES)
+        for l in range(NL - 1, -1, -1):
+            gb = g.to(torch.bfloat16).float()
+            a_in = acts[l].float()
+            yield l, a_in, gb
+            if l > 0:
+                g = (gb @ Wb[l].T) * (a_in > 0)
 
 
 def _check_fused_inputs(what, W, Bias, gamma, beta, te, dt, o, d, mask, words, ts, dts):
@@ -503,10 +567,12 @@ def fused_backward(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, tchk
     the forward kernel skipped under the same term_eps (`shaded`, as in
     `fused_forward`, receives its decisions).  The kernel runs a persistent
     grid, one CTA per SM (`bwd_schedule`), and adds each tile's partial
-    gradient into the result with atomic adds, which land in no fixed
-    order: the result is not bit-reproducible from run to run.  Any depth:
-    past MAX_BWD_LAYERS the kernel spills the earlier layer inputs of each
-    tile to a scratch of `bwd_spill_shape` that this call allocates."""
+    gradient into int64 sums in fixed point (`GRAD_SHIFT`), which repeat
+    bit for bit from run to run and at any grid size; they come back as
+    f32 through `dequantize_grad`, non-finite where a partial was out of
+    range (`bwd_grad_limit`) or not finite.  Any depth: past MAX_BWD_LAYERS
+    the kernel spills the earlier layer inputs of each tile to a scratch of
+    `bwd_spill_shape` that this call allocates."""
     if gamma.device.type == "cpu":
         if shaded is not None:
             shaded.fill_(1)
@@ -518,33 +584,33 @@ def fused_backward(W, Bias, gamma, beta, te, dt, o, d, mask, words, coarse, tchk
                                       ts, dts)
     dev = gamma.device
     shaded_ptr = _shaded_arg(shaded, B, S, dev)
-    dW = torch.zeros((NL, LANES, LANES), dtype=torch.float32, device=dev)
-    dB = torch.zeros((NL, LANES), dtype=torch.float32, device=dev)
-    if B == 0:
-        return dW, dB
-    Wk = _weights_bf16(W)
-    lib = build.library()
-    tmode = ts is not None
-    n_ctas = bwd_grid(bwd_tiles(B, S)[0], _max_bwd_ctas(dev.index, NL, tmode))
-    spill_shape = bwd_spill_shape(NL, n_ctas)
-    spill = None if spill_shape is None else torch.empty(spill_shape, dtype=torch.bfloat16,
-                                                         device=dev)
-    launch = lib.tnerf_fused_backward_tmode if tmode else lib.tnerf_fused_backward
-    with torch.cuda.device(dev):
-        err = launch(
-            Wk.data_ptr(), Bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            *_placement_ptrs(te, dt, ts, dts), o.data_ptr(), d.data_ptr(), mask.data_ptr(),
-            words.data_ptr(), tchk.data_ptr(), gout.data_ptr(), dW.data_ptr(), dB.data_ptr(),
-            shaded_ptr, None if spill is None else spill.data_ptr(), B, S, NL, n_ctas,
-            *_coarse_args(coarse), float(np.float32(term_eps)),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    build.check(err, "tnerf_fused_backward_tmode" if tmode else "tnerf_fused_backward")
-    if tmode:
-        fused_backward.launches_tmode += 1
-    else:
-        fused_backward.launches += 1
-    return dW, dB
+    buf, qW, qB, flag = bwd_grad_sums(NL, dev)
+    if B > 0:
+        Wk = _weights_bf16(W)
+        lib = build.library()
+        tmode = ts is not None
+        n_ctas = bwd_grid(bwd_tiles(B, S)[0], _max_bwd_ctas(dev.index, NL, tmode))
+        spill_shape = bwd_spill_shape(NL, n_ctas)
+        spill = None if spill_shape is None else torch.empty(spill_shape, dtype=torch.bfloat16,
+                                                             device=dev)
+        launch = lib.tnerf_fused_backward_tmode if tmode else lib.tnerf_fused_backward
+        with torch.cuda.device(dev):
+            err = launch(
+                Wk.data_ptr(), Bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                *_placement_ptrs(te, dt, ts, dts), o.data_ptr(), d.data_ptr(), mask.data_ptr(),
+                words.data_ptr(), tchk.data_ptr(), gout.data_ptr(), qW.data_ptr(), qB.data_ptr(),
+                flag.data_ptr(), shaded_ptr, None if spill is None else spill.data_ptr(), B, S,
+                NL, n_ctas, *_coarse_args(coarse), float(np.float32(term_eps)),
+                float(2 ** GRAD_SHIFT), bwd_grad_limit(B, S),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        build.check(err, "tnerf_fused_backward_tmode" if tmode else "tnerf_fused_backward")
+        if tmode:
+            fused_backward.launches_tmode += 1
+        else:
+            fused_backward.launches += 1
+    g = dequantize_grad(buf[:-1], flag)
+    return g[:qW.numel()].view(qW.shape), g[qW.numel():].view(qB.shape)
 
 
 def _check_backward_inputs(W, Bias, gamma, beta, te, dt, o, d, mask, words, tchk, gout, ts, dts):

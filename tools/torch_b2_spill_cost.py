@@ -6,9 +6,9 @@ with other builds of `csrc/fused_backward.cu`, on one NVIDIA card:
   which leaves out the stores to and reloads from the scratch of spilled
   layer inputs (the same products and slots; its gradient is wrong past
   9 layers): what the scratch costs;
-- at 9 layers (the committed model), against each `--old NAME=DIR`, a
-  directory holding another `fused_backward.cu` and its headers, such as
-  an earlier revision's `tnerf_torch/csrc`:
+- at 9 layers (the committed model), 13 and 17, against each `--old
+  NAME=DIR`, a directory holding another `fused_backward.cu` and its
+  headers, such as an earlier revision's `tnerf_torch/csrc`:
 
     mkdir -p _dev/parent_csrc
     git archive <rev> tnerf_torch/csrc | tar -x -C _dev/parent_csrc --strip-components=2
@@ -21,9 +21,9 @@ batch (8192 rays drawn from the prims train views x 64 samples, uniform
 and occupancy-CDF placement, the config's term_eps), with the deep checks'
 random weights past 9 layers; each build timed 20 launches at a time
 (CUDA events), in turns (this build first, the others, then back), three
-times.  Medians, every reading, each build's gradient error against the
-plain version at 9 layers and the card's name and power limit go to
-chiprun_out/b2_spill_cost.json.
+times.  Medians, every reading, the gradient error against the plain
+version at 9 layers of each build with the fixed-point sums, and the
+card's name and power limit go to chiprun_out/b2_spill_cost.json.
 """
 
 import argparse
@@ -41,25 +41,33 @@ LAYERS = (9, 13, 17)
 
 class Library:
     """One build of fused_backward.cu, called as the wrapper calls the
-    library; a source from before the scratch argument is called without it."""
+    library.  A source from before the fixed-point sums (f32 atomics into
+    dW / dBias) is called without the flag, 2^shift and the bound: it adds
+    f32 bits into the wrapper's int64 sums, so its time is kept and its
+    gradient is not read; one from before the scratch argument also
+    without that."""
 
-    def __init__(self, path, has_spill):
+    def __init__(self, path, has_spill, fixed_point):
         from tnerf_torch.kernels import build
 
-        self.cdll, self.has_spill = ctypes.CDLL(path), has_spill
+        self.cdll, self.fixed_point = ctypes.CDLL(path), fixed_point
+        # the wrapper's arguments this build takes: flag 14, spill 16, 2^shift 30, bound 31
+        n = len(build.PROTOTYPES["tnerf_fused_backward"])
+        drop = (() if fixed_point else (14, 30, 31)) + (() if has_spill else (16,))
+        self.keep = [i for i in range(n) if i not in drop]
         for name in ("tnerf_fused_backward", "tnerf_fused_backward_tmode",
                      "tnerf_fused_backward_max_ctas"):
             argtypes = list(build.PROTOTYPES[name])
-            if not has_spill and name != "tnerf_fused_backward_max_ctas":
-                del argtypes[15]
+            if name != "tnerf_fused_backward_max_ctas":
+                argtypes = [argtypes[i] for i in self.keep]
             getattr(self.cdll, name).argtypes = argtypes
             getattr(self.cdll, name).restype = ctypes.c_int
 
     def __getattr__(self, name):
         fn = getattr(self.cdll, name)
-        if self.has_spill or name == "tnerf_fused_backward_max_ctas":
+        if name == "tnerf_fused_backward_max_ctas":
             return fn
-        return lambda *a: fn(*a[:15], *a[16:])
+        return lambda *a: fn(*[a[i] for i in self.keep])
 
 
 def build_variants(variants, out_dir):
@@ -71,16 +79,17 @@ def build_variants(variants, out_dir):
         lib = os.path.join(out_dir, f"lib_{name}.so")
         src = os.path.join(src_dir, "fused_backward.cu")
         with open(src) as fh:
-            has_spill = "void* spill" in fh.read()
-        procs[name] = (lib, has_spill, subprocess.Popen(
+            text = fh.read()
+        kinds = ("void* spill" in text, "grad_scale" in text)
+        procs[name] = (lib, kinds, subprocess.Popen(
             [build.nvcc(), *build.ARCH, *build.FLAGS, *flags, "-shared", "-I", src_dir, "-o",
              lib, src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for name, (lib, has_spill, proc) in procs.items():
+    for name, (lib, kinds, proc) in procs.items():
         text, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"nvcc failed on {name}:\n{text}")
-        libs[name] = Library(lib, has_spill)
+        libs[name] = Library(lib, *kinds)
     return libs
 
 
@@ -149,7 +158,7 @@ def main() -> int:
                 deep = args if NL == len(widths) else (
                     cs.random_mlp(NL, 100 + NL, torch.device("cuda"), widths) + tuple(args[2:]))
                 _, tchk = fz.fused_forward(*deep, term_eps=eps, return_tchk=True, **placed)
-                others = [name for name, _ in old] if NL == len(widths) else ["no_spill"]
+                others = [name for name, _ in old] + ([] if NL == len(widths) else ["no_spill"])
 
                 def run(name, timed=True):
                     build.library = lambda: libs[name]  # the wrapper launches this build
@@ -170,7 +179,7 @@ def main() -> int:
                     row["rel_to_plain"] = {
                         name: [float((g - p).abs().max() / p.abs().max())
                                for g, p in zip(run(name, timed=False), plain)]
-                        for name in times}
+                        for name in times if name == "port" or libs[name].fixed_point}
                 result["cases"][f"{placement}_{NL}"] = row
                 print(placement, NL, json.dumps(row), flush=True)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
