@@ -211,8 +211,22 @@ every chunk), one 800x800 orbit frame and 20 profiled steps;
 `--phases parallel_full` trains the prims
 config at parallel.data_parallel=2 and the progressive triplane at
 table_parallel=2 under the launcher with two ranks on the card, each to
-its one-rank gates (`PARALLEL_FULL_RUNS`).  Files go under chiprun_out/
-(git-ignored).
+its one-rank gates (`PARALLEL_FULL_RUNS`).  `--phases repeats` (about 2
+min) trains the march config (at render.compact=true, past its switch
+to the compacted step), the intervals config, the hash grid and the
+corrupted-pose scene with train.optimize_poses (dense, and compacted)
+first under torch.use_deterministic_algorithms(True, warn_only=True),
+printing every warning, then twice from one seed: every logged loss and
+every leaf of the final checkpoint equal to the bit, each run past two
+refreshes (repeats.json).  `--phases intervals_init --stream 0,1,2` (about
+310 s a stream) trains runs/hard_r4_intervals16/config.json from the
+reference's initial state (runs/hard_r4_intervals16_init) once per stream
+of batches and jitter (train.seed = 1337 + K), each logged window printed
+beside the reference's run; stream 0 keeps the states that
+tests/test_torch_intervals_stages.py reads (INTERVALS_STATE_STEPS).  The
+`kernels` phase also traces a data-parallel step's gradient at B2
+(`trace_dp_split`) and `parallel` prints the DP step's gap per leaf
+(ROADMAP Queue C 10).  Files go under chiprun_out/ (git-ignored).
 """
 
 import argparse
@@ -317,6 +331,45 @@ SHORT_RUN = ["train.assert_test_psnr_min=0"]
 REPEAT_STEPS = 300
 CDF_REPEAT_STEPS = 100
 REPEAT_OVERRIDES = SHORT_RUN + ["train.log_every=1", "train.eval_every=0"]
+# Phase `repeats` (not in the default run): the same for the unfused and
+# table-field paths, each run going past at least two occupancy refreshes:
+# the march config (B4 on its evals) at render.compact=true with the hash
+# grid's committed render.compact_fraction=0.95, so that it switches from
+# the dense to the compacted step after its first refreshes (as committed
+# it never compacts: render.compact=false), 300 steps (refreshes at 256,
+# 272, 288); the intervals config (B5 every step) with
+# INTERVALS_REPEAT_GRID's shorter warmup and cadence, 48 steps
+# (refreshes at 16, 24, 32, 40); the hash grid as committed (occupancy-CDF
+# placement, the segment sum, its own switch), 300 steps; the corrupted-pose
+# scene of phase `scenes` (d) with train.optimize_poses, 200 steps
+# (refreshes every 10 from step 20; positions and directions take a
+# gradient), as committed (dense) and at POSE_COMPACT_OVERRIDES, where the
+# compacted shade's gathers of positions and directions (many slots
+# reading one ray's) take that gradient: its young field prunes no cell in
+# 200 steps, so a fraction over 1 switches at the first refresh, and the
+# buffer then holds every sample.  Each path first trains as many steps under
+# torch.use_deterministic_algorithms(True, warn_only=True), the refreshes
+# and the compacted step included, and every warning PyTorch raises there
+# is printed.  Each run's directory is removed once read (the hash grid's
+# checkpoints are 10 MB each).
+MARCH_REPEAT_OVERRIDES = ["render.compact=true", "render.compact_fraction=0.95"]
+POSE_COMPACT_OVERRIDES = ["render.compact=true", "render.compact_fraction=2.0"]
+INTERVALS_REPEAT_GRID = ["grid.warmup_steps=16", "grid.update_every=8"]
+UNFUSED_REPEAT_STEPS = {"march": 300, "intervals": 48, "hash": 300, "poses": 200,
+                        "poses_compact": 200}
+# Phase `intervals_init` (not in the default run, a call of its own):
+# runs/hard_r4_intervals16/config.json trained from the reference's own
+# initial state of seed 1337 (runs/hard_r4_intervals16_init, step 0) with
+# the config's log cadence and evals, each logged window printed beside the
+# reference's run (runs/hard_r4_intervals16/metrics.jsonl).  `--stream K`
+# draws the batches, sample jitter and occupancy probes at train.seed =
+# 1337 + K (the initial weights stay the reference's); stream 0 also keeps
+# the states after INTERVALS_STATE_STEPS steps (257: the first refresh, at
+# step 256, included), which runs/hard_r4_intervals16_port holds.
+INTERVALS_INIT = os.path.join(REPO, "runs", "hard_r4_intervals16_init", "checkpoints")
+INTERVALS_RECORD = os.path.join(REPO, "runs", "hard_r4_intervals16", "metrics.jsonl")
+INTERVALS_STATE_STEPS = (257, 500, 1500)
+WINDOW_KEYS = ("loss", "train_psnr", "acc_mean", "occupancy_frac")
 INTERVALS_SHORT_STEPS = 250
 INTERVALS_SHORT_OVERRIDES = INTERVALS_OVERRIDES + SHORT_RUN + [
     f"train.steps={INTERVALS_SHORT_STEPS}", "train.schedule_total_steps=2500"]
@@ -510,8 +563,12 @@ ALL_PHASES = ("kernels", "serve", "train", "deep", "resume", "cdf", "march", "in
 # the reference's final records; `intervals_full` trains
 # runs/hard_r4_intervals16/config.json for all its 2500 steps against its
 # record (about 340 s); `parallel_full` trains two configs under the
-# launcher with two ranks (about 310 s).
-EXTRA_PHASES = ("march_full", "cdf_full", "intervals_full", "parallel_full")
+# launcher with two ranks (about 310 s); `repeats` the pairs from one seed
+# of the unfused and table paths (about 120 s); `intervals_init` the
+# intervals config from the reference's initial state, once per --stream
+# (about 310 s each).
+EXTRA_PHASES = ("march_full", "cdf_full", "intervals_full", "parallel_full", "repeats",
+                "intervals_init")
 # Published H100 SXM peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -1018,6 +1075,51 @@ def check_repeats(tag, got, want):
                              f"{diff})")
 
 
+def step_cotangent(out, gt, white_background):
+    """d mean((rgb - gt)^2) / d out of a fused forward's output out [B, 6]
+    (rgb, acc, ...): the cotangent a train step gives B2."""
+    import torch
+
+    B = out.shape[0]
+    rgb = out[:, 0:3] + ((1.0 - out[:, 3:4]) if white_background else 0.0)
+    g = torch.zeros_like(out)
+    g[:, 0:3] = 2.0 * (rgb - gt) / (3 * B)
+    if white_background:
+        g[:, 3] = -g[:, 0:3].sum(dim=1)
+    return g
+
+
+def trace_dp_split(args, tchk, gout, tag):
+    """Where a data-parallel step's gradient parts from one rank's
+    (ROADMAP Queue C 10), at the kernel: B2 on the training batch's two
+    halves, each at twice the cotangent (a rank's loss is the mean over its
+    half), summed and halved in float32 as `GradSync.reduce` sums and
+    divides, against B2 on the whole batch at the cotangent (one rank) and
+    at twice it, halved (one rank at a DP rank's scale).  Prints per leaf
+    max |diff| / max |one rank's|; fails on nothing."""
+    import torch
+
+    from tnerf_torch.render import fused as fz
+
+    B = gout.shape[0]
+    full = fz.fused_backward(*args, tchk, gout)
+    rows = lambda a, lo, hi: a[lo:hi] if torch.is_tensor(a) and a.dim() >= 1 \
+        and a.shape[0] == B else a
+    halves = []
+    for lo, hi in ((0, B // 2), (B // 2, B)):
+        cut = args[:2] + tuple(rows(a, lo, hi) for a in args[2:])
+        halves.append(fz.fused_backward(*cut, tchk[lo:hi], 2.0 * gout[lo:hi]))
+    split = [(a + b) / 2 for a, b in zip(*halves)]
+    scaled = [g / 2 for g in fz.fused_backward(*args, tchk, 2.0 * gout)]
+    torch.cuda.synchronize()
+    rel = lambda x, y: [float((a - b).abs().max() / b.abs().max()) for a, b in zip(x, y)]
+    report = {"halves_vs_one_rank": rel(split, full), "twice_vs_one_rank": rel(scaled, full),
+              "halves_vs_twice": rel(split, scaled),
+              "largest": [float(g.abs().max()) for g in full]}
+    print(f"B2 data-parallel trace, {tag} (dW, dBias; max |diff| / max |one rank's|): "
+          + json.dumps(report), flush=True)
+
+
 def check_grid_and_flag(tag, args, tchk, gout, placed, want):
     """B2 (B2t with placed) at the training shape on a grid of SMALL_GRID
     CTAs (by replacing the occupancy query) bit-equal to `want`, the full
@@ -1490,6 +1592,11 @@ def check_backward():
                 continue
             check_forward_cases(tag, args, placed)
             check_grid_and_flag(tag, args, tchk, gout, placed, (dW_k, dB_k))
+            if not tmode:
+                trace_dp_split(args, tchk, gout, "random cotangent")
+                trace_dp_split(args, tchk, step_cotangent(out_k, batch.gt_rgb,
+                                                          cfg.render.white_background),
+                               "the train step's cotangent at the committed checkpoint")
             check_deep_backward(tag, args, placed, gout, eps, widths)
             # a batch that leaves the persistent grid's last round ragged, and (uniform
             # placement) a 2-layer MLP of random weights on the same rays
@@ -1724,7 +1831,8 @@ def check_dda():
 
 def last_window(metrics_path):
     """(last record with a loss, every logged loss, final eval metrics) of a metrics.jsonl."""
-    recs = [json.loads(line) for line in open(metrics_path)]
+    with open(metrics_path) as fh:
+        recs = [json.loads(line) for line in fh]
     logged = [r for r in recs if "loss" in r]
     final = {}
     for r in recs:
@@ -1734,18 +1842,21 @@ def last_window(metrics_path):
 
 
 def train_from_scratch(config, out_name, steps, per_step, reference_psnr, overrides=(),
-                       gate_step=None, at_least=False):
+                       gate_step=None, at_least=False, checkpoints=None):
     """A training run through the entry point, all `steps` steps of
     `config` (with `overrides`): every kernel named in per_step at least
     once per step, no step skipped, test PSNR within TRAIN_PSNR_MARGIN_DB
     of the reference's (the final eval's, or with gate_step the eval
     the run logged at that step; with at_least, not under it by more; no
-    PSNR gate where reference_psnr is None).  Returns (launch counts, final
-    metrics, output directory)."""
+    PSNR gate where reference_psnr is None).  checkpoints: a directory
+    copied to the run's checkpoints first (the state train.resume starts
+    from).  Returns (launch counts, final metrics, output directory)."""
     import shutil
 
     out_dir = os.path.join(OUT, out_name)
     shutil.rmtree(out_dir, ignore_errors=True)
+    if checkpoints:
+        shutil.copytree(checkpoints, os.path.join(out_dir, "checkpoints"))
     t0 = time.perf_counter()
     argv = ["train", "--config", config, "--out", out_dir]
     for ov in overrides:
@@ -1783,13 +1894,36 @@ def train_from_scratch(config, out_name, steps, per_step, reference_psnr, overri
     return launches, final, out_dir
 
 
+def final_leaves(out_dir):
+    """Every leaf of a run's last checkpoint, by name."""
+    import numpy as np
+
+    ckpt = os.path.join(out_dir, "checkpoints")
+    npz = [f for f in sorted(os.listdir(ckpt)) if f.endswith(".npz")][-1]
+    with np.load(os.path.join(ckpt, npz)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def check_pair(name, what, steps, runs):
+    """Two runs from one seed, each (logged losses, final checkpoint leaves,
+    psnr_test): every loss and every leaf equal to the bit."""
+    (l0, z0, p0), (l1, z1, p1) = runs
+    loss_diff = [i for i, (a, b) in enumerate(zip(l0, l1)) if a != b]
+    leaf_diff = [k for k in z0 if k not in z1 or z0[k].tobytes() != z1[k].tobytes()]
+    print(f"{name}: two runs of {what} from one seed, {steps} steps: {len(l0)} logged losses, "
+          f"{len(loss_diff)} differ; {len(z0)} checkpoint leaves, {len(leaf_diff)} differ; "
+          f"psnr_test {p0:.6f} / {p1:.6f} dB", flush=True)
+    if len(l0) != steps or len(l0) != len(l1) or loss_diff or leaf_diff \
+            or set(z0) != set(z1) or p0 != p1:
+        raise AssertionError(f"{name}: two runs from one seed parted: losses at steps "
+                             f"{loss_diff[:10]}, leaves {leaf_diff[:10]}")
+
+
 def train_repeats():
     """Two `cli train` runs of the prims config (B2) from one seed, and two
     of the CDF config (B2t): every logged loss (every step's) and every leaf
     of the final checkpoint (parameters, Adam moments and counts, the
     occupancy grid) equal to the bit.  Returns the runs' launch counts."""
-    import numpy as np
-
     total = {}
     for config, name, steps, per_step in (
             (CONFIG, "repeat", REPEAT_STEPS, ("tighten_range", "fused_forward", "fused_backward")),
@@ -1800,26 +1934,257 @@ def train_repeats():
             launches, final, out_dir = train_from_scratch(
                 config, f"{name}_{i}", steps, per_step, None,
                 REPEAT_OVERRIDES + [f"train.steps={steps}", f"train.checkpoint_every={steps}"])
-            losses = last_window(os.path.join(out_dir, "metrics.jsonl"))[1]
-            ckpt = os.path.join(out_dir, "checkpoints")
-            npz = [f for f in sorted(os.listdir(ckpt)) if f.endswith(".npz")][-1]
-            with np.load(os.path.join(ckpt, npz)) as z:
-                leaves = {k: z[k] for k in z.files}
-            runs.append((losses, leaves, final["psnr_test"]))
+            runs.append((last_window(os.path.join(out_dir, "metrics.jsonl"))[1],
+                         final_leaves(out_dir), final["psnr_test"]))
             for k, n in launches.items():
                 total[k] = total.get(k, 0) + n
-        (l0, z0, p0), (l1, z1, p1) = runs
-        loss_diff = [i for i, (a, b) in enumerate(zip(l0, l1)) if a != b]
-        leaf_diff = [k for k in z0 if k not in z1 or z0[k].tobytes() != z1[k].tobytes()]
-        print(f"{name}: two `cli train` runs of {os.path.relpath(config, REPO)} from one seed, "
-              f"{steps} steps: {len(l0)} logged losses, {len(loss_diff)} differ; {len(z0)} "
-              f"checkpoint leaves, {len(leaf_diff)} differ; psnr_test {p0:.6f} / {p1:.6f} dB",
-              flush=True)
-        if len(l0) != steps or len(l0) != len(l1) or loss_diff or leaf_diff \
-                or set(z0) != set(z1) or p0 != p1:
-            raise AssertionError(f"{name}: two runs from one seed parted: losses at steps "
-                                 f"{loss_diff[:10]}, leaves {leaf_diff[:10]}")
+        check_pair(name, f"`cli train` of {os.path.relpath(config, REPO)}", steps, runs)
     return total
+
+
+@contextlib.contextmanager
+def calls_of(module, name):
+    """Counts the calls of module.name (a function its callers look up by
+    name at each call) while the block runs: yields [count]."""
+    real, count = getattr(module, name), [0]
+
+    def counting(*args, **kw):
+        count[0] += 1
+        return real(*args, **kw)
+
+    setattr(module, name, counting)
+    try:
+        yield count
+    finally:
+        setattr(module, name, real)
+
+
+def corrupted_pose_scene():
+    """(datasets, overrides) of the corrupted-pose scene of
+    tests/test_pose_opt.py (48x48, 3 x 64 MLP on grid_march), as phase
+    `scenes` (d) trains it; train.optimize_poses is the caller's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tnerf_torch.cameras import se3_exp
+    from tnerf_torch.data.procedural import generate_procedural_scene
+
+    n_train = 8
+    scene = generate_procedural_scene(width=48, height=48, n_train=n_train, n_val=1, n_test=2,
+                                      n_samples=96, device="cuda")
+    rng = np.random.RandomState(3)
+    true_d = np.zeros((n_train, 6), np.float32)
+    true_d[:, :3] = rng.randn(n_train, 3) * 0.05
+    true_d[:, 3:] = rng.randn(n_train, 3) * 0.08
+    pert = se3_exp(torch.from_numpy(true_d)).numpy()
+    tr = scene["train"]
+    corrupted = dict(scene, train=dataclasses.replace(
+        tr, poses=np.einsum("nij,njk->nik", pert, tr.poses).astype(np.float32)))
+    base = [
+        "scene.kind=procedural", "scene.name=prims", "scene.scene_scale=1.0",
+        "scene.proc_width=48", "scene.proc_height=48", f"scene.proc_n_train={n_train}",
+        "scene.proc_n_val=1", "scene.proc_n_test=2", "scene.proc_n_samples=96",
+        "render.pipeline=grid_march", "grid.resolution=16", "grid.warmup_steps=20",
+        "grid.update_every=10", "sampler.samples_per_ray=48", "sampler.near=2.0",
+        "sampler.far=5.5", "field_.n_frequencies=6", "field_.hidden_width=64",
+        "field_.hidden_layers=3", "train.batch_size=1024", "train.steps=800",
+        "train.eval_every=0", "train.checkpoint_every=800", "train.log_every=400",
+        "render.chunk_size=4096",
+    ]
+    return corrupted, base
+
+
+def unfused_paths():
+    """name -> (what, run, (config, overrides), switches) of phase
+    `repeats`: run(out_name, extra overrides, steps) -> (launch counts,
+    final metrics, output directory) trains the path; switches: whether its
+    runs must reach the compacted step."""
+    from tnerf_torch.config import Config
+    from tnerf_torch.train_loop import run_training
+
+    poses, pose_base = corrupted_pose_scene()
+    pose_base = pose_base + ["train.optimize_poses=true"]
+
+    def cli(config, overrides, per_step):
+        return lambda out_name, extra, steps: train_from_scratch(
+            config, out_name, steps, per_step, None, overrides + extra)
+
+    def pose(overrides):
+        def pose_run(out_name, extra, steps):
+            import shutil
+
+            out_dir = os.path.join(OUT, out_name)
+            shutil.rmtree(out_dir, ignore_errors=True)
+            cfg = Config().apply_overrides(pose_base + overrides + extra
+                                           + [f"logging.out_dir={out_dir}"])
+            final, launches = counted(lambda: run_training(cfg, datasets=dict(poses),
+                                                           device="cuda"))
+            return launches, final, out_dir
+        return pose_run
+
+    return {
+        "march": (f"`cli train` of {os.path.relpath(CONFIG_MARCH, REPO)}",
+                  cli(CONFIG_MARCH, MARCH_REPEAT_OVERRIDES, ()),
+                  (CONFIG_MARCH, MARCH_REPEAT_OVERRIDES), True),
+        "intervals": (f"`cli train` of {os.path.relpath(CONFIG_INTERVALS, REPO)}",
+                      cli(CONFIG_INTERVALS, INTERVALS_REPEAT_GRID, ("dda_march",)),
+                      (CONFIG_INTERVALS, INTERVALS_REPEAT_GRID), False),
+        "hash": (f"`cli train` of {os.path.relpath(CONFIG_HASH, REPO)}",
+                 cli(CONFIG_HASH, [], ("segment_sum",)), (CONFIG_HASH, []), True),
+        "poses": ("`run_training` of the corrupted-pose scene, train.optimize_poses=true",
+                  pose([]), (None, pose_base), False),
+        "poses_compact": ("`run_training` of the corrupted-pose scene, train.optimize_poses="
+                          "true, compacted", pose(POSE_COMPACT_OVERRIDES),
+                          (None, pose_base + POSE_COMPACT_OVERRIDES), True),
+    }
+
+
+def refresh_steps(config, overrides, steps):
+    """The steps of a run at which the occupancy refreshes (the train
+    loop's rule); config None: the default config."""
+    from tnerf_torch.config import Config
+
+    cfg = load_config(config, overrides) if config else Config().apply_overrides(overrides)
+    return [s for s in range(steps)
+            if s >= cfg.grid.warmup_steps and s % cfg.grid.update_every == 0]
+
+
+def deterministic_mode_warnings(run, name, extra, steps):
+    """{first line of a warning: count} of `steps` steps of a path under
+    torch.use_deterministic_algorithms(True, warn_only=True)."""
+    import shutil
+    import warnings
+
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out_dir = run(f"deterministic_{name}",
+                          extra + [f"train.steps={steps}", "train.checkpoint_every=0"], steps)[2]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    shutil.rmtree(out_dir)
+    messages = {}
+    for w in caught:
+        key = str(w.message).splitlines()[0][:240]
+        messages[key] = messages.get(key, 0) + 1
+    return messages
+
+
+def unfused_repeats():
+    """Phase `repeats`: for march, intervals, the hash grid and pose
+    refinement, UNFUSED_REPEAT_STEPS steps under PyTorch's deterministic
+    mode (its warnings printed), then two runs from one seed of as many
+    steps: every logged loss and every leaf of the
+    final checkpoint (parameters, poses, Adam moments and counts, the
+    occupancy grid) equal to the bit, at least two refreshes in each run,
+    and the compacted step reached where the path switches to it.  Writes
+    repeats.json; returns the runs' launch counts."""
+    import shutil
+
+    from tnerf_torch.render import grid_renderer
+
+    total, report = {}, {}
+    for name, (what, run, (config, overrides), switches) in unfused_paths().items():
+        t0 = time.perf_counter()
+        steps = UNFUSED_REPEAT_STEPS[name]
+        warned = deterministic_mode_warnings(run, name, REPEAT_OVERRIDES, steps)
+        print(f"repeat_{name}: {steps} steps under "
+              f"use_deterministic_algorithms(True, warn_only=True): "
+              f"{json.dumps(warned) if warned else 'no warning'}", flush=True)
+        refreshes = refresh_steps(config, overrides, steps)
+        if len(refreshes) < 2:
+            raise AssertionError(f"repeat_{name}: {steps} steps refresh the grid at {refreshes}")
+        runs = []
+        for i in range(2):
+            with calls_of(grid_renderer, "compacted_shade") as shaded:
+                launches, final, out_dir = run(
+                    f"repeat_{name}_{i}",
+                    REPEAT_OVERRIDES + [f"train.steps={steps}", f"train.checkpoint_every={steps}"],
+                    steps)
+            if switches and shaded[0] == 0:
+                raise AssertionError(f"repeat_{name}: the run never switched to the compacted "
+                                     "step (no call of compacted_shade)")
+            runs.append((last_window(os.path.join(out_dir, "metrics.jsonl"))[1],
+                         final_leaves(out_dir), final["psnr_test"]))
+            shutil.rmtree(out_dir)
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+        check_pair(f"repeat_{name}", what, steps, runs)
+        seconds = time.perf_counter() - t0
+        report[name] = {"warnings": warned, "refreshes": refreshes,
+                        "compacted_shade_calls": shaded[0], "seconds": seconds}
+        print(f"repeat_{name}: refreshes at steps {refreshes}, compacted_shade called "
+              f"{shaded[0]} times in a run; {seconds:.1f} s", flush=True)
+    with open(os.path.join(OUT, "repeats.json"), "w") as fh:
+        json.dump(report, fh, indent=1)
+    return total
+
+
+def logged_windows(metrics_path):
+    """{step: logged window} of a metrics.jsonl (the records with a loss)."""
+    with open(metrics_path) as fh:
+        return {r["step"]: r for r in map(json.loads, fh) if "loss" in r}
+
+
+@contextlib.contextmanager
+def checkpoints_only_at(steps):
+    """While the block runs, the train loop writes a checkpoint only after
+    the given numbers of steps."""
+    from tnerf_torch import train_loop
+
+    real = train_loop.save_train_state
+
+    def at_steps(ckpt_dir, step, *args, **kw):
+        if step in steps:
+            real(ckpt_dir, step, *args, **kw)
+
+    train_loop.save_train_state = at_steps
+    try:
+        yield
+    finally:
+        train_loop.save_train_state = real
+
+
+def train_intervals_from_reference_init(stream):
+    """Phase `intervals_init`: runs/hard_r4_intervals16/config.json trained
+    from the reference's initial state with the config's own log cadence
+    and evals, at train.seed = 1337 + stream (the batches, the sample
+    jitter and the probes; the weights are the reference's): B5 every step,
+    no step skipped; each logged window printed beside the reference's;
+    stream 0 keeps the states after INTERVALS_STATE_STEPS steps.  No PSNR
+    gate: the final test PSNR is printed beside the reference's."""
+    name = f"intervals_init_s{stream}"
+    out_dir = os.path.join(OUT, name)
+    cfg = load_config(CONFIG_INTERVALS)
+    keep = set(INTERVALS_STATE_STEPS if stream == 0 else ()) | {cfg.train.steps}
+    overrides = ["train.resume=true", f"train.seed={cfg.train.seed + stream}",
+                 "train.assert_test_psnr_min=0", "train.checkpoint_every=1"]
+    with checkpoints_only_at(keep):
+        launches, final, _ = train_from_scratch(CONFIG_INTERVALS, name, cfg.train.steps,
+                                                ("dda_march",), None, overrides,
+                                                checkpoints=INTERVALS_INIT)
+    ours, ref = (logged_windows(p) for p in (os.path.join(out_dir, "metrics.jsonl"),
+                                             INTERVALS_RECORD))
+    if abs(ours[0]["acc_mean"] - ref[0]["acc_mean"]) > 0.05:
+        raise AssertionError(f"{name} did not start from the reference's initial state: "
+                             f"acc_mean {ours[0]['acc_mean']} at step 0, the reference's "
+                             f"{ref[0]['acc_mean']}")
+    print(f"{name}: window | port " + " ".join(WINDOW_KEYS) + " | reference", flush=True)
+    for step in sorted(ref):
+        mine = ours.get(step, {})
+        print(f"{name}: {step:5d} | " + " ".join(f"{mine.get(k, float('nan')):.6g}"
+                                                 for k in WINDOW_KEYS)
+              + " | " + " ".join(f"{ref[step][k]:.6g}" for k in WINDOW_KEYS), flush=True)
+    print(f"{name}: psnr_test {final['psnr_test']:.4f} dB on {final['n_views_test']:.0f} views "
+          f"(the reference's {JAX_INTERVALS_PSNR_TEST:.4f}, gap "
+          f"{final['psnr_test'] - JAX_INTERVALS_PSNR_TEST:+.4f}), worst view "
+          f"{final['psnr_test_min']:.4f}", flush=True)
+    return launches
 
 
 def resume_reference_checkpoint():
@@ -2516,19 +2881,11 @@ def train_and_serve_scenes():
     from a NeRF-synthetic export of its own ground truth; (d) the
     corrupted-pose dataset trained without and with train.optimize_poses,
     then `cli render --refined-poses`."""
-    import dataclasses
     import shutil
 
-    import numpy as np
-    import torch
-
-    from tnerf_torch.cameras import se3_exp
     from tnerf_torch.config import Config
     from tnerf_torch.data.dataset import load_data, scene_proc_kwargs
-    from tnerf_torch.data.procedural import (
-        export_nerf_synthetic_format,
-        generate_procedural_scene,
-    )
+    from tnerf_torch.data.procedural import export_nerf_synthetic_format
     from tnerf_torch.train_loop import load_datasets, run_training
 
     launches = {k: 0 for k in kernel_counters()}
@@ -2620,28 +2977,7 @@ def train_and_serve_scenes():
     shutil.rmtree(syn_root)
 
     # (d) pose refinement on the corrupted-pose dataset of tests/test_pose_opt.py
-    n_train = 8
-    scene = generate_procedural_scene(width=48, height=48, n_train=n_train, n_val=1, n_test=2,
-                                      n_samples=96, device="cuda")
-    rng = np.random.RandomState(3)
-    true_d = np.zeros((n_train, 6), np.float32)
-    true_d[:, :3] = rng.randn(n_train, 3) * 0.05
-    true_d[:, 3:] = rng.randn(n_train, 3) * 0.08
-    pert = se3_exp(torch.from_numpy(true_d)).numpy()
-    tr = scene["train"]
-    corrupted = dict(scene, train=dataclasses.replace(
-        tr, poses=np.einsum("nij,njk->nik", pert, tr.poses).astype(np.float32)))
-    base = [
-        "scene.kind=procedural", "scene.name=prims", "scene.scene_scale=1.0",
-        "scene.proc_width=48", "scene.proc_height=48", f"scene.proc_n_train={n_train}",
-        "scene.proc_n_val=1", "scene.proc_n_test=2", "scene.proc_n_samples=96",
-        "render.pipeline=grid_march", "grid.resolution=16", "grid.warmup_steps=20",
-        "grid.update_every=10", "sampler.samples_per_ray=48", "sampler.near=2.0",
-        "sampler.far=5.5", "field_.n_frequencies=6", "field_.hidden_width=64",
-        "field_.hidden_layers=3", "train.batch_size=1024", "train.steps=800",
-        "train.eval_every=0", "train.checkpoint_every=800", "train.log_every=400",
-        "render.chunk_size=4096",
-    ]
+    corrupted, base = corrupted_pose_scene()
     psnrs = {}
     for tag, extra, reference in (("no_opt", [], JAX_POSE_NO_OPT_PSNR_TEST),
                                   ("opt", ["train.optimize_poses=true"], JAX_POSE_OPT_PSNR_TEST)):
@@ -3523,6 +3859,28 @@ def parallel_rank(rank, world, store, out, overrides=(), device="cuda"):
         l1, l2 = float(aux1["loss"]), float(aux2["loss"])
         check("dp_step_loss_rel", abs(l2 - l1) / abs(l1), PARALLEL_LOSS_RTOL)
         check("dp_step_grad_rel", _max_rel(_mu(dp), _mu(one)), B2_RTOL)
+        # the gap per leaf (ROADMAP Queue C 10; its kernel-level trace is
+        # `trace_dp_split` in phase `kernels`)
+        mu_dp, mu_one = _mu(dp), _mu(one)
+        report["dp_step_grad_rel_per_leaf"] = {k: _max_rel({k: mu_dp[k]}, {k: w})
+                                               for k, w in mu_one.items()}
+        print("parallel: the DP step's gradient against one rank's, per leaf (max |diff| / max "
+              "|one rank's|): " + json.dumps(report["dp_step_grad_rel_per_leaf"]), flush=True)
+        # one-rank steps on each half of the batch, their moments averaged
+        # as GradSync averages the gradients: against the DP step (the
+        # reduce's own rounding) and against one rank's step on the whole
+        n = cfg.train.batch_size
+        halves = []
+        for lo, hi in ((0, n // 2), (n // 2, n)):
+            half = state_of(cfg, params)
+            make_train_step(rend)(half, RayBatch(Rays(*(a[lo:hi] for a in batch.rays)),
+                                                 batch.gt_rgb[lo:hi]), payload)
+            halves.append(_mu(half))
+        mu_halves = {k: (halves[0][k] + halves[1][k]) / 2 for k in mu_one}
+        report["dp_step_halves"] = {"dp_vs_halves": _max_rel(mu_dp, mu_halves),
+                                    "halves_vs_one_rank": _max_rel(mu_halves, mu_one)}
+        print("parallel: one-rank steps on the two halves, averaged: "
+              + json.dumps(report["dp_step_halves"]), flush=True)
 
     # (b) test view 0 at 400 x 400 through dp_render_sharded (B4, B1)
     ds = data["test"]
@@ -3881,9 +4239,10 @@ def parallel_full():
     return launches
 
 
-def run_phases(phases):
-    """The phases named in `phases`, in the script's order: (kernels' rows,
-    launch counts of the main paths)."""
+def run_phases(phases, streams=(0,)):
+    """The phases named in `phases`, in the script's order (streams: phase
+    `intervals_init`'s, one run each): (kernels' rows, launch counts of the
+    main paths)."""
     rows = {}
     phase_t0 = [time.perf_counter()]
 
@@ -3969,6 +4328,13 @@ def run_phases(phases):
     if "parallel_full" in phases:
         add(parallel_full())
         phase_done("parallel_full")
+    if "intervals_init" in phases:
+        for k in streams:
+            add(train_intervals_from_reference_init(k))
+        phase_done("intervals_init")
+    if "repeats" in phases:
+        add(unfused_repeats())
+        phase_done("repeats")
 
     return rows, launches
 
@@ -3987,7 +4353,11 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help=f"comma list of {', '.join(ALL_PHASES + EXTRA_PHASES)} (default: "
                     f"{', '.join(ALL_PHASES)})")
-    phases = set(ap.parse_args().phases.split(","))
+    ap.add_argument("--stream", default="0",
+                    help="phase intervals_init: a comma list of streams K, one run each "
+                    "at train.seed = 1337 + K")
+    opts = ap.parse_args()
+    phases = set(opts.phases.split(","))
     unknown = phases - set(ALL_PHASES + EXTRA_PHASES)
     if unknown:
         log(f"chip_smoke: unknown phases {sorted(unknown)}")
@@ -4014,7 +4384,7 @@ def main() -> int:
     build.library()
 
     try:
-        rows, launches = run_phases(phases)
+        rows, launches = run_phases(phases, [int(k) for k in opts.stream.split(",")])
     finally:
         for proc, _, _ in JOBS.values():
             if proc.poll() is None:
