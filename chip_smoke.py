@@ -45,7 +45,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
      lane group the kernels build, two launches bit for bit, and the
      kernels' cell ids (by the reciprocal of the cell size, as the
      reference's XLA computes them) bit-equal to the plain versions'
-     arithmetic over 2.1e7 arguments.  Every kernel's `ms` is its device time
+     arithmetic over 2.1e7 arguments.  The table lookups' sort and segment
+     sum (check_segment_edges) bit-equal to their plain versions, twice,
+     at no lookup, no row, one row, most rows empty, CP- and hash-grid-like
+     shapes, three digit passes, payloads of 1-5 words, 300 features and
+     a skewed multiplicity.  Every kernel's `ms` is its device time
      (torch.profiler, at least 50 launches), `wrapper_ms` the host clock
      per call of its wrapper; B3 / B4 are timed at the training batch, the
      serving chunk, the march eval and 66,000 rays, with the share of
@@ -110,10 +114,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
      absolute PSNRs printed beside the reference's record, B4 launched);
      20 steps of each under torch.profiler, with the position
      encoding's forward and backward timed alone at a step's own samples
-     and two backward passes there bit-equal; the segment-sum kernel (the
-     lookups' table gradient, csrc/segment_sum.cu) bit-equal to its plain
-     version on the step's first lookup, two launches bit-equal, timed
-     beside `index_add_` (its row in the kernels' line is the hash grid's);
+     and two backward passes there bit-equal; the lookups' table gradient
+     on the step's first lookup (the stable sort by row, csrc/
+     segment_sort.cu, and the segment sum, csrc/segment_sum.cu), each
+     bit-equal to its plain version twice, a call's kernels listed (the
+     repo's alone), the whole call timed in turns against its former path
+     (`torch.sort` + `torch.searchsorted` + tools/segment_sum_parent.cu)
+     beside `index_add_` and its byte bound (segment_calls.json; the
+     rows in the kernels' line are the hash grid's); 20 compacted steps
+     from the trained state in turns against the former path, which must
+     leave the same state to the bit (tools/torch_segment_turns.py);
  11. `scenes`: scenes read from disk, NDC and pose refinement through the
      entry points.  (a) `cli train` of the LLFF capture data/llff/prims_ff
      in world space with tools/llff_rehearsal.py's overrides (grid_march,
@@ -657,12 +667,13 @@ def run_cli(argv, with_stderr=False):
 
 def kernel_counters():
     """name of a kernels-line row -> (wrapper, name of its launch count)."""
-    from tnerf_torch.fields.hashgrid import segment_sum_rows
+    from tnerf_torch.fields.hashgrid import segment_sort, segment_sum_rows
     from tnerf_torch.grid.dda import march_raw
     from tnerf_torch.grid.tighten import tighten_range, tighten_sample_mask
     from tnerf_torch.render.fused import fused_backward, fused_forward
 
-    return {"segment_sum": (segment_sum_rows, "launches"),
+    return {"segment_sort": (segment_sort, "launches"),
+            "segment_sum": (segment_sum_rows, "launches"),
             "dda_march": (march_raw, "launches"),
             "tighten_range": (tighten_range, "launches"),
             "tighten_sample_mask": (tighten_sample_mask, "launches"),
@@ -2267,20 +2278,112 @@ def table_gradient_repeats(params, field_cfg, grid_cfg, positions):
 
 
 SEGMENT_ROWS = []  # the segment-sum kernel's rows, one per table-field config
+SORT_ROWS = []  # the stable sort's
+SEGMENT_CALLS = []  # the whole call at each table field's first lookup, in turns
+# every kernel one call of segment_sum_rows may launch on the card
+SEGMENT_KERNELS = ("segment_sort_hist_kernel", "segment_sort_pass_kernel",
+                   "segment_row_starts_kernel", "segment_sum_kernel", "segment_sum_warp_kernel",
+                   "Memset")
+SEGMENT_REPLACES = ("none (no Pallas kernel; the transpose of the gathers at "
+                    "tnerf/fields/hashgrid.py:193, tnerf/fields/triplane.py:191, :385)")
+
+
+def float_bits(t):
+    """t with its float32 entries as their bits (int32), others as they are."""
+    import torch
+
+    return t.contiguous().view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def check_segment_call(values, idx, rows, what):
+    """`segment_sort` and `segment_sum_rows` on the card, each twice, against
+    their plain versions on the CPU, bit for bit (keys, payload, row starts,
+    sums); returns the sums' largest difference (0)."""
+    import torch
+
+    from tnerf_torch.fields import hashgrid
+
+    sums = [hashgrid.segment_sum_rows(values, idx, rows) for _ in range(2)]
+    sorts = [hashgrid.segment_sort(values, idx, rows) for _ in range(2)]
+    torch.cuda.synchronize()
+    plain = hashgrid.segment_sum_rows_plain(values.cpu(), idx.cpu(), rows)
+    plain_sort = hashgrid.segment_sort_plain(values.cpu(), idx.cpu(), rows)
+    sums_equal = all(torch.equal(float_bits(g.cpu()), float_bits(plain)) for g in sums)
+    sorts_equal = all(torch.equal(float_bits(a.cpu()), float_bits(b))
+                      for got in sorts for a, b in zip(got, plain_sort))
+    err = float((sums[0].cpu() - plain).abs().max()) if plain.numel() else 0.0
+    if not (sums_equal and sorts_equal):
+        raise AssertionError(f"segment sum at {what}: the card's sort equal to the plain one "
+                             f"{sorts_equal}, its sums {sums_equal} (max |diff| {err})")
+    return err
+
+
+def check_segment_edges():
+    """`check_segment_call` at the edges of the sort and the sum (the shapes
+    of tests/test_torch_segment_sort.py and beyond): no lookup, no row,
+    every lookup in one row, most rows empty, the CP-like and hash-grid-like
+    shapes, three digit passes, every payload width 1-5 and a row wider than
+    a row group's 256 feature lanes, a ragged last tile, and a skewed
+    multiplicity whose long rows cross many tiles."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+    cases = [("no lookup", 0, 10, 2), ("no row", 0, 0, 2), ("one row, narrow", 5000, 1, 2),
+             ("one row, wide", 5000, 1, 64), ("most rows empty", 1000, 100_000, 2),
+             ("CP-like", 384 * 768, 384, 64), ("hash-grid-like", 150_001, 12 * 2 ** 10, 2),
+             ("three passes", 1 << 20, 1 << 24, 1), ("F = 3", 100_003, 2 ** 16 + 1, 3),
+             ("F = 4", 70_000, 5000, 4), ("F = 5", 50_000, 777, 5), ("F = 300", 30_000, 384, 300),
+             ("skewed", 2_000_000, 196_608, 2)]
+    t0 = time.perf_counter()
+    for what, n, rows, F in cases:
+        if what == "skewed":
+            idx = (rng.zipf(1.3, n) - 1) % rows
+        else:
+            idx = rng.integers(0, max(rows, 1), n)
+        values = torch.from_numpy(rng.standard_normal((n, F), dtype=np.float32)).to(dev)
+        check_segment_call(values, torch.from_numpy(idx.astype(np.int64)).to(dev), rows, what)
+    print(f"segment sort and sum at {len(cases)} edge shapes ({', '.join(c[0] for c in cases)}): "
+          f"each call twice bit-equal to the plain versions ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+
+def segment_bytes(n, rows, F):
+    """(sort, sum, whole call) bytes each input read once and each output
+    written once: the sort reads the int64 indices (and the values where
+    they are its payload) and writes the keys, payload and row starts; the
+    sum reads the payload (and by index the values) and the row starts and
+    writes the rows; the whole call reads the values and indices and writes
+    the rows."""
+    from tnerf_torch.fields.hashgrid import SORT_BY_VALUE_MAX_F
+
+    by_value = F <= SORT_BY_VALUE_MAX_F
+    payload = 4 * n * (F if by_value else 1)
+    sort = 8 * n + (4 * n * F if by_value else 0) + 4 * n + payload + 4 * (rows + 1)
+    summed = payload + (0 if by_value else 4 * n * F) + 4 * (rows + 1) + 4 * rows * F
+    return sort, summed, 8 * n + 4 * n * F + 4 * rows * F
 
 
 def check_segment_sum(params, field_cfg, grid_cfg, positions, tag):
-    """The segment-sum kernel (the table gradient of every lookup) against
-    its plain version (on the CPU) on the first lookup of the encode's
-    backward at a train step's own samples, bit for bit (the two add in one
-    order), two launches bit-equal; timed with the plain version on the
-    card and `index_add_`
-    (the one PyTorch call that sums the same rows, by atomics).  Appends
-    its row to SEGMENT_ROWS."""
+    """The table gradient of every lookup (the stable sort, csrc/
+    segment_sort.cu, then the segment sum, csrc/segment_sum.cu) on the first
+    lookup of the encode's backward at a train step's own samples: the sort
+    and the sums each twice bit-equal to their plain versions (on the CPU);
+    the kernels of a call, listed by the profiler over windows of calls,
+    must be the repo's alone; the whole call against its former path (`torch.sort` +
+    `torch.searchsorted` + the former kernel, tools/torch_segment_turns.py)
+    in turns: device time of every kernel a call launches, kernels per call,
+    wrapper; the sort and the sum each timed with their plain versions on
+    the card and a PyTorch call (`torch.sort` of the int32 keys, stable;
+    `index_add_`, the one call that sums the same rows, by atomics).
+    Appends the rows to SORT_ROWS and SEGMENT_ROWS, the whole call to
+    SEGMENT_CALLS."""
     import torch
 
     from tnerf_torch.fields import hashgrid
     from tnerf_torch.fields.nerf_field import TABLE_ENCODINGS, encode_positions
+    from tools.torch_segment_turns import call_turns
 
     seen, wrapper = [], hashgrid.segment_sum_rows
 
@@ -2300,37 +2403,83 @@ def check_segment_sum(params, field_cfg, grid_cfg, positions, tag):
         hashgrid.segment_sum_rows = wrapper
     values, idx, rows = seen[0]
     n, F = values.shape
-    got = [hashgrid.segment_sum_rows(values, idx, rows) for _ in range(2)]
-    # the plain version on the CPU, whose segment_reduce adds in order
-    plain = hashgrid.segment_sum_rows_plain(values.cpu(), idx.cpu(), rows)
-    on_card = hashgrid.segment_sum_rows_plain(values, idx, rows)
-    torch.cuda.synchronize()
-    err = float((got[0].cpu() - plain).abs().max())
+    shape = f"{tag}: {n} x {F} into {rows} rows"
+    err = check_segment_call(values, idx, rows, f"the {tag} step")
+    passes, bits = hashgrid.sort_passes(rows)
     FT, E, per_block = hashgrid.segment_shape(n, rows, F)
-    print(f"segment sum at the {tag} step's first lookup ({n} values x {F} into {rows} rows, "
-          f"{E} x {FT} lanes a row): max |kernel - plain| {err:.3e}, two launches "
-          f"{'bit-equal' if torch.equal(*got) else 'NOT bit-equal'}; the plain version on the "
-          f"card {float((on_card.cpu() - plain).abs().max()):.3e} from it on the CPU",
-          flush=True)
-    if err != 0 or not torch.equal(*got):
-        raise AssertionError(f"the segment-sum kernel at the {tag} step differs from its plain "
-                             f"version ({err}) or from itself")
-    run = lambda: hashgrid.segment_sum_rows(values, idx, rows)
-    ms, wrap = device_ms(run, "segment_sum_kernel"), wrapper_ms(run)
-    plain_ms = cuda_ms(lambda: hashgrid.segment_sum_rows_plain(values, idx, rows), 3)
+    turns = call_turns(values, idx, rows)
+    names = turns["port"]["kernels"]
+    print(f"segment sum at the {tag} step's first lookup ({n} values x {F} into {rows} rows; "
+          f"{passes} digit pass(es) of {bits} bits, payload "
+          f"{'the values' if F <= hashgrid.SORT_BY_VALUE_MAX_F else 'the lookup index'}; "
+          f"{E} x {FT} lanes a row): bit-equal to the plain versions, twice; a call under "
+          f"the profiler: {turns['port']['kernels_per_call']} launches, ms a call "
+          f"{json.dumps(names)}", flush=True)
+    foreign = [k for k in names if not any(s in k for s in SEGMENT_KERNELS)]
+    missing = [s for s in SEGMENT_KERNELS[:3] + ("segment_sum_",) if not any(s in k for k in names)]
+    if foreign or missing:
+        raise AssertionError(f"segment_sum_rows at the {tag} step launched kernels not of the "
+                             f"repo {foreign}, or none of {missing}")
+    port, parent = turns["port"], turns["parent"]
+    mean = lambda xs: sum(xs) / len(xs)
+    sum_ms = sum(ms for k, ms in port["kernels"].items() if "segment_sum_" in k)
+    sort_ms = sum(ms for k, ms in port["kernels"].items() if "segment_sum_" not in k)
+    sort_bytes, sum_bytes, call_bytes = segment_bytes(n, rows, F)
+    sort_wrap = wrapper_ms(lambda: hashgrid.segment_sort(values, idx, rows))
+    sort_row = bound_row("segment_sort", "tnerf_torch/csrc/segment_sort.cu", SEGMENT_REPLACES,
+                         0.0, sort_ms,
+                         cuda_ms(lambda: hashgrid.segment_sort_plain(values, idx, rows), 3),
+                         sort_bytes, 0, PEAK_F32, sort_wrap)
+    keys32 = idx.to(torch.int32)
+    sort_row["library_ms"] = cuda_ms(lambda: torch.sort(keys32, stable=True), 20)
+    sum_row = bound_row("segment_sum", "tnerf_torch/csrc/segment_sum.cu", SEGMENT_REPLACES, err,
+                        sum_ms, cuda_ms(lambda: hashgrid.segment_sum_rows_plain(values, idx, rows),
+                                        3), sum_bytes, n * F, PEAK_F32, mean(port["wrapper_ms"]))
     library_ms = cuda_ms(lambda: torch.zeros((rows, F), device=values.device).index_add_(
         0, idx, values), 20)
-    row = bound_row("segment_sum", "tnerf_torch/csrc/segment_sum.cu",
-                    "none (no Pallas kernel; the transpose of the gathers at "
-                    "tnerf/fields/hashgrid.py:193, tnerf/fields/triplane.py:191, :385)",
-                    err, ms, plain_ms, n * F * 4 + n * 8 + (rows + 1) * 8 + rows * F * 4, n * F,
-                    PEAK_F32, wrap)
-    row["library_ms"] = library_ms
-    row["shape"] = f"{tag}: {n} x {F} into {rows} rows"
-    print(f"segment sum at the {tag} step: {ms:.4f} ms device, {wrap:.4f} ms wrapper (sort "
-          f"included), bound {row['bound_ms']:.4f}, plain {plain_ms:.3f}, index_add_ "
-          f"{library_ms:.4f}", flush=True)
-    SEGMENT_ROWS.append(row)
+    sum_row["library_ms"] = library_ms
+    sort_row["shape"] = sum_row["shape"] = shape
+    call = {"shape": shape, "kernels_per_call": port["kernels_per_call"],
+            "device_ms": mean(port["device_ms"]), "wrapper_ms": mean(port["wrapper_ms"]),
+            "bound_ms": call_bytes / PEAK_BYTES * 1e3, "index_add_ms": library_ms,
+            "parent_device_ms": mean(parent["device_ms"]),
+            "parent_wrapper_ms": mean(parent["wrapper_ms"]),
+            "parent_kernels_per_call": parent["kernels_per_call"], "turns": turns}
+    print(f"segment sum at the {tag} step, whole call (turns PNNP: the former path P, the "
+          f"port N): {call['device_ms']:.4f} ms device in "
+          f"{call['kernels_per_call']} kernels (turns {port['device_ms']}), "
+          f"{call['wrapper_ms']:.4f} ms wrapper (turns {port['wrapper_ms']}); former "
+          f"{call['parent_device_ms']:.4f} ms device in {call['parent_kernels_per_call']} "
+          f"kernels (turns {parent['device_ms']}), {call['parent_wrapper_ms']:.4f} ms wrapper "
+          f"(turns {parent['wrapper_ms']}); bound {call['bound_ms']:.4f}, index_add_ "
+          f"{library_ms:.4f}; the sort's kernels {sort_ms:.4f} ms (bound "
+          f"{sort_row['bound_ms']:.4f}, torch.sort of int32 keys {sort_row['library_ms']:.4f}, "
+          f"wrapper {sort_wrap:.4f}), the sum's {sum_ms:.4f} (bound {sum_row['bound_ms']:.4f})",
+          flush=True)
+    SORT_ROWS.append(sort_row)
+    SEGMENT_ROWS.append(sum_row)
+    SEGMENT_CALLS.append(call)
+
+
+def segment_step_turns(config, ckpt_dir, tag):
+    """tools/torch_segment_turns.py:step_turns from the run's checkpoint:
+    20 compacted steps by the former gradient path and the port's, in turns;
+    the two must leave the same state to the bit."""
+    from tools.torch_segment_turns import step_turns
+
+    turns = step_turns(config, ckpt_dir)
+    mean = lambda xs: sum(xs) / len(xs)
+    print(f"{tag} compacted steps in turns (PNNP), per step: former path "
+          f"{mean(turns['parent']['host_ms']):.3f} ms host {turns['parent']['host_ms']}, "
+          f"{mean(turns['parent']['device_ms']):.3f} ms device {turns['parent']['device_ms']}, "
+          f"{mean(turns['parent']['launches']):.1f} launches; the port "
+          f"{mean(turns['port']['host_ms']):.3f} ms host {turns['port']['host_ms']}, "
+          f"{mean(turns['port']['device_ms']):.3f} ms device {turns['port']['device_ms']}, "
+          f"{mean(turns['port']['launches']):.1f} launches; states after the turns bit-equal "
+          f"{turns['states_bit_equal']}", flush=True)
+    if not turns["states_bit_equal"]:
+        raise AssertionError(f"{tag}: the former gradient path and the port's left other states")
+    return turns
 
 
 def profile_train_steps(config, ckpt_dir, tag, n_steps=20, encode=False):
@@ -2398,7 +2547,8 @@ def profile_train_steps(config, ckpt_dir, tag, n_steps=20, encode=False):
         step_ms = device_ms / n_steps
         result.update(encode_samples=n, encode_fwd_ms=fwd_ms, encode_bwd_ms=bwd_ms,
                       encode_fwd_share=fwd_ms / step_ms, encode_bwd_share=bwd_ms / step_ms,
-                      table_gradient_bit_equal=equal, table_gradient_max_diff=diff)
+                      table_gradient_bit_equal=equal, table_gradient_max_diff=diff,
+                      segment_step_turns=segment_step_turns(config, ckpt_dir, tag))
         print(f"{tag} step: the position encoding at the step's {n} samples, alone: forward "
               f"{fwd_ms:.3f} ms ({fwd_ms / step_ms:.3f} of the step's device time), backward "
               f"{bwd_ms:.3f} ms ({bwd_ms / step_ms:.3f})", flush=True)
@@ -4163,7 +4313,7 @@ def parallel_checks():
         print(f"parallel {name}: rank 0 launches {json.dumps(counts)}", flush=True)
     need = {"dp_step": ("tighten_range", "fused_forward", "fused_backward"),
             "dp_render": ("fused_forward",), "sp_step": ("dda_march",),
-            "tp_step": ("segment_sum",)}
+            "tp_step": ("segment_sort", "segment_sum")}
     for r in results:
         for name, kernels in need.items():
             if min(r["launches"][name][k] for k in kernels) < 1:
@@ -4254,6 +4404,7 @@ def run_phases(phases, streams=(0,)):
     if "kernels" in phases:
         check_sin_fast_path()
         check_probe_kernels()
+        check_segment_edges()
         for r in check_kernels() + check_backward() + check_dda():
             rows[r["name"]] = r
         with open(os.path.join(OUT, "probe_kernels.json"), "w") as fh:
@@ -4299,7 +4450,10 @@ def run_phases(phases, streams=(0,)):
         phase_done("intervals")
     if "fields" in phases:
         add(train_and_serve_fields())
-        rows["segment_sum"] = SEGMENT_ROWS[0]  # the hash grid's: the most rows and values
+        rows["segment_sort"] = SORT_ROWS[0]  # the hash grid's: the most rows and values
+        rows["segment_sum"] = SEGMENT_ROWS[0]
+        with open(os.path.join(OUT, "segment_calls.json"), "w") as fh:
+            json.dump(SEGMENT_CALLS, fh, indent=1)
         phase_done("fields")
     if "scenes" in phases:
         add(train_and_serve_scenes())
@@ -4395,7 +4549,7 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, r in rows.items():
         r["launches"] = launches[name]
-    if phases >= set(ALL_PHASES) and (len(rows) != 8
+    if phases >= set(ALL_PHASES) and (len(rows) != 9
                                       or min(r["launches"] for r in rows.values()) < 1):
         raise AssertionError(f"a kernel of the main paths was not launched: {launches}")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all (phases "

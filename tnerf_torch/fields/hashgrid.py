@@ -83,11 +83,40 @@ def segment_shape(n: int, rows: int, F: int):
     return FT, E, max(1, 256 // (E * FT))
 
 
+# The lookups' stable sort by row on the card (csrc/segment_sort.cu): a
+# tile of SORT_TILE lookups per block, digits of at most SORT_MAX_BITS bits,
+# and the lookups' values as the payload where a row holds at most
+# SORT_BY_VALUE_MAX_F of them (else the lookup's index).
+SORT_TILE = 4096
+SORT_MAX_BITS = 9
+SORT_BY_VALUE_MAX_F = 4
+SEGMENT_LIMIT = 1 << 31  # rows and lookups: 32-bit keys, indices and offsets
+
+
+def check_segment_limits(n: int, rows: int) -> None:
+    """Raise unless n lookups into `rows` rows fit the kernels' 32-bit keys,
+    lookup indices and offsets."""
+    if n >= SEGMENT_LIMIT or rows >= SEGMENT_LIMIT:
+        raise ValueError(f"segment_sum_rows: {n} lookups into {rows} rows; both must be under "
+                         f"2^31 (the sort's 32-bit keys, indices and offsets)")
+
+
+def sort_passes(rows: int):
+    """(passes, bits): the stable radix sort of row ids in [0, rows) covers
+    their ceil(log2 rows) bits (at least 1) in `passes` digits of `bits` bits
+    each, as few passes as digits of at most SORT_MAX_BITS allow."""
+    key_bits = max(1, (rows - 1).bit_length())
+    passes = -(-key_bits // SORT_MAX_BITS)
+    return passes, -(-key_bits // passes)
+
+
 def _sorted_rows(idx: torch.Tensor, rows: int):
-    """(order, offsets): the stable sort of idx and each row's start in it
-    ([rows + 1] int64, by searchsorted: no host synchronisation)."""
-    sorted_idx, order = torch.sort(idx, stable=True)
-    offsets = torch.searchsorted(sorted_idx, torch.arange(rows + 1, device=idx.device))
+    """(sorted keys, order, offsets): the stable sort of idx as int32 keys and
+    each row's start in it ([rows + 1] int64, by searchsorted: no host
+    synchronisation); the plain version of the sort in `segment_sort`."""
+    sorted_idx, order = torch.sort(idx.to(torch.int32), stable=True)
+    offsets = torch.searchsorted(
+        sorted_idx, torch.arange(rows + 1, dtype=torch.int32, device=idx.device))
     return sorted_idx, order, offsets
 
 
@@ -112,15 +141,103 @@ def segment_sum_rows_plain(values: torch.Tensor, idx: torch.Tensor, rows: int) -
     return part[:, 0]
 
 
+class _SortLayout:
+    """Byte offsets of `segment_sort`'s buffers in one allocation: first the
+    region the kernels need cleared (each pass's digit counts and tile
+    counter, then its tiles' status words), then the sorted keys, payload
+    and row starts, then the other half of the passes' ping-pong."""
+
+    def __init__(self, n: int, rows: int, F: int):
+        self.passes, self.bits = sort_passes(rows)
+        self.by_value = F <= SORT_BY_VALUE_MAX_F
+        self.pw = F if self.by_value else 1
+        radix, tiles = 1 << self.bits, -(-n // SORT_TILE)
+        up = lambda b: -(-b // 16) * 16
+        self.zeroed = up(4 * self.passes * (radix + 1 + tiles * radix))
+        self.keys = self.zeroed
+        self.payload = self.keys + up(4 * n)
+        self.offsets = self.payload + up(4 * n * self.pw)
+        self.keys_tmp = self.offsets + up(4 * (rows + 1))
+        self.pay_tmp = self.keys_tmp + (up(4 * n) if self.passes > 1 else 0)
+        self.total = self.pay_tmp + (up(4 * n * self.pw) if self.passes > 1 else 0)
+
+
+def _sort_on_card(idx: torch.Tensor, values: torch.Tensor, rows: int):
+    """(buffer, layout): csrc/segment_sort.cu on n >= 1 lookups (int64 idx,
+    contiguous float32 values [n, F] on one card)."""
+    from tnerf_torch.kernels import build
+
+    n, F = values.shape
+    lay = _SortLayout(n, rows, F)
+    buf = torch.empty(lay.total, dtype=torch.uint8, device=values.device)
+    p = buf.data_ptr()
+    tmp = (lay.keys_tmp, lay.pay_tmp) if lay.passes > 1 else (lay.keys, lay.payload)
+    err = build.library().tnerf_segment_sort(
+        idx.data_ptr(), values.data_ptr(), n, rows, lay.passes, lay.bits, int(lay.by_value),
+        lay.pw, SORT_TILE, p + lay.keys, p + lay.payload, p + tmp[0], p + tmp[1],
+        p + lay.offsets, p, lay.zeroed, torch.cuda.current_stream(values.device).cuda_stream)
+    build.check(err, "tnerf_segment_sort")
+    segment_sort.launches += 1
+    return buf, lay
+
+
+def _lookups(values: torch.Tensor, idx: torch.Tensor, rows: int):
+    """(values [n, F] contiguous float32, idx [n]) of a call, after the
+    limits' check."""
+    idx = idx.reshape(-1)
+    n = idx.shape[0]
+    check_segment_limits(n, rows)
+    F = values.shape[-1] if n == 0 else -1
+    return values.reshape(n, F).to(torch.float32).contiguous(), idx
+
+
+def segment_sort_plain(values: torch.Tensor, idx: torch.Tensor, rows: int):
+    """The plain PyTorch version of `segment_sort`: `_sorted_rows`."""
+    values, idx = _lookups(values, idx, rows)
+    sorted_idx, order, offsets = _sorted_rows(idx, rows)
+    payload = values[order] if values.shape[1] <= SORT_BY_VALUE_MAX_F else order.to(torch.int32)
+    return sorted_idx, payload, offsets.to(torch.int32)
+
+
+def segment_sort(values: torch.Tensor, idx: torch.Tensor, rows: int):
+    """(keys [n] int32, payload, offsets [rows + 1] int32): the lookups idx
+    (in [0, rows)) stably sorted by row, and each row's start.  The payload
+    is the lookups' values [n, F] float32 in that order where F <=
+    SORT_BY_VALUE_MAX_F, else their indices [n] int32.  CPU tensors take
+    the plain version, CUDA tensors csrc/segment_sort.cu."""
+    if values.device.type == "cpu":
+        return segment_sort_plain(values, idx, rows)
+    if values.device.type != "cuda":
+        raise ValueError(f"segment_sort: unsupported device {values.device}")
+    values, idx = _lookups(values, idx, rows)
+    n, F = values.shape
+    dev = values.device
+    by_value = F <= SORT_BY_VALUE_MAX_F
+    if n == 0 or rows == 0:
+        return (torch.empty(0, dtype=torch.int32, device=dev),
+                values.clone() if by_value else torch.empty(0, dtype=torch.int32, device=dev),
+                torch.zeros(rows + 1, dtype=torch.int32, device=dev))
+    with torch.cuda.device(dev):
+        buf, lay = _sort_on_card(idx.to(device=dev, dtype=torch.int64).contiguous(), values, rows)
+    keys = buf[lay.keys:lay.keys + 4 * n].view(torch.int32)
+    payload = buf[lay.payload:lay.payload + 4 * n * lay.pw]
+    payload = payload.view(torch.float32).view(n, F) if by_value else payload.view(torch.int32)
+    return keys, payload, buf[lay.offsets:lay.offsets + 4 * (rows + 1)].view(torch.int32)
+
+
+segment_sort.launches = 0
+
+
 def segment_sum_rows(values: torch.Tensor, idx: torch.Tensor, rows: int) -> torch.Tensor:
     """out[r] = the sum of values[i] over every i with idx[i] == r, [rows,
     F] float32, in a fixed order (a row's values in lookup order, in E
     strided partial sums, then a fixed tree: `segment_sum_rows_plain`), so
     two calls give the same bits and the CPU and the card agree.  CPU
-    tensors take the plain version; CUDA tensors the segment-sum kernel
-    (csrc/segment_sum.cu) after a stable sort."""
-    idx = idx.reshape(-1)
-    values = values.reshape(idx.shape[0], -1).to(torch.float32).contiguous()
+    tensors take the plain version; CUDA tensors the stable sort by row
+    (`segment_sort`, csrc/segment_sort.cu) and the segment-sum kernel
+    (csrc/segment_sum.cu) on its sorted stream.  n and rows must be under
+    2^31."""
+    values, idx = _lookups(values, idx, rows)
     if values.device.type == "cpu":
         return segment_sum_rows_plain(values, idx, rows)
     if values.device.type != "cuda":
@@ -129,16 +246,16 @@ def segment_sum_rows(values: torch.Tensor, idx: torch.Tensor, rows: int) -> torc
 
     n, F = values.shape
     dev = values.device
-    _, order, offsets = _sorted_rows(idx.to(dev), rows)
-    out = torch.empty((rows, F), dtype=torch.float32, device=dev)
-    if rows == 0 or F == 0:
-        return out
+    if n == 0 or rows == 0 or F == 0:
+        return torch.zeros((rows, F), dtype=torch.float32, device=dev)
     FT, E, per_block = segment_shape(n, rows, F)
-    lib = build.library()
+    out = torch.empty((rows, F), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.tnerf_segment_sum(values.data_ptr(), order.data_ptr(), offsets.data_ptr(),
-                                    out.data_ptr(), rows, F, FT, E, per_block,
-                                    torch.cuda.current_stream(dev).cuda_stream)
+        buf, lay = _sort_on_card(idx.to(device=dev, dtype=torch.int64).contiguous(), values, rows)
+        p = buf.data_ptr()
+        err = build.library().tnerf_segment_sum(
+            values.data_ptr(), p + lay.payload, p + lay.offsets, out.data_ptr(), rows, F, FT, E,
+            per_block, int(lay.by_value), torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "tnerf_segment_sum")
     segment_sum_rows.launches += 1
     return out

@@ -52,8 +52,12 @@ PROTOTYPES = {
     # o, d_safe, inv_d, te, tx, words (may be null), t0, cell, n, steps, res, cfactor, use_occ,
     # lo xyz, cell xyz, coarse cell xyz, 1 / cell xyz, threads per block, stream
     "tnerf_dda_march": [P] * 8 + [I, I, I, I, I] + [F] * 12 + [I, P],
-    # values, order, offsets, out, rows, F, feature lanes, entry lanes, rows per block, stream
-    "tnerf_segment_sum": [P] * 4 + [I] * 5 + [P],
+    # idx, values, n, rows, passes, bits, by value, payload words, tile, keys, payload, keys and
+    # payload of the other half, offsets, the cleared region and its bytes, stream
+    "tnerf_segment_sort": [P, P] + [I] * 7 + [P] * 6 + [ctypes.c_size_t, P],
+    # values, sorted payload, offsets, out, rows, F, feature lanes, entry lanes, rows per block,
+    # by value, stream
+    "tnerf_segment_sum": [P] * 4 + [I] * 6 + [P],
 }
 # per-sample placement: ts, dts [B, S] in the place of te, dt [B]
 PROTOTYPES["tnerf_fused_forward_tmode"] = PROTOTYPES["tnerf_fused_forward"]
