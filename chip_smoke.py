@@ -233,7 +233,14 @@ refreshes (repeats.json).  `--phases intervals_init --stream 0,1,2` (about
 reference's initial state (runs/hard_r4_intervals16_init) once per stream
 of batches and jitter (train.seed = 1337 + K), each logged window printed
 beside the reference's run; stream 0 keeps the states that
-tests/test_torch_intervals_stages.py reads (INTERVALS_STATE_STEPS).  The
+tests/test_torch_intervals_stages.py reads (INTERVALS_STATE_STEPS).
+`--phases hash_init --stream 0-7 [--lookup gather,onehot]` (about 60 s a
+stream) trains runs/hard_r5_hashgrid_diffuse/config.json from the
+reference's initial state (runs/hard_r5_hashgrid_diffuse_init) once per
+stream and lookup mode, each logged window printed beside the reference's
+record and its CPU streams, each run classed fogged or clear by its final
+test PSNR (HASH_FOG_DB); stream 0 of the gather keeps the states that
+tests/test_torch_hashgrid_stages.py reads (HASH_STATE_STEPS).  The
 `kernels` phase also traces a data-parallel step's gradient at B2
 (`trace_dp_split`) and `parallel` prints the DP step's gap per leaf
 (ROADMAP Queue C 10).  Files go under chiprun_out/ (git-ignored).
@@ -381,6 +388,34 @@ INTERVALS_RECORD = os.path.join(REPO, "runs", "hard_r4_intervals16", "metrics.js
 INTERVALS_STATE_STEPS = (257, 500, 1500)
 WINDOW_KEYS = ("loss", "train_psnr", "acc_mean", "occupancy_frac")
 INTERVALS_SHORT_STEPS = 250
+# Phase `hash_init` (not in the default run; calls of their own):
+# runs/hard_r5_hashgrid_diffuse/config.json (hash grid, SH, occupancy-CDF
+# placement) trained from the reference's own initial state of seed 1337
+# (runs/hard_r5_hashgrid_diffuse_init, step 0), logging every 50 steps,
+# once per `--stream K` (train.seed = 1337 + K: the batches, the CDF
+# jitter and the refresh jitter; the weights are the reference's) and per
+# `--lookup` mode: "gather" is the config as committed (`auto`, the float32
+# gather off a TPU), "onehot" the lookups rounded to bf16 as the TPU's
+# one-hot product reads them (field_.hash_gather_mode=onehot).  Each
+# logged window is printed beside the reference's record
+# (runs/hard_r5_hashgrid_diffuse/metrics.jsonl, a TPU run) and the band of
+# the reference's CPU streams from the same state
+# (runs/hard_r5_hashgrid_diffuse_ref_streams, tools/hash_ref_streams.sh).
+# A run is classed fogged when its final test PSNR is under HASH_FOG_DB,
+# fixed before the first run: every run of this config on record ended
+# either at 33.3-38.5 dB (fogged) or at 41.7-43.3 dB (clear).  There is no
+# PSNR gate; the start is checked (acc_mean at step 0 within 0.05 of the
+# record's).  Stream 0 of the gather keeps its states after
+# HASH_STATE_STEPS steps under chiprun_out/chip_smoke/hash_states/: 257
+# (the first refresh, at step 256, included) and 2000, where its
+# occupancy_frac has left the band of the clear streams and its fog has
+# not yet set in (it fogs from step 2050 on).
+HASH_INIT = os.path.join(REPO, "runs", "hard_r5_hashgrid_diffuse_init", "checkpoints")
+HASH_RECORD = os.path.join(REPO, "runs", "hard_r5_hashgrid_diffuse", "metrics.jsonl")
+HASH_REF_STREAMS = os.path.join(REPO, "runs", "hard_r5_hashgrid_diffuse_ref_streams")
+HASH_STATE_STEPS = (257, 2000)
+HASH_FOG_DB = 39.0
+HASH_LOOKUPS = {"gather": [], "onehot": ["field_.hash_gather_mode=onehot"]}
 INTERVALS_SHORT_OVERRIDES = INTERVALS_OVERRIDES + SHORT_RUN + [
     f"train.steps={INTERVALS_SHORT_STEPS}", "train.schedule_total_steps=2500"]
 # Phase `deep`: the prims config at 13 layers of 128 (field_.hidden_layers=12).
@@ -576,9 +611,10 @@ ALL_PHASES = ("kernels", "serve", "train", "deep", "resume", "cdf", "march", "in
 # launcher with two ranks (about 310 s); `repeats` the pairs from one seed
 # of the unfused and table paths (about 120 s); `intervals_init` the
 # intervals config from the reference's initial state, once per --stream
-# (about 310 s each).
+# (about 310 s each); `hash_init` the hash grid from the reference's
+# initial state, once per --stream and --lookup (about 60 s each).
 EXTRA_PHASES = ("march_full", "cdf_full", "intervals_full", "parallel_full", "repeats",
-                "intervals_init")
+                "intervals_init", "hash_init")
 # Published H100 SXM peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -2196,6 +2232,83 @@ def train_intervals_from_reference_init(stream):
           f"{final['psnr_test'] - JAX_INTERVALS_PSNR_TEST:+.4f}), worst view "
           f"{final['psnr_test_min']:.4f}", flush=True)
     return launches
+
+
+def reference_stream_bands():
+    """{step: {key: (least, greatest)}} over the reference's committed CPU
+    streams of the hash grid (HASH_REF_STREAMS), and their count."""
+    import glob
+
+    streams = [logged_windows(p) for p in sorted(glob.glob(os.path.join(HASH_REF_STREAMS,
+                                                                        "stream_*.jsonl")))]
+    bands = {}
+    for step in sorted({s for w in streams for s in w}):
+        vals = [w[step] for w in streams if step in w]
+        bands[step] = {k: (min(v[k] for v in vals), max(v[k] for v in vals)) for k in WINDOW_KEYS}
+    return bands, len(streams)
+
+
+def train_hash_from_reference_init(stream, lookup):
+    """Phase `hash_init`: runs/hard_r5_hashgrid_diffuse/config.json trained
+    from the reference's initial state at train.seed = 1337 + stream, with
+    the lookups of `lookup` (HASH_LOOKUPS), logging every 50 steps; each
+    logged window printed beside the reference's record and the band of its
+    CPU streams; the run classed fogged or clear (HASH_FOG_DB).  Stream 0
+    of the gather keeps the states after HASH_STATE_STEPS steps.  No PSNR
+    gate.  Returns (launch counts, summary)."""
+    import shutil
+
+    name = f"hash_init_{lookup}_s{stream}"
+    out_dir = os.path.join(OUT, name)
+    cfg = load_config(CONFIG_HASH)
+    keep = set(HASH_STATE_STEPS) if (stream, lookup) == (0, "gather") else set()
+    overrides = ["train.resume=true", f"train.seed={cfg.train.seed + stream}",
+                 "train.assert_test_psnr_min=0", "train.log_every=50",
+                 f"train.checkpoint_every={1 if keep else 0}"] + HASH_LOOKUPS[lookup]
+    t0 = time.perf_counter()
+    with checkpoints_only_at(keep):  # no final checkpoint: 15 MB each
+        launches, final, _ = train_from_scratch(CONFIG_HASH, name, cfg.train.steps, (), None,
+                                                overrides, checkpoints=HASH_INIT)
+    seconds = time.perf_counter() - t0
+    ckpt = os.path.join(out_dir, "checkpoints")
+    for step in sorted(keep):
+        dest = os.path.join(OUT, "hash_states", f"state_{step:05d}")
+        shutil.rmtree(dest, ignore_errors=True)
+        os.makedirs(dest)
+        npz = f"step_{step:08d}.npz"
+        shutil.copy(os.path.join(ckpt, npz), os.path.join(dest, npz))
+        with open(os.path.join(ckpt, "treedef.json")) as fh:
+            tree = json.load(fh)
+        tree["last_step"] = step
+        with open(os.path.join(dest, "treedef.json"), "w") as fh:
+            json.dump(tree, fh)
+    shutil.rmtree(ckpt)
+    ours, ref = (logged_windows(p) for p in (os.path.join(out_dir, "metrics.jsonl"),
+                                             HASH_RECORD))
+    if abs(ours[0]["acc_mean"] - ref[0]["acc_mean"]) > 0.05:
+        raise AssertionError(f"{name} did not start from the reference's initial state: "
+                             f"acc_mean {ours[0]['acc_mean']} at step 0, the reference's "
+                             f"{ref[0]['acc_mean']}")
+    bands, n_ref = reference_stream_bands()
+    print(f"{name}: window | port " + " ".join(WINDOW_KEYS) + " | record | band of "
+          f"{n_ref} reference streams", flush=True)
+    for step in sorted(ours):
+        cells = [" ".join(f"{ours[step][k]:.6g}" for k in WINDOW_KEYS)]
+        cells.append(" ".join(f"{ref[step][k]:.6g}" for k in WINDOW_KEYS) if step in ref
+                     else "-")
+        cells.append(" ".join(f"[{bands[step][k][0]:.6g}, {bands[step][k][1]:.6g}]"
+                              for k in WINDOW_KEYS) if step in bands else "-")
+        print(f"{name}: {step:5d} | " + " | ".join(cells), flush=True)
+    fogged = final["psnr_test"] < HASH_FOG_DB
+    summary = dict(stream=stream, lookup=lookup, psnr_test=final["psnr_test"],
+                   psnr_test_min=final["psnr_test_min"], fogged=fogged, seconds=seconds)
+    print(f"{name}: psnr_test {final['psnr_test']:.4f} dB on {final['n_views_test']:.0f} views, "
+          f"worst view {final['psnr_test_min']:.4f} (the record's {JAX_HASH_PSNR_TEST:.4f}): "
+          f"{'FOGGED' if fogged else 'clear'} (under {HASH_FOG_DB} dB is fogged); "
+          f"{seconds:.1f} s", flush=True)
+    with open(os.path.join(OUT, f"{name}.json"), "w") as fh:
+        json.dump(summary, fh, indent=1)
+    return launches, summary
 
 
 def resume_reference_checkpoint():
@@ -4389,10 +4502,11 @@ def parallel_full():
     return launches
 
 
-def run_phases(phases, streams=(0,)):
-    """The phases named in `phases`, in the script's order (streams: phase
-    `intervals_init`'s, one run each): (kernels' rows, launch counts of the
-    main paths)."""
+def run_phases(phases, streams=(0,), lookups=("gather",)):
+    """The phases named in `phases`, in the script's order (streams: phases
+    `intervals_init`'s and `hash_init`'s, one run each, and for `hash_init`
+    one per lookup mode): (kernels' rows, launch counts of the main
+    paths)."""
     rows = {}
     phase_t0 = [time.perf_counter()]
 
@@ -4486,6 +4600,19 @@ def run_phases(phases, streams=(0,)):
         for k in streams:
             add(train_intervals_from_reference_init(k))
         phase_done("intervals_init")
+    if "hash_init" in phases:
+        runs = []
+        for lookup in lookups:
+            for k in streams:
+                counts, summary = train_hash_from_reference_init(k, lookup)
+                add(counts)
+                runs.append(summary)
+        for lookup in lookups:
+            mine = [r for r in runs if r["lookup"] == lookup]
+            print(f"hash_init {lookup}: {sum(r['fogged'] for r in mine)} of {len(mine)} streams "
+                  f"fogged; psnr_test " + ", ".join(f"s{r['stream']} {r['psnr_test']:.4f}"
+                                                    for r in mine), flush=True)
+        phase_done("hash_init")
     if "repeats" in phases:
         add(unfused_repeats())
         phase_done("repeats")
@@ -4508,13 +4635,23 @@ def main() -> int:
                     help=f"comma list of {', '.join(ALL_PHASES + EXTRA_PHASES)} (default: "
                     f"{', '.join(ALL_PHASES)})")
     ap.add_argument("--stream", default="0",
-                    help="phase intervals_init: a comma list of streams K, one run each "
-                    "at train.seed = 1337 + K")
+                    help="phases intervals_init and hash_init: a comma list of streams K "
+                    "(or ranges a-b), one run each at train.seed = 1337 + K")
+    ap.add_argument("--lookup", default="gather",
+                    help=f"phase hash_init: a comma list of {', '.join(HASH_LOOKUPS)}, each "
+                    "run over every stream")
     opts = ap.parse_args()
     phases = set(opts.phases.split(","))
     unknown = phases - set(ALL_PHASES + EXTRA_PHASES)
     if unknown:
         log(f"chip_smoke: unknown phases {sorted(unknown)}")
+        return 2
+    streams = [k for part in opts.stream.split(",")
+               for k in (range(int(part.split("-")[0]), int(part.split("-")[1]) + 1)
+                         if "-" in part else [int(part)])]
+    lookups = opts.lookup.split(",")
+    if set(lookups) - set(HASH_LOOKUPS):
+        log(f"chip_smoke: unknown lookup modes {sorted(set(lookups) - set(HASH_LOOKUPS))}")
         return 2
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA card")
@@ -4538,7 +4675,7 @@ def main() -> int:
     build.library()
 
     try:
-        rows, launches = run_phases(phases, [int(k) for k in opts.stream.split(",")])
+        rows, launches = run_phases(phases, streams, lookups)
     finally:
         for proc, _, _ in JOBS.values():
             if proc.poll() is None:
@@ -4554,6 +4691,7 @@ def main() -> int:
         raise AssertionError(f"a kernel of the main paths was not launched: {launches}")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all (phases "
           f"{','.join(p for p in ALL_PHASES + EXTRA_PHASES if p in phases)})", flush=True)
+    print(smi.splitlines()[0], flush=True)  # again: a long run's first lines get cut off
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
