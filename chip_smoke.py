@@ -104,9 +104,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
      runs/hard_r5_hashgrid_diffuse (hash grid, SH view encoding,
      occupancy-CDF placement), runs/hard_r4_cp and
      runs/hard_r3_triplane_prog (three upsampling stages) as committed,
-     2500 steps each: test PSNR within TRAIN_PSNR_MARGIN_DB of the reference's (for the hash
-     grid and CP the reference trained from the port's own initial weights,
-     see JAX_HASH_FROM_PORT_INIT_PSNR_TEST; the gap to the reference's
+     2500 steps each: test PSNR within TRAIN_PSNR_MARGIN_DB of the reference's (each
+     the reference trained from the port's own initial weights, see
+     JAX_HASH_FROM_PORT_INIT_PSNR_TEST; the gap to the reference's
      record printed) and over the config's gate, B4 launched by the evals;
      the hash grid's `cli eval` (the run's own PSNR) and `cli bake
      --bake-res 320 --eval` of its checkpoint (baked within
@@ -240,7 +240,10 @@ reference's initial state (runs/hard_r5_hashgrid_diffuse_init) once per
 stream and lookup mode, each logged window printed beside the reference's
 record and its CPU streams, each run classed fogged or clear by its final
 test PSNR (HASH_FOG_DB); stream 0 of the gather keeps the states that
-tests/test_torch_hashgrid_stages.py reads (HASH_STATE_STEPS).  The
+tests/test_torch_hashgrid_stages.py reads (HASH_STATE_STEPS).
+`--phases tri_init` does the same for the progressive triplane
+(runs/hard_r3_triplane_prog from runs/hard_r3_triplane_prog_init, no
+classing; TRI_STATE_STEPS for tests/test_torch_triplane_stages.py).  The
 `kernels` phase also traces a data-parallel step's gradient at B2
 (`trace_dp_split`) and `parallel` prints the DP step's gap per leaf
 (ROADMAP Queue C 10).  Files go under chiprun_out/ (git-ignored).
@@ -312,13 +315,18 @@ JAX_TRIPLANE_PSNR_TEST = 41.56194746218691
 # 2.2 dB above its record (43.80, the port 43.47-43.63).  From the
 # reference's own initial state of seed 1337 the reference itself fogs
 # over under one of three other batch streams (38.47 dB), and the port's
-# CP ends within 0.5 dB of the record (PERF.md, ROADMAP Queue C 5).  So
-# the hash grid and CP, trained at the committed seed, are held to what
-# the reference reaches from the same initial weights, and the gap to the
-# record is printed; the triplane (not run that way) is held to its
-# record.
+# CP ends within 0.5 dB of the record (PERF.md, ROADMAP Queue C 5).  The
+# triplane's record is one TPU stream with bf16 lookups; from the port's
+# own seed-1337 state the reference ends at 41.77 dB
+# (runs/hard_r3_triplane_prog_ref_streams/from_port_init.jsonl), and from
+# the reference's own step-0 state its streams and the port's spread over
+# about a dB around the record (`--phases tri_init`, ROADMAP Queue C 9).
+# So each table field, trained at the committed seed, is held to what the
+# reference reaches from the same initial weights, and the gap to the
+# record is printed.
 JAX_HASH_FROM_PORT_INIT_PSNR_TEST = 34.42220929004496
 JAX_CP_FROM_PORT_INIT_PSNR_TEST = 43.79805301785407
+JAX_TRIPLANE_FROM_PORT_INIT_PSNR_TEST = 41.772340867162576
 # The intervals config at 16^3 prunes thin rods through one density probe
 # per 0.125-wide cell, and where it ends depends on the initial weights: on
 # the card the port's runs ended at 29.59 (the committed seed 1337, whose
@@ -416,6 +424,30 @@ HASH_REF_STREAMS = os.path.join(REPO, "runs", "hard_r5_hashgrid_diffuse_ref_stre
 HASH_STATE_STEPS = (257, 2000)
 HASH_FOG_DB = 39.0
 HASH_LOOKUPS = {"gather": [], "onehot": ["field_.hash_gather_mode=onehot"]}
+# Phase `tri_init` (not in the default run; calls of their own):
+# runs/hard_r3_triplane_prog/config.json (the progressive triplane: R = 32,
+# grown to 51, 81 and 128 at steps 625, 1250 and 1875, each growth a fresh
+# optimizer and schedule) trained from the reference's own step-0 state of
+# seed 1337 (runs/hard_r3_triplane_prog_init, drawn under the first stage's
+# config; both packages resume it as stage 1 of 4), logging every 50 steps,
+# once per `--stream K` and `--lookup` mode as `hash_init` ("onehot":
+# field_.tri_gather_mode=onehot, the lookups rounded to bf16 as the record's
+# TPU run read them).  Every stage draws its batches and jitter afresh from
+# train.seed + 1, as the reference's stages do.  Each logged window is
+# printed beside the record (runs/hard_r3_triplane_prog/metrics.jsonl, a
+# TPU run) and the band of the reference's CPU streams from the same state
+# (runs/hard_r3_triplane_prog_ref_streams, tools/hash_ref_streams.sh with
+# CONFIG / INIT / DEST).  No PSNR gate; the start is checked as
+# `hash_init`'s.  Stream 0 of the gather keeps its states after
+# TRI_STATE_STEPS steps under chiprun_out/chip_smoke/tri_states/: 257 (R =
+# 32, the first refresh, at step 256, included) and 1885 (R = 128, ten Adam
+# steps after the last stage's rewrite).  The stages' last checkpoints stay
+# while the run lasts: each stage resumes from the one before.
+TRI_INIT = os.path.join(REPO, "runs", "hard_r3_triplane_prog_init", "checkpoints")
+TRI_RECORD = os.path.join(REPO, "runs", "hard_r3_triplane_prog", "metrics.jsonl")
+TRI_REF_STREAMS = os.path.join(REPO, "runs", "hard_r3_triplane_prog_ref_streams")
+TRI_STATE_STEPS = (257, 1885)
+TRI_LOOKUPS = {"gather": [], "onehot": ["field_.tri_gather_mode=onehot"]}
 INTERVALS_SHORT_OVERRIDES = INTERVALS_OVERRIDES + SHORT_RUN + [
     f"train.steps={INTERVALS_SHORT_STEPS}", "train.schedule_total_steps=2500"]
 # Phase `deep`: the prims config at 13 layers of 128 (field_.hidden_layers=12).
@@ -611,10 +643,11 @@ ALL_PHASES = ("kernels", "serve", "train", "deep", "resume", "cdf", "march", "in
 # launcher with two ranks (about 310 s); `repeats` the pairs from one seed
 # of the unfused and table paths (about 120 s); `intervals_init` the
 # intervals config from the reference's initial state, once per --stream
-# (about 310 s each); `hash_init` the hash grid from the reference's
-# initial state, once per --stream and --lookup (about 60 s each).
+# (about 310 s each); `hash_init` the hash grid and `tri_init` the
+# progressive triplane from the reference's initial state, once per --stream
+# and --lookup (about 60 s each).
 EXTRA_PHASES = ("march_full", "cdf_full", "intervals_full", "parallel_full", "repeats",
-                "intervals_init", "hash_init")
+                "intervals_init", "hash_init", "tri_init")
 # Published H100 SXM peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -2234,12 +2267,12 @@ def train_intervals_from_reference_init(stream):
     return launches
 
 
-def reference_stream_bands():
+def reference_stream_bands(ref_dir):
     """{step: {key: (least, greatest)}} over the reference's committed CPU
-    streams of the hash grid (HASH_REF_STREAMS), and their count."""
+    streams in ref_dir (stream_K.jsonl), and their count."""
     import glob
 
-    streams = [logged_windows(p) for p in sorted(glob.glob(os.path.join(HASH_REF_STREAMS,
+    streams = [logged_windows(p) for p in sorted(glob.glob(os.path.join(ref_dir,
                                                                         "stream_*.jsonl")))]
     bands = {}
     for step in sorted({s for w in streams for s in w}):
@@ -2248,31 +2281,51 @@ def reference_stream_bands():
     return bands, len(streams)
 
 
-def train_hash_from_reference_init(stream, lookup):
-    """Phase `hash_init`: runs/hard_r5_hashgrid_diffuse/config.json trained
-    from the reference's initial state at train.seed = 1337 + stream, with
-    the lookups of `lookup` (HASH_LOOKUPS), logging every 50 steps; each
+# The phases that train a table field from the reference's own step-0
+# state: the config, that state, the record (a TPU run), the reference's
+# CPU streams, stream 0's kept states and where they go, the lookup modes,
+# and the fog threshold (None: no classing).
+FROM_REFERENCE_INIT = {
+    "hash_init": dict(config=CONFIG_HASH, init=HASH_INIT, record=HASH_RECORD,
+                      record_psnr=JAX_HASH_PSNR_TEST, ref_streams=HASH_REF_STREAMS,
+                      keep=HASH_STATE_STEPS, states="hash_states", lookups=HASH_LOOKUPS,
+                      fog_db=HASH_FOG_DB),
+    "tri_init": dict(config=CONFIG_TRIPLANE, init=TRI_INIT, record=TRI_RECORD,
+                     record_psnr=JAX_TRIPLANE_PSNR_TEST, ref_streams=TRI_REF_STREAMS,
+                     keep=TRI_STATE_STEPS, states="tri_states", lookups=TRI_LOOKUPS,
+                     fog_db=None),
+}
+
+
+def train_from_reference_init(phase, stream, lookup):
+    """Phases `hash_init` and `tri_init` (FROM_REFERENCE_INIT): the config
+    trained from the reference's initial state at train.seed = 1337 +
+    stream, with the lookups of `lookup`, logging every 50 steps; each
     logged window printed beside the reference's record and the band of its
-    CPU streams; the run classed fogged or clear (HASH_FOG_DB).  Stream 0
-    of the gather keeps the states after HASH_STATE_STEPS steps.  No PSNR
-    gate.  Returns (launch counts, summary)."""
+    CPU streams; the hash grid's run classed fogged or clear (HASH_FOG_DB).
+    Stream 0 of the gather keeps its states.  No PSNR gate: the start is
+    checked (acc_mean at step 0 within 0.05 of the record's).  Returns
+    (launch counts, summary)."""
     import shutil
 
-    name = f"hash_init_{lookup}_s{stream}"
+    spec = FROM_REFERENCE_INIT[phase]
+    name = f"{phase}_{lookup}_s{stream}"
     out_dir = os.path.join(OUT, name)
-    cfg = load_config(CONFIG_HASH)
-    keep = set(HASH_STATE_STEPS) if (stream, lookup) == (0, "gather") else set()
+    cfg = load_config(spec["config"])
+    keep = set(spec["keep"]) if (stream, lookup) == (0, "gather") else set()
     overrides = ["train.resume=true", f"train.seed={cfg.train.seed + stream}",
                  "train.assert_test_psnr_min=0", "train.log_every=50",
-                 f"train.checkpoint_every={1 if keep else 0}"] + HASH_LOOKUPS[lookup]
+                 f"train.checkpoint_every={1 if keep else 0}"] + spec["lookups"][lookup]
+    # the stages' last checkpoints: each stage resumes from the one before
+    chain = set(cfg.field_.tri_upsample_steps)
     t0 = time.perf_counter()
-    with checkpoints_only_at(keep):  # no final checkpoint: 15 MB each
-        launches, final, _ = train_from_scratch(CONFIG_HASH, name, cfg.train.steps, (), None,
-                                                overrides, checkpoints=HASH_INIT)
+    with checkpoints_only_at(keep | chain):  # no final checkpoint: 15-20 MB each
+        launches, final, _ = train_from_scratch(spec["config"], name, cfg.train.steps, (), None,
+                                                overrides, checkpoints=spec["init"])
     seconds = time.perf_counter() - t0
     ckpt = os.path.join(out_dir, "checkpoints")
     for step in sorted(keep):
-        dest = os.path.join(OUT, "hash_states", f"state_{step:05d}")
+        dest = os.path.join(OUT, spec["states"], f"state_{step:05d}")
         shutil.rmtree(dest, ignore_errors=True)
         os.makedirs(dest)
         npz = f"step_{step:08d}.npz"
@@ -2284,12 +2337,12 @@ def train_hash_from_reference_init(stream, lookup):
             json.dump(tree, fh)
     shutil.rmtree(ckpt)
     ours, ref = (logged_windows(p) for p in (os.path.join(out_dir, "metrics.jsonl"),
-                                             HASH_RECORD))
+                                             spec["record"]))
     if abs(ours[0]["acc_mean"] - ref[0]["acc_mean"]) > 0.05:
         raise AssertionError(f"{name} did not start from the reference's initial state: "
                              f"acc_mean {ours[0]['acc_mean']} at step 0, the reference's "
                              f"{ref[0]['acc_mean']}")
-    bands, n_ref = reference_stream_bands()
+    bands, n_ref = reference_stream_bands(spec["ref_streams"])
     print(f"{name}: window | port " + " ".join(WINDOW_KEYS) + " | record | band of "
           f"{n_ref} reference streams", flush=True)
     for step in sorted(ours):
@@ -2299,13 +2352,16 @@ def train_hash_from_reference_init(stream, lookup):
         cells.append(" ".join(f"[{bands[step][k][0]:.6g}, {bands[step][k][1]:.6g}]"
                               for k in WINDOW_KEYS) if step in bands else "-")
         print(f"{name}: {step:5d} | " + " | ".join(cells), flush=True)
-    fogged = final["psnr_test"] < HASH_FOG_DB
     summary = dict(stream=stream, lookup=lookup, psnr_test=final["psnr_test"],
-                   psnr_test_min=final["psnr_test_min"], fogged=fogged, seconds=seconds)
+                   psnr_test_min=final["psnr_test_min"], seconds=seconds)
+    verdict = ""
+    if spec["fog_db"] is not None:
+        summary["fogged"] = final["psnr_test"] < spec["fog_db"]
+        verdict = (f": {'FOGGED' if summary['fogged'] else 'clear'} (under {spec['fog_db']} dB "
+                   "is fogged)")
     print(f"{name}: psnr_test {final['psnr_test']:.4f} dB on {final['n_views_test']:.0f} views, "
-          f"worst view {final['psnr_test_min']:.4f} (the record's {JAX_HASH_PSNR_TEST:.4f}): "
-          f"{'FOGGED' if fogged else 'clear'} (under {HASH_FOG_DB} dB is fogged); "
-          f"{seconds:.1f} s", flush=True)
+          f"worst view {final['psnr_test_min']:.4f} (the record's {spec['record_psnr']:.4f})"
+          f"{verdict}; {seconds:.1f} s", flush=True)
     with open(os.path.join(OUT, f"{name}.json"), "w") as fh:
         json.dump(summary, fh, indent=1)
     return launches, summary
@@ -3025,7 +3081,8 @@ def train_and_serve_fields():
     for config, name, reference, record in (
             (CONFIG_HASH, "train_hash", JAX_HASH_FROM_PORT_INIT_PSNR_TEST, JAX_HASH_PSNR_TEST),
             (CONFIG_CP, "train_cp", JAX_CP_FROM_PORT_INIT_PSNR_TEST, JAX_CP_PSNR_TEST),
-            (CONFIG_TRIPLANE, "train_triplane", JAX_TRIPLANE_PSNR_TEST, JAX_TRIPLANE_PSNR_TEST)):
+            (CONFIG_TRIPLANE, "train_triplane", JAX_TRIPLANE_FROM_PORT_INIT_PSNR_TEST,
+             JAX_TRIPLANE_PSNR_TEST)):
         cfg = Config.from_json_file(config)
         trained, final, out_dir = train_from_scratch(config, name, cfg.train.steps, (), reference)
         print(f"{name}: psnr_test {final['psnr_test'] - record:+.4f} dB against the reference's "
@@ -4442,7 +4499,7 @@ def parallel_checks():
 PARALLEL_FULL_RUNS = (
     ("train_dp2", CONFIG, ["parallel.data_parallel=2"], JAX_PSNR_TEST),
     ("train_triplane_tp2", CONFIG_TRIPLANE, ["parallel.table_parallel=2"],
-     JAX_TRIPLANE_PSNR_TEST),
+     JAX_TRIPLANE_FROM_PORT_INIT_PSNR_TEST),
 )
 
 
@@ -4461,8 +4518,9 @@ def parallel_full():
     """Phase `parallel_full` (not in the default run): `cli train` under the
     launcher with two ranks of the prims config at parallel.data_parallel=2
     (1500 steps) and of the progressive triplane at table_parallel=2, each
-    within TRAIN_PSNR_MARGIN_DB of the reference's record and over its
-    config's gate."""
+    within TRAIN_PSNR_MARGIN_DB of the reference's (for the triplane the
+    reference trained from the port's own initial weights, which both runs
+    draw) and over its config's gate."""
     import shutil
 
     launches = {k: 0 for k in kernel_counters()}
@@ -4504,9 +4562,9 @@ def parallel_full():
 
 def run_phases(phases, streams=(0,), lookups=("gather",)):
     """The phases named in `phases`, in the script's order (streams: phases
-    `intervals_init`'s and `hash_init`'s, one run each, and for `hash_init`
-    one per lookup mode): (kernels' rows, launch counts of the main
-    paths)."""
+    `intervals_init`'s, `hash_init`'s and `tri_init`'s, one run each, and
+    for the last two one per lookup mode): (kernels' rows, launch counts
+    of the main paths)."""
     rows = {}
     phase_t0 = [time.perf_counter()]
 
@@ -4600,19 +4658,23 @@ def run_phases(phases, streams=(0,), lookups=("gather",)):
         for k in streams:
             add(train_intervals_from_reference_init(k))
         phase_done("intervals_init")
-    if "hash_init" in phases:
+    for phase in [p for p in FROM_REFERENCE_INIT if p in phases]:
         runs = []
         for lookup in lookups:
             for k in streams:
-                counts, summary = train_hash_from_reference_init(k, lookup)
+                counts, summary = train_from_reference_init(phase, k, lookup)
                 add(counts)
                 runs.append(summary)
         for lookup in lookups:
             mine = [r for r in runs if r["lookup"] == lookup]
-            print(f"hash_init {lookup}: {sum(r['fogged'] for r in mine)} of {len(mine)} streams "
-                  f"fogged; psnr_test " + ", ".join(f"s{r['stream']} {r['psnr_test']:.4f}"
-                                                    for r in mine), flush=True)
-        phase_done("hash_init")
+            psnrs = [r["psnr_test"] for r in mine]
+            fogged = (f"{sum(r['fogged'] for r in mine)} of {len(mine)} streams fogged; "
+                      if "fogged" in mine[0] else "")
+            print(f"{phase} {lookup}: {fogged}psnr_test mean {sum(psnrs) / len(psnrs):.4f}, "
+                  f"range [{min(psnrs):.4f}, {max(psnrs):.4f}]: " + ", ".join(
+                      f"s{r['stream']} {r['psnr_test']:.4f} ({r['seconds']:.1f} s)"
+                      for r in mine), flush=True)
+        phase_done(phase)
     if "repeats" in phases:
         add(unfused_repeats())
         phase_done("repeats")
@@ -4635,11 +4697,11 @@ def main() -> int:
                     help=f"comma list of {', '.join(ALL_PHASES + EXTRA_PHASES)} (default: "
                     f"{', '.join(ALL_PHASES)})")
     ap.add_argument("--stream", default="0",
-                    help="phases intervals_init and hash_init: a comma list of streams K "
-                    "(or ranges a-b), one run each at train.seed = 1337 + K")
+                    help="phases intervals_init, hash_init and tri_init: a comma list of "
+                    "streams K (or ranges a-b), one run each at train.seed = 1337 + K")
     ap.add_argument("--lookup", default="gather",
-                    help=f"phase hash_init: a comma list of {', '.join(HASH_LOOKUPS)}, each "
-                    "run over every stream")
+                    help=f"phases hash_init and tri_init: a comma list of "
+                    f"{', '.join(HASH_LOOKUPS)}, each run over every stream")
     opts = ap.parse_args()
     phases = set(opts.phases.split(","))
     unknown = phases - set(ALL_PHASES + EXTRA_PHASES)

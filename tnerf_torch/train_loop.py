@@ -560,8 +560,10 @@ def _run_progressive(cfg: Config, datasets, device) -> Dict[str, float]:
     steps [end_{k-1}, end_k) at its resolution, resuming the run's
     checkpoint; between stages the checkpoint is rewritten in place with the
     planes and lines upsampled and a fresh optimizer (TensoRF resets it, and
-    each stage's schedule spans the stage).  The acceptance gate applies to
-    the last stage only."""
+    each stage's schedule spans the stage).  The acceptance gate and
+    train.keep_best apply to the last stage only: an earlier stage's
+    checkpoint has smaller tables and does not restore under the final
+    config."""
     from tnerf_torch.parallel import comm
 
     validate_ported(cfg, for_eval=False)
@@ -584,6 +586,7 @@ def _run_progressive(cfg: Config, datasets, device) -> Dict[str, float]:
                                      tri_init_resolution=0)
         train = dataclasses.replace(
             cfg.train, steps=end, resume=True, schedule_total_steps=end - prev_ends[k],
+            keep_best=cfg.train.keep_best and last,
             assert_test_psnr_min=cfg.train.assert_test_psnr_min if last else 0.0)
         return dataclasses.replace(cfg, field_=field_, train=train)
 

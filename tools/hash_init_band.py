@@ -1,8 +1,20 @@
 #!/usr/bin/env python3
-"""The hash grid's fog from the reference's initial state: the port's
+"""A table field's streams from the reference's initial state: the port's
 streams under each lookup mode against the reference's.
 
-    python3 tools/hash_init_band.py
+    python3 tools/hash_init_band.py                   # the hash grid's fog
+    python3 tools/hash_init_band.py --field triplane  # the progressive triplane
+
+The triplane's streams (runs/hard_r3_triplane_prog_port/ and
+runs/hard_r3_triplane_prog_ref_streams/, `chip_smoke.py --phases tri_init`
+and tools/hash_ref_streams.sh with CONFIG / INIT / DEST) are not classed:
+it prints each group's final test PSNRs, their mean and range, the band
+(least, greatest) of occupancy_frac and of the loss at every 250th logged
+step, and the two-sided exact Mann-Whitney p of the port's gather streams
+against the reference's and of one-hot against gather (RANK_P: "apart"
+under it, fixed before the first run).
+
+The hash grid's, as follows.
 
 Reads the streams committed under runs/hard_r5_hashgrid_diffuse_port/
 (`gather_sK.jsonl`, `onehot_sK.jsonl`: `chip_smoke.py --phases hash_init`,
@@ -35,7 +47,10 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "runs", "hard_r5_hashgrid_diffuse_port")
 REF = os.path.join(REPO, "runs", "hard_r5_hashgrid_diffuse_ref_streams")
+TRI_PORT = os.path.join(REPO, "runs", "hard_r3_triplane_prog_port")
+TRI_REF = os.path.join(REPO, "runs", "hard_r3_triplane_prog_ref_streams")
 FOG_DB = 39.0
+RANK_P = 0.05
 FINAL_STEP = 2500  # the config's train.steps: the final eval
 EVERY = 250
 WINDOW_STEP = 1000  # an early window: does the fog show there yet?
@@ -69,12 +84,79 @@ def fisher_greater(a, n1, b, n2):
                for i in range(a, min(k, n1) + 1)) / total
 
 
-def band(streams, step, key="occupancy_frac"):
+def band(streams, step, key="occupancy_frac", fmt=".4f"):
     vals = [w[step][key] for _, w, _ in streams if step in w]
-    return f"[{min(vals):.4f}, {max(vals):.4f}] ({len(vals)})" if vals else "-"
+    return f"[{min(vals):{fmt}}, {max(vals):{fmt}}] ({len(vals)})" if vals else "-"
+
+
+def mann_whitney(a, b):
+    """(U of a, two-sided exact p) of the Mann-Whitney rank test: the chance
+    under one shuffled pool that U lies as far from its centre (ties count
+    a half; the exact law is that of untied samples)."""
+    u = sum((x > y) + 0.5 * (x == y) for x in a for y in b)
+    n1, n2 = len(a), len(b)
+    # ways[k][j]: arrangements of k of the first and j of the second sample
+    # by the count of (first, second) pairs in which the first is larger
+    ways = [[[1] for _ in range(n2 + 1)]]
+    for k in range(1, n1 + 1):
+        row = [[1]]
+        for j in range(1, n2 + 1):
+            left, down = row[j - 1], ways[k - 1][j]
+            # the largest of the pool is a first-sample value (j pairs more)
+            # or a second-sample one
+            out = [0] * (k * j + 1)
+            for v, c in enumerate(down):
+                out[v + j] += c
+            for v, c in enumerate(left):
+                out[v] += c
+            row.append(out)
+        ways.append(row)
+    dist = ways[n1][n2]
+    total = math.comb(n1 + n2, n1)
+    centre = n1 * n2 / 2
+    far = sum(c for v, c in enumerate(dist) if abs(v - centre) >= abs(u - centre) - 1e-9)
+    return u, min(1.0, far / total)
+
+
+def triplane_main() -> int:
+    groups = {"port gather": group(os.path.join(TRI_PORT, "gather_s*.jsonl")),
+              "port one-hot": group(os.path.join(TRI_PORT, "onehot_s*.jsonl")),
+              "reference": group(os.path.join(TRI_REF, "stream_*.jsonl"))}
+    finals = {}
+    for tag, streams in groups.items():
+        done = [s for s in streams if s[2] is not None]
+        finals[tag] = [psnr for _, _, psnr in done]
+        if not done:
+            print(f"{tag}: no stream with a final eval")
+            continue
+        vals = finals[tag]
+        print(f"{tag}: {len(done)} streams, final psnr_test mean {sum(vals) / len(vals):.4f}, "
+              f"range [{min(vals):.4f}, {max(vals):.4f}]"
+              + (f"; {len(streams) - len(done)} without a final eval"
+                 if len(done) < len(streams) else ""))
+        print("  " + ", ".join(f"{name} {psnr:.4f}" for name, _, psnr in done))
+    steps = sorted({st for _, w, _ in groups["port gather"] for st in w})
+    print("step | " + " | ".join(f"{tag} occupancy_frac | {tag} loss" for tag in groups))
+    for st in [s for s in steps if s % EVERY == 0 or s == steps[-1]]:
+        cells = []
+        for streams in groups.values():
+            cells += [band(streams, st), band(streams, st, "loss", ".3e")]
+        print(f"{st:5d} | " + " | ".join(cells))
+    for a, b in (("port gather", "reference"), ("port one-hot", "port gather")):
+        if finals[a] and finals[b]:
+            u, p = mann_whitney(finals[a], finals[b])
+            print(f"{a} ({len(finals[a])}) against {b} ({len(finals[b])}): Mann-Whitney U = "
+                  f"{u:g} of {len(finals[a]) * len(finals[b])}, two-sided exact p = {p:.4f}: "
+                  f"{'apart' if p < RANK_P else 'not apart'} (apart under {RANK_P})")
+    return 0
 
 
 def main() -> int:
+    if sys.argv[1:] == ["--field", "triplane"]:
+        return triplane_main()
+    if sys.argv[1:] not in ([], ["--field", "hashgrid"]):
+        print(__doc__.split("\n\n")[1], file=sys.stderr)
+        return 2
     groups = {"port gather": group(os.path.join(PORT, "gather_s*.jsonl")),
               "port one-hot": group(os.path.join(PORT, "onehot_s*.jsonl")),
               "reference": group(os.path.join(REF, "stream_*.jsonl"))}

@@ -17,6 +17,12 @@
 # Writes <out>/metrics.jsonl and <out>/train.log; prints the log's steps
 # and the final metrics.  The full-size configs take 30-60 minutes on 8
 # CPU cores.
+#
+# A progressive triplane config (field_.tri_upsample_steps set) refuses
+# train.steps=0, so its initial state is drawn under its first stage's
+# config (field_.tri_resolution=<tri_init_resolution>,
+# field_.tri_upsample_steps=[], field_.tri_init_resolution=0): the state the
+# progressive run starts from, which both packages resume as stage 1.
 set -eu
 config=$1; state=$2; out=$3; shift 3
 overrides=()
@@ -24,9 +30,16 @@ for a in "$@"; do overrides+=(-o "$a"); done
 rm -rf "$out"
 mkdir -p "$out/checkpoints"
 if [[ $state == init ]]; then
+  stage0=()
+  r0=$(python3 -c 'import json, sys; f = json.load(open(sys.argv[1]))["field_"]
+print(f["tri_init_resolution"] if f.get("tri_upsample_steps") else "")' "$config")
+  if [[ -n $r0 ]]; then
+    stage0=(-o field_.tri_resolution="$r0" -o "field_.tri_upsample_steps=[]"
+            -o field_.tri_init_resolution=0)
+  fi
   python3 -m tnerf_torch.cli train --config "$config" --device cpu --out "$out/port_init" \
-    -o train.steps=0 -o train.assert_test_psnr_min=0 ${overrides[@]+"${overrides[@]}"} \
-    > "$out/port_init.log" 2>&1
+    ${overrides[@]+"${overrides[@]}"} -o train.steps=0 -o train.assert_test_psnr_min=0 \
+    ${stage0[@]+"${stage0[@]}"} > "$out/port_init.log" 2>&1
   cp "$out"/port_init/checkpoints/* "$out/checkpoints/"
 else
   cp "$state" "$(dirname "$state")/treedef.json" "$out/checkpoints/"
