@@ -100,7 +100,9 @@ def make_mesh(n_devices: int = -1, axis_name: str = "data", extra_axis: Optional
     n_extra2]), n_devices = -1 taking every rank the other axes leave.
     Needs the process group formed (`comm.init_group`) unless one rank is
     asked for; asks for no more ranks than exist, and for no fewer (a rank
-    left out of the mesh would have nothing to run)."""
+    left out of the mesh would have nothing to run).  `device` defaults to
+    this rank's card (`comm.rank_device("cuda")`), which raises where there
+    is none: the CPU is had only by passing device="cpu"."""
     have = comm.world_size()
     axes = [(axis_name, n_devices)]
     if extra_axis is not None and n_extra > 1:
@@ -119,8 +121,8 @@ def make_mesh(n_devices: int = -1, axis_name: str = "data", extra_axis: Optional
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: launch with "
                            "`python -m torch.distributed.run` (or call comm.init_group)")
-    if device is None:
-        device = comm.rank_device("cuda" if torch.cuda.is_available() else "cpu")
+    if device is None:  # the card, as every entry point defaults to; the CPU only when asked
+        device = comm.rank_device("cuda")
     return Mesh(axes, torch.device(device), sample_axis, model_axis)
 
 

@@ -4,6 +4,30 @@ streams under each lookup mode against the reference's.
 
     python3 tools/hash_init_band.py                   # the hash grid's fog
     python3 tools/hash_init_band.py --field triplane  # the progressive triplane
+    python3 tools/hash_init_band.py --from port       # both, from the port's weights
+
+`--from port` compares the two packages from the port's own step-0 state of
+seed 1337 (runs/hard_r5_hashgrid_diffuse_port_init/ and
+runs/hard_r3_triplane_prog_port_init/, the state the `fields` runs start
+from): the port's gather streams on the card (`port_streams/gather_sK.jsonl`,
+`chip_smoke.py --phases hash_port_init` / `tri_port_init`) against the
+reference's on the CPU (`ref_streams/stream_K.jsonl`,
+tools/reference_from_port_state.sh <config> <the state's npz> <out>
+train.seed=<1337 + K>).  For the hash grid it prints each side's fog count
+(FOG_DB), the one-sided Fisher exact p of the port's fog rate over the
+reference's, and the two-sided exact Mann-Whitney p of the clear runs'
+final test PSNRs where each side has at least MIN_CLEAR clear runs; for
+the triplane the two-sided exact Mann-Whitney p of the final test PSNRs.
+The two laws are "apart" where one of these p is under RANK_P (0.05, fixed
+before the first of these streams ran); a field whose laws are apart is
+held by `chip_smoke.py` to its one anchor run, not to the reference's band.
+Then, for each class, the band of the reference's committed streams
+(least and greatest final test PSNR widened by MARGIN_DB) and the port's
+runs inside it, and the gate `chip_smoke.reference_bands` holds the
+`fields` run to.  For the hash grid it also prints the two-sided exact
+Mann-Whitney p of the fogged runs' final test PSNRs: a comparison added
+after the port's streams were read, so not one of the tests above, which
+decide "apart".
 
 The triplane's streams (runs/hard_r3_triplane_prog_port/ and
 runs/hard_r3_triplane_prog_ref_streams/, `chip_smoke.py --phases tri_init`
@@ -22,9 +46,9 @@ runs/hard_r5_hashgrid_diffuse/config.json trained by the port on the card
 from runs/hard_r5_hashgrid_diffuse_init) and
 runs/hard_r5_hashgrid_diffuse_ref_streams/ (`stream_K.jsonl`:
 tools/hash_ref_streams.sh, the reference on the CPU from the same state).
-A stream is fogged when its final test PSNR (at FINAL_STEP, the config's
-last step) is under FOG_DB (the rule of `chip_smoke.HASH_FOG_DB`, fixed
-before the first run); a stream that has not reached FINAL_STEP is left
+A stream is fogged when its final test PSNR (at chip_smoke.FIELD_STEPS,
+the config's last step) is under FOG_DB (the rule of `chip_smoke.HASH_FOG_DB`, fixed
+before the first run); a stream that has not reached that step is left
 out of the counts.  It prints each group's streams and
 count, the band (least, greatest) of occupancy_frac over the clear and
 over the fogged streams of each group at every 250th logged step, the
@@ -33,46 +57,31 @@ clear port streams' band, how well a threshold on occupancy_frac at step
 WINDOW_STEP tells the port's fogged streams from the clear ones, and the
 one-sided Fisher exact p-values of the fog
 counts: port gather against the reference (is the port's rate higher?),
-one-hot against gather (is one-hot's rate lower?).  Needs only the
-standard library.
+one-hot against gather (is one-hot's rate lower?).  Reads the streams
+with `chip_smoke.committed_streams`; needs only the standard library.
 """
 
-import glob
-import json
 import math
 import os
-import re
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+from chip_smoke import (CONFIG_HASH, CONFIG_TRIPLANE, committed_streams,  # noqa: E402
+                        reference_bands)
+
 PORT = os.path.join(REPO, "runs", "hard_r5_hashgrid_diffuse_port")
 REF = os.path.join(REPO, "runs", "hard_r5_hashgrid_diffuse_ref_streams")
 TRI_PORT = os.path.join(REPO, "runs", "hard_r3_triplane_prog_port")
 TRI_REF = os.path.join(REPO, "runs", "hard_r3_triplane_prog_ref_streams")
+HASH_PORT_INIT = os.path.join(REPO, "runs", "hard_r5_hashgrid_diffuse_port_init")
+TRI_PORT_INIT = os.path.join(REPO, "runs", "hard_r3_triplane_prog_port_init")
 FOG_DB = 39.0
+MARGIN_DB = 1.5  # chip_smoke.TRAIN_PSNR_MARGIN_DB: a band is the streams' range widened by it
 RANK_P = 0.05
-FINAL_STEP = 2500  # the config's train.steps: the final eval
+MIN_CLEAR = 3  # clear runs a side needs before their PSNRs are compared
 EVERY = 250
 WINDOW_STEP = 1000  # an early window: does the fog show there yet?
-
-
-def records(path):
-    with open(path) as fh:
-        return [json.loads(line) for line in fh if line.strip()]
-
-
-def stream(path):
-    """(name, {step: logged window}, final psnr_test or None)."""
-    recs = records(path)
-    tests = [r["psnr_test"] for r in recs if "psnr_test" in r and r["step"] == FINAL_STEP]
-    name = os.path.splitext(os.path.basename(path))[0]
-    return name, {r["step"]: r for r in recs if "loss" in r}, (tests[-1] if tests else None)
-
-
-def group(pattern):
-    def key(p):
-        return int(re.findall(r"\d+", os.path.basename(p))[-1])
-    return [stream(p) for p in sorted(glob.glob(pattern), key=key)]
 
 
 def fisher_greater(a, n1, b, n2):
@@ -119,9 +128,9 @@ def mann_whitney(a, b):
 
 
 def triplane_main() -> int:
-    groups = {"port gather": group(os.path.join(TRI_PORT, "gather_s*.jsonl")),
-              "port one-hot": group(os.path.join(TRI_PORT, "onehot_s*.jsonl")),
-              "reference": group(os.path.join(TRI_REF, "stream_*.jsonl"))}
+    groups = {"port gather": committed_streams(TRI_PORT, "gather_s"),
+              "port one-hot": committed_streams(TRI_PORT, "onehot_s"),
+              "reference": committed_streams(TRI_REF)}
     finals = {}
     for tag, streams in groups.items():
         done = [s for s in streams if s[2] is not None]
@@ -151,15 +160,92 @@ def triplane_main() -> int:
     return 0
 
 
+def rank_test(tag, a, b):
+    """Print the two-sided exact Mann-Whitney p of a against b; its p."""
+    u, p = mann_whitney(a, b)
+    print(f"{tag}: port ({len(a)}) against the reference ({len(b)}): Mann-Whitney U = {u:g} of "
+          f"{len(a) * len(b)}, two-sided exact p = {p:.4f}: "
+          f"{'apart' if p < RANK_P else 'not apart'} (apart under {RANK_P})")
+    return p
+
+
+def from_port_main() -> int:
+    """Both table fields from the port's own step-0 state: each side's final
+    test PSNRs, the hash grid's fog counts, the laws' p values, the bands of
+    the reference's streams and the gate."""
+    for field, config, run_dir, fog_db in (
+            ("hash grid", CONFIG_HASH, HASH_PORT_INIT, FOG_DB),
+            ("triplane", CONFIG_TRIPLANE, TRI_PORT_INIT, None)):
+        sides = {"port": committed_streams(os.path.join(run_dir, "port_streams"), "gather_s"),
+                 "reference": committed_streams(os.path.join(run_dir, "ref_streams"))}
+        finals = {}
+        for tag, streams in sides.items():
+            done = [s for s in streams if s[2] is not None]
+            finals[tag] = vals = [psnr for _, _, psnr in done]
+            if not vals:
+                print(f"{field} {tag}: no stream with a final eval")
+                continue
+            fogged = (f", {sum(v < fog_db for v in vals)} fogged (under {fog_db} dB)"
+                      if fog_db is not None else "")
+            print(f"{field} {tag}: {len(vals)} streams{fogged}, final psnr_test mean "
+                  f"{sum(vals) / len(vals):.4f}, range [{min(vals):.4f}, {max(vals):.4f}]; "
+                  f"acc_mean at step 0 {band(streams, 0, 'acc_mean')}")
+            print("  " + ", ".join(f"{name} {psnr:.4f}" for name, _, psnr in done))
+        port, ref = finals["port"], finals["reference"]
+        if not (port and ref):
+            continue
+        apart = False
+        classes = {"all": (lambda v: True)}
+        if fog_db is not None:
+            classes = {"fogged": (lambda v: v < fog_db), "clear": (lambda v: v >= fog_db)}
+            fp, fr = sum(v < fog_db for v in port), sum(v < fog_db for v in ref)
+            p = fisher_greater(fp, len(port), fr, len(ref))
+            apart |= p < RANK_P
+            print(f"{field}: fogged port {fp}/{len(port)} against the reference {fr}/{len(ref)}: "
+                  f"one-sided Fisher p = {p:.4f} (the port's rate higher): "
+                  f"{'apart' if p < RANK_P else 'not apart'} (apart under {RANK_P})")
+            cp, cr = [v for v in port if v >= fog_db], [v for v in ref if v >= fog_db]
+            if min(len(cp), len(cr)) >= MIN_CLEAR:
+                apart |= rank_test(f"{field} clear runs", cp, cr) < RANK_P
+            else:
+                print(f"{field} clear runs: {len(cp)} port, {len(cr)} reference: fewer than "
+                      f"{MIN_CLEAR} on a side, not compared")
+        else:
+            apart |= rank_test(field, port, ref) < RANK_P
+        print(f"{field}: the laws are {'APART' if apart else 'not apart'} by the tests fixed "
+              "before the run")
+        if fog_db is not None:
+            rank_test(f"{field} fogged runs (added after the port's streams were read)",
+                      [v for v in port if v < fog_db], [v for v in ref if v < fog_db])
+        for cls, member in classes.items():
+            vals = [v for v in ref if member(v)]
+            mine = [v for v in port if member(v)]
+            if not vals:
+                print(f"{field} {cls} streams: the reference showed none: no band "
+                      f"({len(mine)} port runs)")
+                continue
+            lo, hi = min(vals) - MARGIN_DB, max(vals) + MARGIN_DB
+            out = [v for v in mine if not lo <= v <= hi]
+            print(f"{field} {cls} streams: band [{lo:.4f}, {hi:.4f}] over {len(vals)} reference "
+                  f"streams; {len(mine) - len(out)} of {len(mine)} port runs inside")
+        lo, hi, n = reference_bands(config)
+        inside = sum(lo <= v <= hi for v in port)
+        print(f"{field} gate (chip_smoke.reference_bands): [{lo:.4f}, {hi:.4f}] over {n} "
+              f"reference runs; {inside} of {len(port)} port runs inside")
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:] == ["--field", "triplane"]:
         return triplane_main()
+    if sys.argv[1:] == ["--from", "port"]:
+        return from_port_main()
     if sys.argv[1:] not in ([], ["--field", "hashgrid"]):
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 2
-    groups = {"port gather": group(os.path.join(PORT, "gather_s*.jsonl")),
-              "port one-hot": group(os.path.join(PORT, "onehot_s*.jsonl")),
-              "reference": group(os.path.join(REF, "stream_*.jsonl"))}
+    groups = {"port gather": committed_streams(PORT, "gather_s"),
+              "port one-hot": committed_streams(PORT, "onehot_s"),
+              "reference": committed_streams(REF)}
     counts = {}
     for tag, streams in groups.items():
         done = [s for s in streams if s[2] is not None]
